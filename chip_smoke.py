@@ -3,35 +3,46 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``vattention_tpu_torch/csrc``
-(one nvcc per source, in parallel), then runs three phases; any failure
+Builds the port's five CUDA kernels from ``vattention_tpu_torch/csrc``
+(one nvcc per source, in parallel), then runs its phases; any failure
 raises and the script exits non-zero without printing a result.
 
-(a) Kernels at the main path's shapes (Yi-6B-200K geometry, bf16, the
-    2048-token blocks the allocator gives fa_vattn_2mb): each kernel is held
-    against its plain PyTorch version on the same inputs and timed beside
-    that version, a one-call library yardstick and its roofline bound.
+(a) Kernels at the main paths' shapes (Yi-6B-200K geometry, bf16, the
+    2048-token blocks the allocator gives fa_vattn_2mb; for the paged
+    prefill kernel E, blocks of 16 and 256 tokens drawn as a seeded
+    permutation of the pool, every table entry past a run's last valid
+    block set to 2**30): each kernel is held against its plain PyTorch
+    version on the same inputs and timed beside that version, a one-call
+    library yardstick and its roofline bound.  E is also held against
+    kernel B on the same rows (the same body: expected bit for bit), and
+    kernel C is timed over 16-token blocks as the paged engine calls it.
     Tolerances: kv_append and arena_relocate bit for bit; prefill and
     decode attention within atol = rtol = 2e-2 in bf16 (one bf16 rounding
     of outputs of magnitude ~1, summed in another order) and, for each
     output row (a query token or decode slot), a max error within 2^-6 of
     that row's largest output (deep outputs are small, so 2e-2 alone
     would let a wrong kernel through).
-(b) f32 parity: tiny-llama-debug, float32, fa_vattn, sarathi chunk 128 on
-    the two-prompt workload of tests/test_e2e.py; the engine's greedy
-    tokens must equal a dense full-recompute reference's.
+(b) f32 parity: tiny-llama-debug, float32, sarathi chunk 128 on the
+    two-prompt workload of tests/test_e2e.py, through fa_vattn and then
+    (b') fa_paged_16; the engine's greedy tokens must equal a dense
+    full-recompute reference's.
 (c) Serving at full width: yi-6b-200k (32 layers, bf16, random weights
     from a seed) through LLMEngine with fa_vattn_2mb, sarathi chunk 512,
     max_model_len 8192, max_batch_size 8: 8 requests of seeded prompt
     lengths in [1024, 4096] and 32 greedy tokens each, the launch counts
     zeroed just before and read just after.  kv_append, prefill and
-    decode attention must have launched; arena_relocate launches once per
-    relocation the allocator plans, and at these sizes it plans none (a
-    request spans at most 4 blocks and may hold 8 extents), so phase (a)
-    is what holds it.  Then 2 short prompts whose first token is held
-    against a dense float32 reference on the same bf16 weights.  Last, 4
-    more requests run under torch.profiler for a breakdown of device time
-    and idle share, lines "(p)".
+    decode attention must have launched, the paged prefill not;
+    arena_relocate launches once per relocation the allocator plans, and
+    at these sizes it plans none (a request spans at most 4 blocks and
+    may hold 8 extents), so phase (a) is what holds it.  Then 2 short
+    prompts whose first token is held against a dense float32 reference
+    on the same bf16 weights.  Last, 4 more requests run under
+    torch.profiler for a breakdown of device time and idle share, lines
+    "(p)".
+(d) The same through a fresh engine with fa_paged_256 (the (c) engine
+    freed first): kv_append, paged prefill and decode attention must
+    have launched, prefill_attention and arena_relocate not; the tokens
+    are compared with (c)'s and the short prompts held as in (c).
 
 Prints the phase results, then ``{"kernels": [...]}``, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
@@ -39,6 +50,7 @@ power limit, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -304,6 +316,8 @@ def kernel_phase(dev):
         shape=f"B=8 depths {seqlens_l}, Hq={HQ} Hkv={HKV} D={D} bf16"))
     del kpad, vpad
 
+    results.append(paged_kernels(dev, cache, R, timer, randn, layer))
+
     # -- D: a chained plan from the allocator in strict mode
     plan, live = strict_relocation_plan(L, HKV, D, es)
     n_moves = len(plan.moves)
@@ -355,6 +369,159 @@ def kernel_phase(dev):
             f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
             f"({r['bound_by']})")
     return results
+
+
+def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
+    """(a) for the paged engine: kernel E at blocks of 16 and 256 tokens
+    over the first ``pool_rows`` rows of ``cache``, E against B on the
+    same rows, and kernel C over 16-token blocks.  Returns E's result at
+    256-token blocks (fa_paged_256, the engine of phase (d))."""
+    from vattention_tpu_torch.ops import (flash_decode, flash_prefill,
+                                          paged_attention)
+    from vattention_tpu_torch.ops.utils import cdiv
+
+    HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
+    es = 2
+    sm = D ** -0.5
+    pad = 128
+    poison = 2 ** 30
+    rng = np.random.default_rng(1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def tables_for(depths, bs):
+        """Block tables of a seeded permutation of the pool, one row per
+        depth, 8192 // bs wide, 2**30 past each row's last valid block."""
+        perm = rng.permutation(pool_rows // bs)
+        tables = np.full((len(depths), 8192 // bs), poison, np.int32)
+        used = 0
+        for r, n in enumerate(depths):
+            k = cdiv(n, bs)
+            tables[r, :k] = perm[used:used + k]
+            used += k
+        return torch.from_numpy(tables).to(dev)
+
+    # K=4 runs (q_start, kv_len, chunk) and the empty run a tail tile maps to
+    runs = [(3584, 4096, 512), (0, 128, 128), (2000, 2100, 100), (0, 60, 60)]
+    qt_run, offs, off = [], [], 0
+    for r, (_, _, chunk) in enumerate(runs):
+        offs.append(off)
+        qt_run += [(r, i) for i in range(cdiv(chunk, pad))]
+        off += cdiv(chunk, pad) * pad
+    qt_run.append((len(runs), 0))
+    qt_run = torch.tensor(qt_run, dtype=torch.int32, device=dev)
+    depths = [n for _, n, _ in runs] + [0]
+    qinfo = torch.tensor([(q0, n) for q0, n, _ in runs] + [(0, 0)],
+                         dtype=torch.int32, device=dev)
+    q = randn(qt_run.shape[0] * pad, HQ, D)
+    # the timed case: chunk 512 at kv_len 4096 alone, as kernel B's
+    qt_run1 = torch.tensor([[0, i] for i in range(4)], dtype=torch.int32,
+                           device=dev)
+    qinfo1 = torch.tensor([[3584, 4096], [0, 0]], dtype=torch.int32,
+                          device=dev)
+    pos = torch.arange(4096, device=dev)
+    mask = (3584 + torch.arange(512, device=dev))[:, None] >= pos[None, :]
+    b_ms, b_by = bound((2 * 512 * HQ * D + 4096 * 2 * HKV * D) * es,
+                       4 * HQ * D * int(mask.sum().item()))
+    out = None
+    for bs in (16, 256):
+        tables = tables_for(depths, bs)
+        args = (q, cache, qt_run, qinfo, tables, layer)
+        kw = dict(block_size=bs, pad_tile=pad, sm_scale=sm)
+        got = paged_attention.paged_prefill_attention(*args, **kw)
+        ref = paged_attention.paged_prefill_attention_plain(*args, **kw)
+        # kernel B on the same rows: the block table as a row table
+        rows_b = paged_attention.paged_tile_rows(
+            torch.where(tables == poison, 0, tables), qinfo[:, 1], bs)
+        got_b = flash_prefill.prefill_attention(
+            q, cache, qt_run, qinfo, rows_b, layer, sub=bs, pad_tile=pad,
+            sm_scale=sm)
+        torch.cuda.synchronize()
+        if got[off:].abs().max().item() != 0.0:
+            raise AssertionError(
+                f"paged prefill bs {bs}: the empty run's tile is not zero")
+        err, checks = 0.0, []
+        for r, (q0, n, chunk) in enumerate(runs):
+            e, rel = check_attention(
+                f"paged prefill bs {bs}, run {r}",
+                got[offs[r]:offs[r] + chunk], ref[offs[r]:offs[r] + chunk],
+                PREFILL_TOL)
+            checks.append(f"chunk {chunk} at kv_len {n}: {e} "
+                          f"(row worst {rel:.5f})")
+            err = max(err, e)
+        vs_b = (got - got_b).abs().max().item()
+        log(f"(a) paged_prefill_attention bs {bs}, tables poisoned past "
+            f"each run's last block: " + "; ".join(checks)
+            + f"; max |E - B| on the same rows {vs_b}")
+        t1 = (q[:512], cache, qt_run1, qinfo1,
+              tables_for([4096, 0], bs), layer)
+        grow = paged_attention.block_rows(t1[4][0], 4096, bs)
+        kg = cache[layer, 0][:, grow][None]
+        vg = cache[layer, 1][:, grow][None]
+        qg = q[:512].transpose(0, 1)[None]
+        res = dict(
+            name="paged_prefill_attention", route="cuda",
+            source="vattention_tpu_torch/csrc/paged_prefill_attention.cu",
+            replaces="vattention_tpu/ops/paged_attention.py:107",
+            max_abs_err=err,
+            ms=timer(lambda: paged_attention.paged_prefill_attention(
+                *t1, **kw)),
+            plain_ms=timer(
+                lambda: paged_attention.paged_prefill_attention_plain(
+                    *t1, **kw), iters=3),
+            library_ms=timer(lambda: sdpa(qg, kg, vg, attn_mask=mask,
+                                          enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"chunk 512 at kv_len 4096 over {bs}-token blocks, "
+                  f"Hq={HQ} Hkv={HKV} D={D} bf16")
+        del kg, vg
+        log(f"(a) paged_prefill_attention: {res['shape']}: ms "
+            f"{res['ms']:.4f} plain {res['plain_ms']:.4f} library "
+            f"{res['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
+        out = res
+
+    # kernel C over 16-token blocks: B=8 at depths 0..4096
+    bs = 16
+    seqlens_l = [0, 1, 17, 512, 1000, 2048, 3000, 4096]
+    seqlens = torch.tensor(seqlens_l, dtype=torch.int32, device=dev)
+    tables = tables_for(seqlens_l, bs)
+    qd = randn(8, HQ, D)
+    dargs = (qd, cache, tables, seqlens, layer)
+    dkw = dict(block_size=bs, sm_scale=sm)
+    got = paged_attention.paged_decode_attention(*dargs, **dkw)
+    rows = paged_attention.paged_tile_rows(tables, seqlens, bs)
+    cargs = (qd, cache, rows, seqlens, layer)
+    ckw = dict(sub=bs, sm_scale=sm)
+    ref = flash_decode.decode_attention_plain(*cargs, **ckw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all() or got[0].abs().max().item() != 0.0:
+        raise AssertionError("paged decode: the seqlen-0 slot is not zero")
+    err = 0.0
+    for b, n in enumerate(seqlens_l):
+        if n:
+            e, _ = check_attention(f"paged decode slot {b} at depth {n}",
+                                   got[b:b + 1], ref[b:b + 1], DECODE_TOL)
+            err = max(err, e)
+    kpad = torch.zeros((8, HKV, 4096, D), dtype=torch.bfloat16, device=dev)
+    vpad = torch.zeros_like(kpad)
+    for b, n in enumerate(seqlens_l):
+        if n:
+            r = paged_attention.block_rows(tables[b], n, bs)
+            kpad[b, :, :n] = cache[layer, 0][:, r]
+            vpad[b, :, :n] = cache[layer, 1][:, r]
+    dmask = (torch.arange(4096, device=dev)[None, :]
+             < seqlens[:, None])[:, None, None, :]
+    c_bound, c_by = bound((sum(seqlens_l) * 2 * HKV * D + 2 * 8 * HQ * D)
+                          * es + 8 * 4, 4 * HQ * D * sum(seqlens_l))
+    ms = timer(lambda: flash_decode.decode_attention(*cargs, **ckw))
+    plain_ms = timer(lambda: flash_decode.decode_attention_plain(
+        *cargs, **ckw), iters=3)
+    library_ms = timer(lambda: sdpa(qd[:, :, None], kpad, vpad,
+                                    attn_mask=dmask, enable_gqa=True))
+    log(f"(a) decode_attention over {bs}-token blocks (sub={bs}), B=8 "
+        f"depths {seqlens_l}: max_abs_err {err} ms {ms:.4f} plain "
+        f"{plain_ms:.4f} library {library_ms:.4f} bound {c_bound:.4f} "
+        f"({c_by})")
+    return out
 
 
 def strict_relocation_plan(L, HKV, D, es, seed=0, blocks=14):
@@ -478,12 +645,12 @@ def fresh_metrics():
 # --------------------------------------------------------------------- #
 # (b) f32 parity
 # --------------------------------------------------------------------- #
-def parity_phase(dev):
+def parity_phase(dev, backend, tag):
     from vattention_tpu_torch import LLMEngine
 
     fresh_metrics()
     engine = LLMEngine.from_engine_args(
-        model="tiny-llama-debug", dtype="float32", attention_backend="fa_vattn",
+        model="tiny-llama-debug", dtype="float32", attention_backend=backend,
         scheduler_type="sarathi", max_model_len=512, max_batch_size=4,
         max_num_seqs=4, chunk_size=128, gpu_memory_utilization=0.9)
     rng = np.random.default_rng(5)
@@ -499,21 +666,28 @@ def parity_phase(dev):
         expect = ids[len(prompts[seq_id]):]
         if got[seq_id] != expect:
             raise AssertionError(
-                f"(b) {seq_id}: engine {got[seq_id]} != dense {expect}")
-        log(f"(b) f32 parity {seq_id}: engine == dense {expect}")
+                f"({tag}) {seq_id}: engine {got[seq_id]} != dense {expect}")
+        log(f"({tag}) f32 parity, {backend}, {seq_id}: engine == dense "
+            f"{expect}")
     engine.cleanup()
 
 
 # --------------------------------------------------------------------- #
 # (c) full-width serving
 # --------------------------------------------------------------------- #
-def serving_phase(dev, kernels):
+def serving_phase(dev, kernels, backend, tag, required, idle,
+                  reference=None):
+    """Serve the 8 requests through a fresh full-width engine on
+    ``backend``; the kernels named in ``required`` must launch in that run
+    and those in ``idle`` must not.  Returns the launch counts and the
+    tokens; with ``reference`` (another run's tokens) prints how many
+    agree."""
     from vattention_tpu_torch import LLMEngine
     from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
 
     fresh_metrics()
     engine = LLMEngine.from_engine_args(
-        model="yi-6b-200k", dtype="bfloat16", attention_backend="fa_vattn_2mb",
+        model="yi-6b-200k", dtype="bfloat16", attention_backend=backend,
         scheduler_type="sarathi", chunk_size=512, max_model_len=8192,
         max_batch_size=8, max_num_seqs=8, seed=0)
     rng = np.random.default_rng(0)
@@ -532,28 +706,37 @@ def serving_phase(dev, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k.symbol: k.launches for k in kernels}
-    moves = cache_engine.pending_moves
+    moves = getattr(cache_engine, "pending_moves", 0)
     n_gen = sum(len(v) for v in out.values())
     n_prompt = int(lens.sum())
     if len(out) != 8 or n_gen != 8 * 32:
-        raise AssertionError(f"(c) served {len(out)} requests, {n_gen} tokens")
-    log(f"(c) served {len(out)} requests in {stats['steps']} steps: prompt "
-        f"tokens {n_prompt} (lengths {lens.tolist()}), generated tokens "
-        f"{n_gen}, wall {wall:.3f} s, {n_gen / wall:.2f} generated tok/s, "
+        raise AssertionError(
+            f"({tag}) served {len(out)} requests, {n_gen} tokens")
+    log(f"({tag}) {backend}: served {len(out)} requests in {stats['steps']} "
+        f"steps: prompt tokens {n_prompt} (lengths {lens.tolist()}), "
+        f"generated tokens {n_gen}, wall {wall:.3f} s, "
+        f"{n_gen / wall:.2f} generated tok/s, "
         f"{(n_prompt + n_gen) / wall:.2f} processed tok/s")
-    log("(c) launches in the 8-request run: "
+    log(f"({tag}) launches in the 8-request run: "
         + ", ".join(f"{s} {n}" for s, n in counts.items())
         + f"; the allocator planned {moves} block moves")
-    relocate = ARENA_RELOCATE.symbol
-    if min(n for s, n in counts.items() if s != relocate) <= 0:
-        raise AssertionError(f"(c) a kernel never launched: {counts}")
+    if any(counts[k.symbol] <= 0 for k in required):
+        raise AssertionError(f"({tag}) a kernel never launched: {counts}")
+    if any(counts[k.symbol] > 0 for k in idle):
+        raise AssertionError(f"({tag}) a kernel of another path launched: "
+                             f"{counts}")
     # kernel D runs once per non-empty relocation plan.  A request here
     # spans at most 4 blocks of 2048 tokens (max_model_len 8192) and may
     # hold 8 extents, so the allocator grows it without a copy and D has
-    # nothing to do; phase (a) holds D at this path's shapes
+    # nothing to do; phase (a) holds D at this path's shapes.  The paged
+    # pool never relocates.
+    relocate = ARENA_RELOCATE.symbol
     if (counts[relocate] > 0) != (moves > 0):
-        raise AssertionError(f"(c) {moves} block moves but {relocate} "
+        raise AssertionError(f"({tag}) {moves} block moves but {relocate} "
                              f"launched {counts[relocate]} times")
+    if reference is not None:
+        same = sum(a == b for s in out for a, b in zip(out[s], reference[s]))
+        log(f"({tag}) {same} of {n_gen} generated tokens equal (c)'s")
 
     # 2 short prompts: first token against a dense f32 reference
     short = [(f"p{i}", rng.integers(1, 64000, n).tolist(), 1)
@@ -565,17 +748,17 @@ def serving_phase(dev, kernels):
         logits = dense_logits(runner.model, runner.params, ids, dev)
         tok = first[seq_id][0]
         gap = float(logits.max() - logits[tok])
-        log(f"(c) {seq_id} ({len(ids)} tokens): engine token {tok}, dense "
-            f"top {int(logits.argmax())}, logit gap {gap:.5f} "
+        log(f"({tag}) {seq_id} ({len(ids)} tokens): engine token {tok}, "
+            f"dense top {int(logits.argmax())}, logit gap {gap:.5f} "
             f"(tolerance {LOGIT_GAP_TOL})")
         if not gap <= LOGIT_GAP_TOL:
-            raise AssertionError(f"(c) {seq_id}: logit gap {gap}")
-    profile_serving(engine, rng)
+            raise AssertionError(f"({tag}) {seq_id}: logit gap {gap}")
+    profile_serving(engine, rng, tag)
     engine.cleanup()
-    return counts
+    return counts, out
 
 
-def profile_serving(engine, rng):
+def profile_serving(engine, rng, tag):
     """Where the serving time goes: 4 requests of 2048 prompt tokens and 16
     greedy tokens under torch.profiler; device time by kernel family and
     the device's busy share of the wall time (one stream, no overlap)."""
@@ -596,25 +779,27 @@ def profile_serving(engine, rng):
                and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in kernels)
     if not kernels:
-        log(f"(p) the profiler recorded no device time (wall "
+        log(f"(p {tag}) the profiler recorded no device time (wall "
             f"{wall * 1e3:.1f} ms)")
         return
-    families = {"port kernels A-D": 0.0, "matmul": 0.0, "other": 0.0}
+    families = {"port kernels A-E": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         if any(s in name for s in ("kv_append_kernel", "prefill_attention",
-                                   "decode_attention", "arena_relocate")):
-            families["port kernels A-D"] += ms
+                                   "decode_partial", "decode_merge",
+                                   "arena_relocate")):
+            families["port kernels A-E"] += ms
         elif any(s in name.lower() for s in ("gemm", "gemv", "xmma", "nvjet",
                                              "cutlass", "matmul")):
             families["matmul"] += ms
         else:
             families["other"] += ms
-    log(f"(p) profiled 4 x (2048 + 16) tokens: wall {wall * 1e3:.1f} ms, "
+    log(f"(p {tag}) profiled 4 x (2048 + 16) tokens: wall "
+        f"{wall * 1e3:.1f} ms, "
         f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), "
         f"idle {100 - 100 * busy / (wall * 1e3):.1f}%; "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in families.items()))
     for name, ms, count in sorted(kernels, key=lambda r: -r[1])[:8]:
-        log(f"(p)   {ms:9.2f} ms {count:6d} x {name[:90]}")
+        log(f"(p {tag})   {ms:9.2f} ms {count:6d} x {name[:90]}")
 
 
 # --------------------------------------------------------------------- #
@@ -628,6 +813,8 @@ def main() -> int:
         from vattention_tpu_torch.ops.cache_append import KV_APPEND
         from vattention_tpu_torch.ops.flash_decode import DECODE_ATTENTION
         from vattention_tpu_torch.ops.flash_prefill import PREFILL_ATTENTION
+        from vattention_tpu_torch.ops.paged_attention import (
+            PAGED_PREFILL_ATTENTION)
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})",
               file=sys.stderr)
@@ -637,19 +824,35 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     secs = cuda_build.build_all()
     log(f"built {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
         f"(per source: {', '.join(f'{k} {v:.1f}' for k, v in secs.items())})")
 
-    kernels = [KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION, ARENA_RELOCATE]
+    kernels = [KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION, ARENA_RELOCATE,
+               PAGED_PREFILL_ATTENTION]
     results = kernel_phase(dev)
-    parity_phase(dev)
-    counts = serving_phase(dev, kernels)
+    parity_phase(dev, "fa_vattn", "b")
+    parity_phase(dev, "fa_paged_16", "b'")
+    counts_c, tokens_c = serving_phase(
+        dev, kernels, "fa_vattn_2mb", "c",
+        required=[KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[PAGED_PREFILL_ATTENTION])
+    # free the (c) engine's memory before the paged engine sizes its pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_d, _ = serving_phase(
+        dev, kernels, "fa_paged_256", "d",
+        required=[KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[PREFILL_ATTENTION, ARENA_RELOCATE], reference=tokens_c)
 
+    # launches: E's from the paged run (d), A-D's from the vattn run (c)
     for r in results:
-        r["launches"] = counts[next(k.symbol for k in kernels
-                                    if k.source == r["name"])]
+        k = next(k for k in kernels if k.source == r["name"])
+        r["launches"] = (counts_d if k is PAGED_PREFILL_ATTENTION
+                         else counts_c)[k.symbol]
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, "
+        "the kernels' build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     smi = subprocess.run(

@@ -3,7 +3,8 @@
 The port keeps its own copies of the schedulers, block-space managers,
 sequence types and the Python allocator; these tests hold the copies to
 the originals: the same request trace gives identical SchedulerOutputs
-under each of the five schedulers, and the same allocator workload gives
+under each of the five schedulers and both block-space managers (arena
+and block table), and the same allocator workload gives
 identical segment tables and relocation plans at every step.
 """
 
@@ -20,7 +21,7 @@ def _mod(pkg, name):
     return importlib.import_module(f"{pkg}.{name}")
 
 
-def scheduler_trace(pkg, sched_type, blocks):
+def scheduler_trace(pkg, sched_type, blocks, backend="fa_vattn"):
     """Drive one package's scheduler over a fixed request trace, applying
     the engine's post-step transitions; returns every step's outputs as
     plain tuples."""
@@ -43,21 +44,25 @@ def scheduler_trace(pkg, sched_type, blocks):
         config.SchedulerType(sched_type), cfg_cls(**kw),
         config.CacheConfig(block_size=64, num_gpu_blocks=blocks))
     sched.set_block_manager(config.ModelConfig(
-        model="tiny-llama-debug", attention_backend="fa_vattn"))
+        model="tiny-llama-debug", attention_backend=backend))
     if hasattr(sched.block_manager, "set_free_blocks"):
         sched.block_manager.set_free_blocks(blocks)
     rng = np.random.default_rng(3)
+    seqs = {}
     for i in range(7):
         n = int(rng.integers(20, 700))
-        sched.add_seq(seq_mod.Sequence(
+        seqs[f"q{i}"] = seq_mod.Sequence(
             f"q{i}", None, list(range(1, n + 1)), 64, -1, 0.0,
             sp(temperature=0.0, max_tokens=int(rng.integers(2, 40)),
-               ignore_eos=True)))
+               ignore_eos=True))
+        sched.add_seq(seqs[f"q{i}"])
     log = []
     for _ in range(400):
         if not sched.has_unfinished_seqs():
             break
         out = sched.schedule()
+        for seq_id in out.preempted_seq_ids:
+            seqs[seq_id].reset_for_recompute()
         log.append((
             [(m.seq_id, m.is_prompt, m.prompt_chunk_len)
              for m in out.scheduled_seq_metadata_list],
@@ -79,9 +84,12 @@ def scheduler_trace(pkg, sched_type, blocks):
 @pytest.mark.parametrize("sched_type", ["sarathi", "vllm", "simple_chunking",
                                         "orca", "faster_transformer"])
 @pytest.mark.parametrize("blocks", [12, 64])
-def test_scheduler_outputs_identical(sched_type, blocks):
-    """blocks=12 runs under memory pressure (preemption); 64 does not."""
-    jax_log, torch_log = (scheduler_trace(p, sched_type, blocks)
+@pytest.mark.parametrize("backend", ["fa_vattn", "fa_paged_16"])
+def test_scheduler_outputs_identical(sched_type, blocks, backend):
+    """blocks=12 runs under memory pressure (preemption); 64 does not.
+    fa_vattn accounts with the arena's block-space manager, fa_paged_16
+    with the scheduler's own block-table manager."""
+    jax_log, torch_log = (scheduler_trace(p, sched_type, blocks, backend)
                           for p in PACKAGES)
     assert len(jax_log) > 3
     assert torch_log == jax_log

@@ -5,7 +5,9 @@ without one they skip.  Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -p no:xdist -q
 
-Tolerances: kv_append and arena_relocate move bytes and must match
+Kernels E (paged prefill) and C over block tables read tables poisoned
+past each run's or slot's last valid block.  Tolerances: kv_append and
+arena_relocate move bytes and must match
 exactly; the attention kernels sum in another order than the plain
 versions' full softmax, so float32 is held to 1e-4 and bfloat16 outputs
 (rounded once) to 2e-2.
@@ -22,6 +24,9 @@ from vattention_tpu_torch.ops.flash_decode import (decode_attention,
                                                    decode_attention_plain)
 from vattention_tpu_torch.ops.flash_prefill import (prefill_attention,
                                                     prefill_attention_plain)
+from vattention_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, paged_prefill_attention,
+    paged_prefill_attention_plain)
 from vattention_tpu_torch.ops.utils import tile_rows_from_segments
 
 pytestmark = pytest.mark.cuda
@@ -143,3 +148,66 @@ def test_prefill_attention_matches_plain(dev, dtype):
         torch.testing.assert_close(got[lo:hi].float(),
                                    expect[lo:hi].float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("bs", [16, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_attention_matches_plain(dev, dtype, bs):
+    """Kernel E over permuted blocks, tables poisoned past each run's last
+    valid block (2**30: a read there faults), one 64-key tile spanning
+    four 16-token blocks."""
+    rng = np.random.default_rng(4)
+    cache = _cache(rng, dtype, dev)
+    pad = 128
+    perm = torch.from_numpy(rng.permutation(R // bs).astype(np.int32))
+    qinfo = torch.tensor([[300, 500], [0, 60], [0, 0]], dtype=torch.int32)
+    n0, n1 = -(-500 // bs), -(-60 // bs)
+    tables = torch.full((3, n0 + 2), 2 ** 30, dtype=torch.int32)
+    tables[0, :n0] = perm[:n0]
+    tables[1, :n1] = perm[n0:n0 + n1]
+    qt_run = torch.tensor([[0, 0], [0, 1], [1, 0], [2, 0]],
+                          dtype=torch.int32)
+    q = torch.from_numpy(
+        rng.standard_normal((4 * pad, HQ, D)).astype(np.float32)).to(dtype)
+    kw = dict(block_size=bs, pad_tile=pad, sm_scale=D ** -0.5)
+    expect = paged_prefill_attention_plain(q, cache.cpu(), qt_run, qinfo,
+                                           tables, 1, **kw)
+    got = paged_prefill_attention(q.to(dev), cache, qt_run.to(dev),
+                                  qinfo.to(dev), tables.to(dev), 1, **kw)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert torch.equal(got[3 * pad:], torch.zeros_like(got[3 * pad:]))
+    tol = TOL[dtype]
+    for lo, hi in ((0, 200), (2 * pad, 2 * pad + 60)):
+        torch.testing.assert_close(got[lo:hi].float(),
+                                   expect[lo:hi].float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_attention_matches_plain(dev, dtype):
+    """Kernel C at sub = 16 over clamped block rows, poisoned tails."""
+    rng = np.random.default_rng(5)
+    cache = _cache(rng, dtype, dev)
+    bs = 16
+    seqlens = torch.tensor([0, 1, 17, 1000], dtype=torch.int32)
+    perm = torch.from_numpy(rng.permutation(R // bs).astype(np.int32))
+    tables = torch.full((4, 64), 2 ** 30, dtype=torch.int32)
+    tables[0, 0] = 0
+    used = 0
+    for b, n in enumerate(seqlens.tolist()):
+        k = -(-n // bs)
+        tables[b, :k] = perm[used:used + k]
+        used += k
+    q = torch.from_numpy(
+        rng.standard_normal((4, HQ, D)).astype(np.float32)).to(dtype)
+    kw = dict(block_size=bs, sm_scale=D ** -0.5)
+    expect = paged_decode_attention(q, cache.cpu(), tables, seqlens, 1, **kw)
+    got = paged_decode_attention(q.to(dev), cache, tables.to(dev),
+                                 seqlens.to(dev), 1, **kw)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), expect.float(), atol=tol,
+                               rtol=tol)

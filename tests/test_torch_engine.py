@@ -121,8 +121,8 @@ def test_engine_defaults_to_cuda():
     dict(enable_async_execution=True),
     dict(kv_quant="fp8"),
     dict(kv_quant="int8"),
-    dict(attention_backend="fa_paged_128"),
     dict(attention_backend="fa_pod"),
+    dict(attention_backend="fa_pod_megacache"),
     dict(tensor_parallel_size=2),
     dict(model="mistral-7b"),
 ])
@@ -134,6 +134,44 @@ def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLMEngine.from_engine_args(**args)
     fresh_metrics()
+
+
+@pytest.mark.parametrize("backend", [
+    "fa_vattn_sync", "fi_vattn", "fa3_vattn_sync", "fa_vattn_megacache_sync",
+    "fa_streams_megacache", "fi_unpaged", "no_op", "fi_paged",
+    "fi_serial_paged_32"])
+def test_backends_route_as_the_jax_factory(backend):
+    """Each name reaches the cache engine the JAX factory gives it (the
+    contiguous-arena names and no_op the vattn arena, the rest the paged
+    pool), ``*_sync`` runs the allocator's synchronous step, and a short
+    request is served through it."""
+    from vattention_tpu.model_executor.attention import AttentionBackend as J
+
+    fresh_metrics()
+    engine = LLMEngine.from_engine_args(
+        model="tiny-llama-debug", dtype="float32", attention_backend=backend,
+        max_model_len=256, max_batch_size=2, device="cpu")
+    ce = engine.worker.cache_engine
+    vattn = J.is_vATTN(backend) or J.is_no_op(backend)
+    assert type(ce).__name__ == ("VAttnCacheEngine" if vattn
+                                 else "PagedCacheEngine")
+    assert getattr(ce, "sync_mode", False) == backend.endswith("_sync")
+    out = serve(engine, SamplingParams, {"r": list(range(1, 40))}, 3)
+    assert len(out["r"]) == 3
+    engine.cleanup()
+    fresh_metrics()
+
+
+@pytest.mark.parametrize("name,expect", [
+    ("fa_vattn_sync", "FA_VATTN_SYNC"), ("fa_vattn_2mb", "FA_VATTN"),
+    ("fa_vattn_megacache_sync_64kb", "FA_VATTN_MEGACACHE_SYNC"),
+    ("fa_pod_megacache", "FA_POD_MEGACACHE"),
+    ("fi_serial_paged_16", "FI_SERIAL_PAGED")])
+def test_backend_names_resolve_to_the_longest_match(name, expect):
+    from vattention_tpu_torch.model_executor.attention import (
+        AttentionBackend)
+
+    assert AttentionBackend.resolve(name) is AttentionBackend[expect]
 
 
 def test_dummy_weights_are_seeded_and_shaped():

@@ -74,11 +74,13 @@ class BaseLLMEngine:
         config.cache_config.memory_for_gpu = memory_for_kv
         self.worker.init_cache_engine()
 
-        # the scheduler's accounting granularity is the allocator's
-        # page-derived KV-block size
-        ce = self.worker.cache_engine
-        config.cache_config.block_size = ce.block_tokens
-        config.cache_config.num_gpu_blocks = ce.allocator.num_arena_blocks
+        # vattn arenas: the scheduler's accounting granularity is the
+        # allocator's page-derived KV-block size (the paged pool keeps the
+        # block size and count profiled above)
+        allocator = getattr(self.worker.cache_engine, "allocator", None)
+        if allocator is not None:
+            config.cache_config.block_size = allocator.block_tokens
+            config.cache_config.num_gpu_blocks = allocator.num_arena_blocks
 
         self.scheduler = SchedulerRegistry.get(
             config.scheduler_config.type, config.scheduler_config,

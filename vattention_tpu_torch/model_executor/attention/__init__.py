@@ -3,20 +3,18 @@
 ref: sarathi-lean/sarathi/model_executor/attention/__init__.py:36-201.
 The reference exposes 16 backend values spanning {FlashAttention,
 FlashInfer} x {paged, vattn-contiguous, megacache, POD-fused, streams}.
-The TPU build maps them onto Pallas kernel families:
+The port maps them onto its CUDA kernels:
 
-  *_VATTN*        -> vattention_tpu_torch.ops.{flash_prefill, flash_decode}
-                     over the contiguous arena (extent tables)
-  *_PAGED         -> block-table Pallas kernels (A/B baseline)
-  FA_POD*         -> fused prefill+decode kernel (ops/pod_fused.py)
-  FA_STREAMS*     -> serial alias of the vattn path (docs/PARITY.md
-                     P10).  TPU has no CUDA-stream analog for two
-                     concurrent kernel launches; the serial path's two
-                     fixed-signature pallas calls already sit in one
-                     XLA program, where decode's KV DMAs overlap
-                     prefill's MXU work -- the overlap the reference's
-                     streams wrapper buys with a second stream.
-                     Kernel-level fusion beyond that is FA_POD.
+  *_VATTN*, FI_UNPAGED, FA_STREAMS*
+                  -> the contiguous arena (vattn_backend.py): kernel B
+                     (ops/flash_prefill) and kernel C (ops/flash_decode)
+                     over host-resolved row tables.  The streams names are
+                     a serial alias of the vattn path, as in the JAX
+                     package (docs/PARITY.md P10).
+  *_PAGED         -> the paged pool (paged_backend.py), the A/B baseline:
+                     kernel E (ops/paged_attention) and kernel C over
+                     block tables
+  FA_POD*         -> not ported yet (ROADMAP Queue 1 item 11)
   NO_OP           -> skip attention (profiling)
 
 GPU-specific FA-vs-FI distinctions collapse (there is one kernel library
@@ -54,8 +52,12 @@ class AttentionBackend(enum.Enum):
         if isinstance(name, AttentionBackend):
             return name
         key = str(name).lower()
-        # strip page-size suffixes like "fa_vattn_2mb" / "fa_paged_256"
-        for backend in AttentionBackend:
+        # strip page-size suffixes like "fa_vattn_2mb" / "fa_paged_256";
+        # the longest matching name wins, so "fa_vattn_sync" is
+        # FA_VATTN_SYNC and not FA_VATTN with a suffix (the JAX package
+        # takes the first match in enum order and loses the _sync and
+        # _megacache variants, ROADMAP Queue 3)
+        for backend in sorted(AttentionBackend, key=lambda b: -len(b.value)):
             if key == backend.value or key.startswith(backend.value + "_"):
                 return backend
         raise ValueError(f"unknown attention backend {name!r}")

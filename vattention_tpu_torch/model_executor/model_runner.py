@@ -4,9 +4,12 @@ Counterpart of ``vattention_tpu/model_executor/model_runner.py``.
 ``_prepare_inputs`` builds the same fixed-layout numpy arrays as the JAX
 runner (prefill runs padded to the q tile and the region padded to one
 fixed width, tail tiles mapped to an empty run; decode tokens
-slot-indexed) and moves them to the device in one packed copy.  ``_step``
-is eager PyTorch: embed -> a Python loop over layers (one launch per layer
-and op, the attention ops being the port's CUDA kernels) -> sampler.
+slot-indexed) and moves them to the device in one packed copy.  The
+backend follows the cache engine as in the JAX runner: ``no_op`` skips
+attention, the vattn arena reads row tables, the paged pool block
+tables.  ``_step`` is eager PyTorch: embed -> a Python loop over layers
+(one launch per layer and op, the attention ops being the port's CUDA
+kernels) -> sampler.
 The step is synchronous: ``run`` returns this step's sampled tokens.
 """
 
@@ -24,6 +27,11 @@ from vattention_tpu_torch.core.datatypes.sequence import (
 from vattention_tpu_torch.logger import init_logger
 from vattention_tpu_torch.metrics.constants import CpuOperationMetrics
 from vattention_tpu_torch.metrics.metrics_store import MetricsStore
+from vattention_tpu_torch.model_executor.attention import AttentionBackend
+from vattention_tpu_torch.model_executor.attention.no_op_backend import (
+    NoOpAttentionBackend)
+from vattention_tpu_torch.model_executor.attention.paged_backend import (
+    PagedAttentionBackend)
 from vattention_tpu_torch.model_executor.attention.vattn_backend import (
     VattnAttentionBackend)
 from vattention_tpu_torch.model_executor.layers.sampler import (
@@ -31,6 +39,7 @@ from vattention_tpu_torch.model_executor.layers.sampler import (
 from vattention_tpu_torch.model_executor.models import get_model_class
 from vattention_tpu_torch.model_executor.step_inputs import StepInputs
 from vattention_tpu_torch.model_executor.weight_utils import load_weights
+from vattention_tpu_torch.ops.paged_attention import paged_tile_rows
 from vattention_tpu_torch.ops.utils import round_up, tile_rows_from_segments
 
 logger = init_logger(__name__)
@@ -63,11 +72,17 @@ class ModelRunner:
             config.scheduler_config.get_max_num_batched_tokens(
                 config.model_config.max_model_len), self.q_tile)
         self.B = config.cache_config.max_batch_size
-        self.backend = VattnAttentionBackend(
-            block_tokens=cache_engine.block_tokens,
-            max_context_len=config.model_config.max_model_len,
-            arena_rows=cache_engine.allocator.arena_tokens,
-            q_tile=self.q_tile)
+        if AttentionBackend.is_no_op(config.model_config.attention_backend):
+            self.backend = NoOpAttentionBackend()
+        elif cache_engine.kind == "vattn":
+            self.backend = VattnAttentionBackend(
+                block_tokens=cache_engine.block_tokens,
+                max_context_len=config.model_config.max_model_len,
+                arena_rows=cache_engine.allocator.arena_tokens,
+                q_tile=self.q_tile)
+        else:
+            self.backend = PagedAttentionBackend(
+                block_size=cache_engine.block_size, q_tile=self.q_tile)
         self.logprobs_top = config.model_config.max_logprobs
         self._metrics_store = MetricsStore.get_instance()
         self._generator = torch.Generator(device=device).manual_seed(seed)
@@ -148,14 +163,6 @@ class ModelRunner:
                 top_p[slot] = sp.top_p
                 top_k[slot] = sp.top_k
 
-        dec_seg_cum = np.zeros((B, ce.table_width + 1), np.int32)
-        dec_seg_cum[:, 1:] = np.cumsum(seg_tok_all, axis=1)
-        be = self.backend
-        dec_tile_rows = tile_rows_from_segments(
-            seg_row_all, dec_seg_cum, be.sub, be.n_sub)
-        pre_tile_rows = (tile_rows_from_segments(
-            pre_seg_row, pre_seg_cum, be.sub, be.n_sub) if prefills else None)
-
         for meta in decodes:
             seq = meta.seq
             slot = ce.slot_of(meta.seq_id)
@@ -171,6 +178,25 @@ class ModelRunner:
             top_p[slot] = sp.top_p
             top_k[slot] = sp.top_k
 
+        # the kernels' tables: arena rows of each sub-tile (vattn), or
+        # block ids for prefill and clamped block rows for decode (paged)
+        be = self.backend
+        dec_tile_rows = pre_tile_rows = pre_block_tables = None
+        if isinstance(be, VattnAttentionBackend):
+            dec_seg_cum = np.zeros((B, ce.table_width + 1), np.int32)
+            dec_seg_cum[:, 1:] = np.cumsum(seg_tok_all, axis=1)
+            dec_tile_rows = tile_rows_from_segments(
+                seg_row_all, dec_seg_cum, be.sub, be.n_sub)
+            if prefills:
+                pre_tile_rows = tile_rows_from_segments(
+                    pre_seg_row, pre_seg_cum, be.sub, be.n_sub)
+        elif isinstance(be, PagedAttentionBackend):
+            dec_tile_rows = paged_tile_rows(
+                torch.from_numpy(seg_row_all), torch.from_numpy(dec_seqlens),
+                be.block_size).numpy()
+            if prefills:
+                pre_block_tables = pre_seg_row
+
         inputs = StepInputs.from_host(
             self.device, token_ids=token_ids, positions=positions,
             append_rows=append_rows, dec_seqlens=dec_seqlens,
@@ -178,7 +204,7 @@ class ModelRunner:
             temperatures=temperatures, top_p=top_p, top_k=top_k,
             pre_qinfo=pre_qinfo if prefills else None,
             qt_run=qt_run if prefills else None,
-            pre_tile_rows=pre_tile_rows)
+            pre_tile_rows=pre_tile_rows, pre_block_tables=pre_block_tables)
         return inputs, n_pre
 
     # ------------------------------------------------------------------ #

@@ -12,6 +12,10 @@ slot-indexed):
 The kernels read host-resolved arena-row tables (``pre_tile_rows``,
 ``dec_tile_rows``) rather than the extent tables themselves, so the
 segment tables and the prefill run table of the JAX step are not carried.
+The paged engine's prefill kernel reads the runs' block tables
+(``pre_block_tables``, the JAX step's ``pre_seg_row``) instead of
+``pre_tile_rows``; its ``dec_tile_rows`` are its block tables times the
+block size, each entry clamped to the slot's last valid block.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ class StepInputs(NamedTuple):
     positions: torch.Tensor      # [T] int32
     append_rows: torch.Tensor    # [T] int32 arena row per token (-1 = skip)
     dec_seqlens: torch.Tensor    # [B] int32 (0 = not decoding this step)
-    dec_tile_rows: torch.Tensor  # [B, n_sub] int32
+    dec_tile_rows: Optional[torch.Tensor]  # [B, n_sub] int32 (None: no_op)
     sample_idx: torch.Tensor     # [B] int64 index into [T] (-1 = none)
     temperatures: torch.Tensor   # [B] float32
     top_p: torch.Tensor          # [B] float32
@@ -36,6 +40,8 @@ class StepInputs(NamedTuple):
     pre_qinfo: Optional[torch.Tensor] = None      # [K+1, 2] (q_start, kv_len)
     qt_run: Optional[torch.Tensor] = None         # [n_pre//q_tile, 2]
     pre_tile_rows: Optional[torch.Tensor] = None  # [K+1, n_sub] int32
+    # paged only: [K+1, NB] int32 block ids of each run
+    pre_block_tables: Optional[torch.Tensor] = None
 
     @classmethod
     def from_host(cls, device: torch.device, **arrays) -> "StepInputs":

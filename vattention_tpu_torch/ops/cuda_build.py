@@ -4,7 +4,8 @@ Each kernel source under ``vattention_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
 Libraries go to ``build/vattention_tpu_torch/`` at the repository root,
-named by a hash of their sources and flags, and are built at first use:
+named by a hash of their source, every header it includes from ``csrc/``
+(followed transitively) and the flags, and are built at first use:
 the first launch of any kernel compiles every source that is not built
 yet, one ``nvcc`` process per source, all started together.  Nothing is
 built or imported when this module is imported.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +29,7 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vattention_tpu_torch"
 SOURCES = ("kv_append", "prefill_attention", "decode_attention",
-           "arena_relocate")
+           "arena_relocate", "paged_prefill_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,9 +47,28 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> List[Path]:
+    """``<name>.cu`` and every header it includes with ``#include "..."``,
+    transitively, in the order first met."""
+    files: List[Path] = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo.extend(path.parent / inc
+                    for inc in _LOCAL_INCLUDE.findall(path.read_text()))
+    return files
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC_DIR / f"{name}.cu", CSRC_DIR / "common.cuh"):
+    for src in source_files(name):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

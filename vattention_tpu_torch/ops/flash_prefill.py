@@ -49,11 +49,11 @@ KERNEL_HEAD_DIM = 128
 KERNEL_ROWS = 64  # query rows (token, head) per block
 
 
-def prefill_attention_plain(q, kv_cache, qt_run, qinfo, tile_rows,
-                            layer: int, *, sub: int, pad_tile: int,
-                            sm_scale: float) -> torch.Tensor:
-    """Plain PyTorch version: per run, gather its live rows and run a full
-    float32 causal softmax."""
+def causal_prefill_plain(q, kv_cache, qt_run, qinfo, rows_of, layer: int, *,
+                         pad_tile: int, sm_scale: float) -> torch.Tensor:
+    """Plain PyTorch prefill over K runs: per run, gather the rows
+    ``rows_of(run, kv_len)`` of its positions [0, kv_len) and run a full
+    float32 causal softmax.  Shared by kernels B and E's plain versions."""
     Tq, Hq, D = q.shape
     Hkv = kv_cache.shape[2]
     G = Hq // Hkv
@@ -68,7 +68,7 @@ def prefill_attention_plain(q, kv_cache, qt_run, qinfo, tile_rows,
         tok = (tiles[:, None] * pad_tile + local[None, :]).reshape(-1)
         q_pos = (q_start + qt_run[tiles, 1][:, None] * pad_tile
                  + local[None, :]).reshape(-1)
-        rows = gather_rows(tile_rows[run], kv_len, sub)
+        rows = rows_of(run, kv_len)
         k = kv_cache[layer, 0][:, rows].float()           # [Hkv, kv_len, D]
         v = kv_cache[layer, 1][:, rows].float()
         qf = q[tok].float().reshape(-1, Hkv, G, D)
@@ -79,6 +79,42 @@ def prefill_attention_plain(q, kv_cache, qt_run, qinfo, tile_rows,
         o = torch.einsum("hgtk,hkd->thgd", torch.softmax(s, -1), v)
         out[tok] = o.reshape(-1, Hq, D).to(q.dtype)
     return out
+
+
+def check_prefill_args(name, q, kv_cache, qt_run, qinfo, table, layer: int,
+                       pad_tile: int, unit: int) -> None:
+    """Raise unless the CUDA prefill kernels (B, E) take these arguments;
+    ``table`` is the per-run row or block table, ``unit`` its rows per
+    entry."""
+    Tq, Hq, D = q.shape
+    L, two, Hkv, R, Dc = kv_cache.shape
+    dev = q.device
+    for arg, t in (("qt_run", qt_run), ("qinfo", qinfo), ("table", table)):
+        check_cuda_tensor(arg, t, torch.int32, dev)
+    check_cuda_tensor("q", q)
+    check_cuda_tensor("kv_cache", kv_cache, q.dtype, dev)
+    G = Hq // Hkv if Hkv and Hq % Hkv == 0 else 0
+    if (q.dtype not in DTYPE_CODES or D != KERNEL_HEAD_DIM or Dc != D
+            or G == 0 or KERNEL_ROWS % G or pad_tile % (KERNEL_ROWS // G)
+            or Tq % pad_tile or qt_run.shape != (Tq // pad_tile, 2)
+            or qinfo.dim() != 2 or qinfo.shape[1] != 2
+            or table.dim() != 2 or table.shape[0] != qinfo.shape[0]
+            or table.shape[1] == 0 or not 0 <= layer < L or unit <= 0):
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)} {q.dtype}, cache "
+            f"{tuple(kv_cache.shape)}, qt_run {tuple(qt_run.shape)}, qinfo "
+            f"{tuple(qinfo.shape)}, table {tuple(table.shape)}, "
+            f"pad_tile {pad_tile}")
+
+
+def prefill_attention_plain(q, kv_cache, qt_run, qinfo, tile_rows,
+                            layer: int, *, sub: int, pad_tile: int,
+                            sm_scale: float) -> torch.Tensor:
+    """Plain PyTorch version of kernel B."""
+    return causal_prefill_plain(
+        q, kv_cache, qt_run, qinfo,
+        lambda run, n: gather_rows(tile_rows[run], n, sub), layer,
+        pad_tile=pad_tile, sm_scale=sm_scale)
 
 
 def prefill_attention(q, kv_cache, qt_run, qinfo, tile_rows, layer: int, *,
@@ -92,26 +128,10 @@ def prefill_attention(q, kv_cache, qt_run, qinfo, tile_rows, layer: int, *,
         return prefill_attention_plain(q, kv_cache, qt_run, qinfo,
                                        tile_rows, layer, sub=sub,
                                        pad_tile=pad_tile, sm_scale=sm_scale)
-    Tq, Hq, D = q.shape
-    L, two, Hkv, R, Dc = kv_cache.shape
-    dev = q.device
-    for name, t in (("qt_run", qt_run), ("qinfo", qinfo),
-                    ("tile_rows", tile_rows)):
-        check_cuda_tensor(name, t, torch.int32, dev)
-    check_cuda_tensor("q", q)
-    check_cuda_tensor("kv_cache", kv_cache, q.dtype, dev)
-    G = Hq // Hkv if Hkv and Hq % Hkv == 0 else 0
-    if (q.dtype not in DTYPE_CODES or D != KERNEL_HEAD_DIM or Dc != D
-            or G == 0 or KERNEL_ROWS % G or pad_tile % (KERNEL_ROWS // G)
-            or Tq % pad_tile or qt_run.shape != (Tq // pad_tile, 2)
-            or qinfo.dim() != 2 or qinfo.shape[1] != 2
-            or tile_rows.shape[0] != qinfo.shape[0]
-            or not 0 <= layer < L or sub <= 0):
-        raise ValueError(
-            f"prefill_attention: q {tuple(q.shape)} {q.dtype}, cache "
-            f"{tuple(kv_cache.shape)}, qt_run {tuple(qt_run.shape)}, qinfo "
-            f"{tuple(qinfo.shape)}, tile_rows {tuple(tile_rows.shape)}, "
-            f"pad_tile {pad_tile}")
+    check_prefill_args("prefill_attention", q, kv_cache, qt_run, qinfo,
+                       tile_rows, layer, pad_tile, sub)
+    Tq, Hq, _ = q.shape
+    _, _, Hkv, R, _ = kv_cache.shape
     out = torch.empty_like(q)
     if Tq == 0:
         return out

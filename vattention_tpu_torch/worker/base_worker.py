@@ -114,8 +114,10 @@ class BaseWorker:
         self.cache_engine.step(seq_metadata_list)
         self.metrics_store.push_cpu_operation_time(
             CpuOperationMetrics.KV_STEP, time.perf_counter() - t0)
-        self.metrics_store.fragmentation.add(
-            self.cache_engine.allocator.fragmentation_overhead())
+        allocator = getattr(self.cache_engine, "allocator", None)
+        if allocator is not None:
+            self.metrics_store.fragmentation.add(
+                allocator.fragmentation_overhead())
 
     def execute_model(self, scheduler_outputs: SchedulerOutputs,
                       seq_metadata_list) -> Optional[SamplerOutputs]:

@@ -1,7 +1,8 @@
 """Cache engine factory (counterpart of vattention_tpu/worker/cache_engine/__init__.py).
 
-Only the fa_vattn arena is ported; the paged, POD and other backends are
-ROADMAP Queue 1 items 9-11.
+Routes backends as the JAX factory does: the contiguous-arena names
+(``AttentionBackend.is_vATTN``) and ``no_op`` get the vattn arena, every
+other name the paged pool.  The POD backends are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from vattention_tpu_torch.model_executor.attention import AttentionBackend
 from vattention_tpu_torch.worker.cache_engine.base_cache_engine import (
     BaseCacheEngine,
 )
+from vattention_tpu_torch.worker.cache_engine.paged_cache_engine import (
+    PagedCacheEngine,
+)
 from vattention_tpu_torch.worker.cache_engine.vattn_cache_engine import (
     VAttnCacheEngine,
 )
@@ -21,8 +25,10 @@ from vattention_tpu_torch.worker.cache_engine.vattn_cache_engine import (
 def get_cache_engine(config: SystemConfig,
                      device: torch.device) -> BaseCacheEngine:
     backend = config.model_config.attention_backend
-    if AttentionBackend.resolve(backend) is AttentionBackend.FA_VATTN:
+    if AttentionBackend.is_pod(backend):
+        raise NotImplementedError(
+            f"attention backend {backend!r} (POD fusion) is not ported yet "
+            "(ROADMAP Queue 1 item 11)")
+    if AttentionBackend.is_vATTN(backend) or AttentionBackend.is_no_op(backend):
         return VAttnCacheEngine(config, device)
-    raise NotImplementedError(
-        f"attention backend {backend!r} is not ported yet; only "
-        "fa_vattn[_<page size>] is (ROADMAP Queue 1 items 9-11)")
+    return PagedCacheEngine(config, device)

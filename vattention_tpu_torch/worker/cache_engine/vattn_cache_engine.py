@@ -32,6 +32,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class VAttnCacheEngine(BaseCacheEngine):
+    kind = "vattn"
+
     def __init__(self, config: SystemConfig, device: torch.device):
         super().__init__(config)
         model_config = config.model_config
