@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from ``vattention_tpu_torch/csrc``
-(one nvcc per source, in parallel), then runs its phases; any failure
-raises and the script exits non-zero without printing a result.
+Builds the port's six CUDA kernels from ``vattention_tpu_torch/csrc``
+(one nvcc per source, in parallel) and prints ptxas's registers and
+spills of kernels B, C and F, then runs its phases; any failure raises
+and the script exits non-zero without printing a result.
 
 (a) Kernels at the main paths' shapes (Yi-6B-200K geometry, bf16, the
     2048-token blocks the allocator gives fa_vattn_2mb; for the paged
@@ -16,6 +17,13 @@ raises and the script exits non-zero without printing a result.
     library yardstick and its roofline bound.  E is also held against
     kernel B on the same rows (the same body: expected bit for bit), and
     kernel C is timed over 16-token blocks as the paged engine calls it.
+    Kernel F (POD) runs B's chunk 512 at kv_len 4096 (and then B's
+    multi-run case) with C's batch of 8 slots in one launch; it is held
+    against its plain version with B's and C's tolerances and against B
+    and C on the same inputs (the same bodies: expected bit for bit), and
+    timed beside B then C launched serially in one loop (no single
+    PyTorch call computes both outputs, so F has no library time; the two
+    SDPA calls' sum is logged).
     Tolerances: kv_append and arena_relocate bit for bit; prefill and
     decode attention within atol = rtol = 2e-2 in bf16 (one bf16 rounding
     of outputs of magnitude ~1, summed in another order) and, for each
@@ -23,8 +31,9 @@ raises and the script exits non-zero without printing a result.
     that row's largest output (deep outputs are small, so 2e-2 alone
     would let a wrong kernel through).
 (b) f32 parity: tiny-llama-debug, float32, sarathi chunk 128 on the
-    two-prompt workload of tests/test_e2e.py, through fa_vattn and then
-    (b') fa_paged_16; the engine's greedy tokens must equal a dense
+    two-prompt workload of tests/test_e2e.py, through fa_vattn, then
+    (b') fa_paged_16 and (b'') fa_pod (whose mixed step must run through
+    kernel F); the engine's greedy tokens must equal a dense
     full-recompute reference's.
 (c) Serving at full width: yi-6b-200k (32 layers, bf16, random weights
     from a seed) through LLMEngine with fa_vattn_2mb, sarathi chunk 512,
@@ -43,6 +52,11 @@ raises and the script exits non-zero without printing a result.
     freed first): kv_append, paged prefill and decode attention must
     have launched, prefill_attention and arena_relocate not; the tokens
     are compared with (c)'s and the short prompts held as in (c).
+(e) The same through a fresh engine with fa_pod (2 MB pages, the (c)
+    arena; the (d) engine freed first): kernel F, A, B and C must have
+    launched, E and D not, and since the schedule is (c)'s, F's launches
+    plus B's must equal B's in (c), and F's plus C's C's in (c); the tokens
+    are compared with (c)'s and the short prompts held as in (c).
 
 Prints the phase results, then ``{"kernels": [...]}``, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
@@ -52,6 +66,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -316,6 +331,9 @@ def kernel_phase(dev):
         shape=f"B=8 depths {seqlens_l}, Hq={HQ} Hkv={HKV} D={D} bf16"))
     del kpad, vpad
 
+    results.append(pod_kernel(timer, args, args2, dargs, seqlens_l, sub,
+                              results[-2]["library_ms"]
+                              + results[-1]["library_ms"]))
     results.append(paged_kernels(dev, cache, R, timer, randn, layer))
 
     # -- D: a chained plan from the allocator in strict mode
@@ -364,11 +382,115 @@ def kernel_phase(dev):
     del cache
     torch.cuda.empty_cache()
     for r in results:
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"(a) {r['name']}: {r['shape']}: max_abs_err {r['max_abs_err']}"
-            f" ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library "
-            f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
-            f"({r['bound_by']})")
+            f" ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library {lib} "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
     return results
+
+
+def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms):
+    """(a) for kernel F: each of kernel B's two cases (``pre1``: chunk 512
+    at kv_len 4096; ``pre2``: 3 runs and the empty run) fused with kernel
+    C's batch (``dec``) in one launch, held against F's plain version and
+    against B and C on the same inputs; F timed on ``pre1`` beside B then
+    C.  ``sdpa_ms`` is the sum of B's and C's SDPA times."""
+    from vattention_tpu_torch.ops import flash_decode, flash_prefill, pod_fused
+
+    HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
+    es = 2
+    qd, cache, trows_d, seqlens, layer = dec
+    sm = D ** -0.5
+    kw = dict(sub=sub, pad_tile=128, sm_scale=sm)
+    dkw = dict(sub=sub, sm_scale=sm)
+    err, checks = 0.0, []
+    # (prefill args, real row ranges, first row of the empty run's tile)
+    for pre, ranges, empty in ((pre1, [(0, 512)], None),
+                               (pre2, [(0, 128), (128, 100), (256, 60)], 384)):
+        q, _, qt_run, qinfo, trows, _ = pre
+        fargs = (q, qd, cache, qt_run, qinfo, trows, trows_d, seqlens, layer)
+        got_p, got_d = pod_fused.pod_attention(*fargs, **kw)
+        ref_p, ref_d = pod_fused.pod_attention_plain(*fargs, **kw)
+        got_b = flash_prefill.prefill_attention(*pre, **kw)
+        got_c = flash_decode.decode_attention(*dec, **dkw)
+        torch.cuda.synchronize()
+        if empty is not None and got_p[empty:].abs().max().item() != 0.0:
+            raise AssertionError("pod: the empty run's tile is not zero")
+        if not torch.isfinite(got_d).all() or got_d[0].abs().max().item() != 0.0:
+            raise AssertionError("pod: the seqlen-0 slot is not zero")
+        case_err = 0.0
+        for lo, n in ranges:
+            e, _ = check_attention(f"pod prefill rows {lo}..{lo + n}",
+                                   got_p[lo:lo + n], ref_p[lo:lo + n],
+                                   PREFILL_TOL)
+            case_err = max(case_err, e)
+        for b, n in enumerate(depths):
+            if n:
+                e, _ = check_attention(f"pod decode slot {b} at depth {n}",
+                                       got_d[b:b + 1], ref_d[b:b + 1],
+                                       DECODE_TOL)
+                case_err = max(case_err, e)
+        err = max(err, case_err)
+        vs_b = (got_p.float() - got_b.float()).abs().max().item()
+        vs_c = (got_d.float() - got_c.float()).abs().max().item()
+        checks.append(f"{len(ranges)} run(s): max |F - plain| {case_err}, "
+                      f"max |F - B| {vs_b}, max |F - C| {vs_c}")
+    log("(a) pod_attention, prefill fused with B=8 decode slots at depths "
+        f"{depths}: " + "; ".join(checks))
+    f1 = (pre1[0], qd, cache, *pre1[2:5], trows_d, seqlens, layer)
+    pairs = 512 * 3584 + 512 * 513 // 2   # causal (query, key) pairs of pre1
+    b_ms, b_by = bound(
+        (2 * 512 * HQ * D + 4096 * 2 * HKV * D
+         + sum(depths) * 2 * HKV * D + 2 * 8 * HQ * D) * es + 8 * 4,
+        4 * HQ * D * (pairs + sum(depths)))
+    res = dict(
+        name="pod_attention", route="cuda",
+        source="vattention_tpu_torch/csrc/pod_attention.cu",
+        replaces="vattention_tpu/ops/pod_fused.py:341",
+        max_abs_err=err,
+        ms=timer(lambda: pod_fused.pod_attention(*f1, **kw)),
+        serial_ms=timer(lambda: (flash_prefill.prefill_attention(*pre1, **kw),
+                                 flash_decode.decode_attention(*dec, **dkw))),
+        plain_ms=timer(lambda: pod_fused.pod_attention_plain(*f1, **kw),
+                       iters=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"chunk 512 at kv_len 4096 + B=8 depths {depths}, "
+              f"Hq={HQ} Hkv={HKV} D={D} bf16")
+    log(f"(a) pod_attention: {res['shape']}: ms {res['ms']:.4f}, B then C "
+        f"serially {res['serial_ms']:.4f}, plain {res['plain_ms']:.4f}, "
+        f"SDPA prefill + SDPA decode {sdpa_ms:.4f}, bound {b_ms:.4f} "
+        f"({b_by})")
+    return res
+
+
+def ptxas_report(names=("prefill_attention", "decode_attention",
+                        "pod_attention")):
+    """Registers and spills of the bf16 prefill body's kernel and of the
+    G = 8 instances of the others, from each library's ptxas log (written
+    when the library is built)."""
+    from vattention_tpu_torch.ops.cuda_build import library_path
+
+    for name in names:
+        path = library_path(name).with_suffix(".so.log")
+        if not path.exists():
+            log(f"ptxas {name}.cu: no build log (built by an earlier run)")
+            continue
+        fn = None
+        for line in path.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn, spills = m.group(1), "spills not reported"
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn:
+                spills = f"{m.group(1)}/{m.group(2)} bytes spilled"
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn and ("tc_kernel" in fn or "Li8E" in fn):
+                dtype = "bf16" if "bfloat16" in fn else "f32"
+                kernel = re.search(r"\d+([a-z_]+_kernel)", fn).group(1)
+                log(f"ptxas {name}.cu: {kernel} ({dtype}"
+                    f"{'' if 'tc_kernel' in fn else ', G=8'}): "
+                    f"{m.group(1)} registers, {spills}")
 
 
 def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
@@ -669,6 +791,11 @@ def parity_phase(dev, backend, tag):
                 f"({tag}) {seq_id}: engine {got[seq_id]} != dense {expect}")
         log(f"({tag}) f32 parity, {backend}, {seq_id}: engine == dense "
             f"{expect}")
+    pod_steps = getattr(runner.backend, "pod_steps", None)
+    if pod_steps is not None:
+        log(f"({tag}) steps through kernel F: {pod_steps}")
+        if pod_steps <= 0:
+            raise AssertionError(f"({tag}) no step ran through kernel F")
     engine.cleanup()
 
 
@@ -782,12 +909,12 @@ def profile_serving(engine, rng, tag):
         log(f"(p {tag}) the profiler recorded no device time (wall "
             f"{wall * 1e3:.1f} ms)")
         return
-    families = {"port kernels A-E": 0.0, "matmul": 0.0, "other": 0.0}
+    families = {"port kernels A-F": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         if any(s in name for s in ("kv_append_kernel", "prefill_attention",
                                    "decode_partial", "decode_merge",
-                                   "arena_relocate")):
-            families["port kernels A-E"] += ms
+                                   "arena_relocate", "pod_attention")):
+            families["port kernels A-F"] += ms
         elif any(s in name.lower() for s in ("gemm", "gemv", "xmma", "nvjet",
                                              "cutlass", "matmul")):
             families["matmul"] += ms
@@ -815,6 +942,7 @@ def main() -> int:
         from vattention_tpu_torch.ops.flash_prefill import PREFILL_ATTENTION
         from vattention_tpu_torch.ops.paged_attention import (
             PAGED_PREFILL_ATTENTION)
+        from vattention_tpu_torch.ops.pod_fused import POD_ATTENTION
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})",
               file=sys.stderr)
@@ -828,29 +956,48 @@ def main() -> int:
     secs = cuda_build.build_all()
     log(f"built {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
         f"(per source: {', '.join(f'{k} {v:.1f}' for k, v in secs.items())})")
+    ptxas_report()
 
     kernels = [KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION, ARENA_RELOCATE,
-               PAGED_PREFILL_ATTENTION]
+               PAGED_PREFILL_ATTENTION, POD_ATTENTION]
     results = kernel_phase(dev)
     parity_phase(dev, "fa_vattn", "b")
     parity_phase(dev, "fa_paged_16", "b'")
+    parity_phase(dev, "fa_pod", "b''")
     counts_c, tokens_c = serving_phase(
         dev, kernels, "fa_vattn_2mb", "c",
         required=[KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[PAGED_PREFILL_ATTENTION])
+        idle=[PAGED_PREFILL_ATTENTION, POD_ATTENTION])
     # free the (c) engine's memory before the paged engine sizes its pool
     gc.collect()
     torch.cuda.empty_cache()
     counts_d, _ = serving_phase(
         dev, kernels, "fa_paged_256", "d",
         required=[KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[PREFILL_ATTENTION, ARENA_RELOCATE], reference=tokens_c)
+        idle=[PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION],
+        reference=tokens_c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_e, _ = serving_phase(
+        dev, kernels, "fa_pod", "e",
+        required=[POD_ATTENTION, KV_APPEND, PREFILL_ATTENTION,
+                  DECODE_ATTENTION],
+        idle=[PAGED_PREFILL_ATTENTION, ARENA_RELOCATE], reference=tokens_c)
+    f, b, c = (POD_ATTENTION.symbol, PREFILL_ATTENTION.symbol,
+               DECODE_ATTENTION.symbol)
+    log(f"(e) F + B = {counts_e[f]} + {counts_e[b]} against B in (c) "
+        f"{counts_c[b]}; F + C = {counts_e[f]} + {counts_e[c]} against C in "
+        f"(c) {counts_c[c]}")
+    if (counts_e[f] + counts_e[b] != counts_c[b]
+            or counts_e[f] + counts_e[c] != counts_c[c]):
+        raise AssertionError("(e) the fused launches do not add up to (c)'s")
 
-    # launches: E's from the paged run (d), A-D's from the vattn run (c)
+    # launches: E's from the paged run (d), F's from the POD run (e), A-D's
+    # from the vattn run (c)
     for r in results:
         k = next(k for k in kernels if k.source == r["name"])
-        r["launches"] = (counts_d if k is PAGED_PREFILL_ATTENTION
-                         else counts_c)[k.symbol]
+        r["launches"] = {PAGED_PREFILL_ATTENTION: counts_d,
+                         POD_ATTENTION: counts_e}.get(k, counts_c)[k.symbol]
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, "
         "the kernels' build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -6,7 +6,8 @@ without one they skip.  Run them on the card with
     python -m pytest tests/test_torch_cuda.py -p no:xdist -q
 
 Kernels E (paged prefill) and C over block tables read tables poisoned
-past each run's or slot's last valid block.  Tolerances: kv_append and
+past each run's or slot's last valid block.  Kernel F (POD) shares B's and
+C's bodies, so its outputs must equal theirs bit for bit.  Tolerances: kv_append and
 arena_relocate move bytes and must match
 exactly; the attention kernels sum in another order than the plain
 versions' full softmax, so float32 is held to 1e-4 and bfloat16 outputs
@@ -27,6 +28,8 @@ from vattention_tpu_torch.ops.flash_prefill import (prefill_attention,
 from vattention_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_prefill_attention,
     paged_prefill_attention_plain)
+from vattention_tpu_torch.ops.pod_fused import (pod_attention,
+                                                pod_attention_plain)
 from vattention_tpu_torch.ops.utils import tile_rows_from_segments
 
 pytestmark = pytest.mark.cuda
@@ -210,4 +213,50 @@ def test_paged_decode_attention_matches_plain(dev, dtype):
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), expect.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pod_attention_matches_plain_and_b_then_c(dev, dtype):
+    """Kernel F on two prefill runs, the empty run's tail tile and 4 slots
+    (one idle, one deeper than a split): within tolerance of its plain
+    version, and equal to kernels B and C on the same inputs.  Launched
+    three times: each launch must leave its ticket counters at 0."""
+    rng = np.random.default_rng(6)
+    cache = _cache(rng, dtype, dev)
+    pad = 128
+    extents = [[(256, 256), (1024, 512)], [(2048, 256)], []]
+    qinfo = torch.tensor([[300, 500], [0, 60], [0, 0]], dtype=torch.int32)
+    qt_run = torch.tensor([[0, 0], [0, 1], [1, 0], [2, 0]],
+                          dtype=torch.int32)
+    pre_rows = torch.from_numpy(_tables(extents, R // SUB))
+    dec_extents = [[(0, 512)], [(512, 256), (1280, 768)], [(2048, 256)],
+                   [(3072, 512)]]
+    seqlens = torch.tensor([500, 1000, 0, 3], dtype=torch.int32)
+    dec_rows = torch.from_numpy(_tables(dec_extents, R // SUB))
+    qp = torch.from_numpy(
+        rng.standard_normal((4 * pad, HQ, D)).astype(np.float32)).to(dtype)
+    qd = torch.from_numpy(
+        rng.standard_normal((4, HQ, D)).astype(np.float32)).to(dtype)
+    kw = dict(sub=SUB, pad_tile=pad, sm_scale=D ** -0.5)
+    exp_p, exp_d = pod_attention_plain(qp, qd, cache.cpu(), qt_run, qinfo,
+                                       pre_rows, dec_rows, seqlens, 1, **kw)
+    args = (qp.to(dev), qd.to(dev), cache, qt_run.to(dev), qinfo.to(dev),
+            pre_rows.to(dev), dec_rows.to(dev), seqlens.to(dev), 1)
+    runs = [pod_attention(*args, **kw) for _ in range(3)]
+    b = prefill_attention(args[0], cache, args[3], args[4], args[5], 1,
+                          **kw)
+    c = decode_attention(args[1], cache, args[6], args[7], 1, sub=SUB,
+                         sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    for got_p, got_d in runs:
+        assert torch.equal(got_p, b) and torch.equal(got_d, c)
+    got_p, got_d = (x.cpu() for x in runs[0])
+    assert torch.equal(got_p[3 * pad:], torch.zeros_like(got_p[3 * pad:]))
+    assert torch.equal(got_d[2], torch.zeros_like(got_d[2]))
+    tol = TOL[dtype]
+    for lo, hi in ((0, 200), (2 * pad, 2 * pad + 60)):
+        torch.testing.assert_close(got_p[lo:hi].float(),
+                                   exp_p[lo:hi].float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got_d.float(), exp_d.float(), atol=tol,
                                rtol=tol)

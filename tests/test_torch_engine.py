@@ -121,8 +121,8 @@ def test_engine_defaults_to_cuda():
     dict(enable_async_execution=True),
     dict(kv_quant="fp8"),
     dict(kv_quant="int8"),
-    dict(attention_backend="fa_pod"),
-    dict(attention_backend="fa_pod_megacache"),
+    dict(use_native_allocator=True),
+    dict(model="falcon-7b-32k-l8"),
     dict(tensor_parallel_size=2),
     dict(model="mistral-7b"),
 ])
@@ -139,7 +139,7 @@ def test_unported_options_raise(kwargs):
 @pytest.mark.parametrize("backend", [
     "fa_vattn_sync", "fi_vattn", "fa3_vattn_sync", "fa_vattn_megacache_sync",
     "fa_streams_megacache", "fi_unpaged", "no_op", "fi_paged",
-    "fi_serial_paged_32"])
+    "fi_serial_paged_32", "fa_pod", "fa_pod_megacache"])
 def test_backends_route_as_the_jax_factory(backend):
     """Each name reaches the cache engine the JAX factory gives it (the
     contiguous-arena names and no_op the vattn arena, the rest the paged

@@ -319,13 +319,12 @@ class BaseSchedulerConfig:
     max_num_seqs: int = 64
     max_model_len: int = 8192
     num_pipeline_stages: int = 1
-    # prefill RUNS admitted per iteration (the TPU step packs up to this
-    # many padded prompt chunks into one fused prefill-attention launch;
-    # lifts the reference sarathi one-prefill-per-batch default and lets
-    # the vLLM scheduler batch whole prompts like the reference's,
-    # sarathi-lean vllm_scheduler.py:20+).  POD's fused kernel keeps the
-    # reference single-prefill constraint; arg_utils clamps this to 1
-    # for pod backends.
+    # prefill RUNS admitted per iteration (the step packs up to this many
+    # padded prompt chunks into one prefill-attention launch; lifts the
+    # reference sarathi one-prefill-per-batch default and lets the vLLM
+    # scheduler batch whole prompts like the reference's, sarathi-lean
+    # vllm_scheduler.py:20+).  The POD backends take the same limit:
+    # kernel F fuses every prefill run of a mixed step with its decodes.
     max_prefills_per_step: int = 4
 
     @property

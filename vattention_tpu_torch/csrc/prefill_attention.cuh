@@ -1,7 +1,8 @@
 // The chunked causal GQA prefill body shared by kernel B (rows through the
-// arena's row table) and kernel E (rows through per-run block tables).
+// arena's row table), kernel E (rows through per-run block tables) and
+// kernel F (POD: B's rows, beside the decode body in one launch).
 //
-// Both replace the TPU's _prefill_kernel of vattention_tpu/ops/flash_prefill.py,
+// B and E replace the TPU's _prefill_kernel of vattention_tpu/ops/flash_prefill.py,
 // which vattention_tpu/ops/paged_attention.py also reuses for its block
 // tables.  The q region [Tq, Hq, D] is a concatenation of prefill runs,
 // each padded to pad_tile (the scheduler's charge unit,
@@ -94,21 +95,26 @@ constexpr int kKStride = kD + 1;
 constexpr int kSmemBytes =
     (kRows * kQStride + kKeys * kKStride + kKeys * kD) * static_cast<int>(sizeof(float));
 
-template <typename T, typename Rows>
-__global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
+// Barrier of the bodies below over the whole block (kernels B and E).
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+// The float32 body: q tile `tile` (kRows/G tokens) of kv head `h`, run by
+// kThreads threads (local index `tid`) over `smem` (kSmemBytes).
+template <typename T, typename Rows, typename Sync>
+__device__ __forceinline__ void prefill_tile(
     const T* __restrict__ q, const T* __restrict__ cache, T* __restrict__ out,
     const int* __restrict__ qt_run, const int* __restrict__ qinfo, Rows rows,
     int hq, int hkv, int pad_tile, long long rows_total, int layer,
-    float sm_scale) {
-  extern __shared__ float smem[];
+    float sm_scale, int tile, int h, int tid, float* smem, Sync sync) {
   float* qs = smem;                       // [kRows][kQStride]
   float* ks = qs + kRows * kQStride;      // [kKeys][kKStride]
   float* vs = ks + kKeys * kKStride;      // [kKeys][kD]
 
   const int group = hq / hkv;
   const int qtok = kRows / group;         // tokens per block
-  const int tok0 = blockIdx.x * qtok;
-  const int h = blockIdx.y;
+  const int tok0 = tile * qtok;
   const int pt = tok0 / pad_tile;
   const int run = qt_run[2 * pt];
   const int lqt = qt_run[2 * pt + 1];
@@ -116,7 +122,6 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
   const int kv_len = qinfo[2 * run + 1];
   const int pos0 = q_start + lqt * pad_tile + (tok0 - pt * pad_tile);
 
-  const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int r = tid >> 2;                 // this thread's query row
   const int part = tid & 3;               // its quarter of the 32 keys / D lanes
@@ -156,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
   float l = 0.f;
 
   for (int k0 = 0; k0 < n_keys; k0 += kKeys) {
-    __syncthreads();  // the previous tile's K/V are no longer read
+    sync();  // the previous tile's K/V are no longer read
     for (int i = tid; i < kKeys * kD; i += kThreads) {
       const int c = i / kD;
       const int d = i - c * kD;
@@ -170,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
       ks[c * kKStride + d] = kval;
       vs[c * kD + d] = vval;
     }
-    __syncthreads();
+    sync();
 
     // scores of row r against keys part*8 .. part*8+7 of the tile
     float s[8];
@@ -227,6 +232,18 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
   for (int i = 0; i < kD / 4; ++i) orow[part + 4 * i] = from_float<T>(acc[i] / l);
 }
 
+template <typename T, typename Rows>
+__global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ cache, T* __restrict__ out,
+    const int* __restrict__ qt_run, const int* __restrict__ qinfo, Rows rows,
+    int hq, int hkv, int pad_tile, long long rows_total, int layer,
+    float sm_scale) {
+  extern __shared__ float smem[];
+  prefill_tile<T>(q, cache, out, qt_run, qinfo, rows, hq, hkv, pad_tile,
+                  rows_total, layer, sm_scale, blockIdx.x, blockIdx.y,
+                  threadIdx.x, smem, BlockSync{});
+}
+
 // ---- bfloat16 on the tensor cores ----------------------------------- //
 constexpr int kTcKeys = 64;               // keys per tile
 constexpr int kTcThreads = 128;           // 4 warps x 16 query rows
@@ -241,15 +258,27 @@ constexpr int kTcSmemBytes =
     (kRows * kLdQ + 2 * kTcKeys * kLdKV + kRows * kLdP) * 2 +
     (kRows * kLdS + kRows * kLdO) * 4;
 
-template <typename Rows>
-__global__ void __launch_bounds__(kTcThreads) prefill_attention_tc_kernel(
+// Barrier over one 128-thread half of a block (kernel F, whose blocks run
+// two bf16 q tiles, one per half): named barrier `id` (1 or 2; 0 is
+// __syncthreads').
+struct HalfSync {
+  int id;
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kTcThreads) : "memory");
+  }
+};
+
+// The bfloat16 body: q tile `tile` of kv head `h`, run by kTcThreads
+// threads (local index `tid`) over `smem` (kTcSmemBytes, 128-byte aligned).
+template <typename Rows, typename Sync>
+__device__ __forceinline__ void prefill_tile_tc(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ cache,
     __nv_bfloat16* __restrict__ out, const int* __restrict__ qt_run,
     const int* __restrict__ qinfo, Rows rows, int hq, int hkv, int pad_tile,
-    long long rows_total, int layer, float sm_scale) {
+    long long rows_total, int layer, float sm_scale, int tile, int h, int tid,
+    unsigned char* smem, Sync sync) {
   namespace wmma = nvcuda::wmma;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [kRows][kLdQ]
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);      // [kRows][kLdQ]
   __nv_bfloat16* ks = qs + kRows * kLdQ;                            // [kTcKeys][kLdKV]
   __nv_bfloat16* vs = ks + kTcKeys * kLdKV;                         // [kTcKeys][kLdKV]
   __nv_bfloat16* ps = vs + kTcKeys * kLdKV;                         // [kRows][kLdP]
@@ -258,8 +287,7 @@ __global__ void __launch_bounds__(kTcThreads) prefill_attention_tc_kernel(
 
   const int group = hq / hkv;
   const int qtok = kRows / group;
-  const int tok0 = blockIdx.x * qtok;
-  const int h = blockIdx.y;
+  const int tok0 = tile * qtok;
   const int pt = tok0 / pad_tile;
   const int run = qt_run[2 * pt];
   const int lqt = qt_run[2 * pt + 1];
@@ -267,7 +295,6 @@ __global__ void __launch_bounds__(kTcThreads) prefill_attention_tc_kernel(
   const int kv_len = qinfo[2 * run + 1];
   const int pos0 = q_start + lqt * pad_tile + (tok0 - pt * pad_tile);
 
-  const int tid = threadIdx.x;
   const int warp = tid >> 5;
   // softmax/output ownership: row r = tid/2 (so warp w owns rows
   // 16w..16w+15, the rows its WMMA tiles produce), side = which 32 keys of
@@ -311,7 +338,7 @@ __global__ void __launch_bounds__(kTcThreads) prefill_attention_tc_kernel(
   float l = 0.f;
 
   for (int k0 = 0; k0 < n_keys; k0 += kTcKeys) {
-    __syncthreads();  // the previous tile's K/V are no longer read
+    sync();  // the previous tile's K/V are no longer read
     for (int i = tid; i < kTcKeys * (kD / 8); i += kTcThreads) {
       const int c = i / (kD / 8);
       const int part = i - c * (kD / 8);
@@ -326,7 +353,7 @@ __global__ void __launch_bounds__(kTcThreads) prefill_attention_tc_kernel(
       *reinterpret_cast<uint4*>(ks + c * kLdKV + part * 8) = kv;
       *reinterpret_cast<uint4*>(vs + c * kLdKV + part * 8) = vv;
     }
-    __syncthreads();
+    sync();
 
     // S = Q K^T for this warp's 16 rows x 64 keys
     {
@@ -414,6 +441,18 @@ __global__ void __launch_bounds__(kTcThreads) prefill_attention_tc_kernel(
 
 #pragma unroll
   for (int i = 0; i < 64; ++i) orow[i] = __float2bfloat16(o[i] / l);
+}
+
+template <typename Rows>
+__global__ void __launch_bounds__(kTcThreads) prefill_attention_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ cache,
+    __nv_bfloat16* __restrict__ out, const int* __restrict__ qt_run,
+    const int* __restrict__ qinfo, Rows rows, int hq, int hkv, int pad_tile,
+    long long rows_total, int layer, float sm_scale) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  prefill_tile_tc(q, cache, out, qt_run, qinfo, rows, hq, hkv, pad_tile,
+                  rows_total, layer, sm_scale, blockIdx.x, blockIdx.y,
+                  threadIdx.x, tc_smem, BlockSync{});
 }
 
 template <typename Kernel, typename T, typename Rows>

@@ -14,7 +14,10 @@ The port maps them onto its CUDA kernels:
   *_PAGED         -> the paged pool (paged_backend.py), the A/B baseline:
                      kernel E (ops/paged_attention) and kernel C over
                      block tables
-  FA_POD*         -> not ported yet (ROADMAP Queue 1 item 11)
+  FA_POD*         -> the contiguous arena through pod_backend.py: steps
+                     that mix prefill and decode attend through kernel F
+                     (ops/pod_fused, both phases in one launch), the
+                     others through kernels B and C
   NO_OP           -> skip attention (profiling)
 
 GPU-specific FA-vs-FI distinctions collapse (there is one kernel library

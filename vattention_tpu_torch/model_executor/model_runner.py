@@ -7,9 +7,10 @@ fixed width, tail tiles mapped to an empty run; decode tokens
 slot-indexed) and moves them to the device in one packed copy.  The
 backend follows the cache engine as in the JAX runner: ``no_op`` skips
 attention, the vattn arena reads row tables, the paged pool block
-tables.  ``_step`` is eager PyTorch: embed -> a Python loop over layers
-(one launch per layer and op, the attention ops being the port's CUDA
-kernels) -> sampler.
+tables, and the POD backends the arena's tables through kernel F on
+steps that mix prefills and decodes.  ``_step`` is eager PyTorch: embed
+-> a Python loop over layers (one launch per layer and op, the attention
+ops being the port's CUDA kernels) -> sampler.
 The step is synchronous: ``run`` returns this step's sampled tokens.
 """
 
@@ -32,6 +33,8 @@ from vattention_tpu_torch.model_executor.attention.no_op_backend import (
     NoOpAttentionBackend)
 from vattention_tpu_torch.model_executor.attention.paged_backend import (
     PagedAttentionBackend)
+from vattention_tpu_torch.model_executor.attention.pod_backend import (
+    PodAttentionBackend)
 from vattention_tpu_torch.model_executor.attention.vattn_backend import (
     VattnAttentionBackend)
 from vattention_tpu_torch.model_executor.layers.sampler import (
@@ -72,10 +75,13 @@ class ModelRunner:
             config.scheduler_config.get_max_num_batched_tokens(
                 config.model_config.max_model_len), self.q_tile)
         self.B = config.cache_config.max_batch_size
-        if AttentionBackend.is_no_op(config.model_config.attention_backend):
+        backend = config.model_config.attention_backend
+        if AttentionBackend.is_no_op(backend):
             self.backend = NoOpAttentionBackend()
         elif cache_engine.kind == "vattn":
-            self.backend = VattnAttentionBackend(
+            arena = (PodAttentionBackend if AttentionBackend.is_pod(backend)
+                     else VattnAttentionBackend)
+            self.backend = arena(
                 block_tokens=cache_engine.block_tokens,
                 max_context_len=config.model_config.max_model_len,
                 arena_rows=cache_engine.allocator.arena_tokens,
@@ -204,7 +210,9 @@ class ModelRunner:
             temperatures=temperatures, top_p=top_p, top_k=top_k,
             pre_qinfo=pre_qinfo if prefills else None,
             qt_run=qt_run if prefills else None,
-            pre_tile_rows=pre_tile_rows, pre_block_tables=pre_block_tables)
+            pre_tile_rows=pre_tile_rows, pre_block_tables=pre_block_tables,
+            pod=(isinstance(be, PodAttentionBackend) and bool(prefills)
+                 and bool(decodes)))
         return inputs, n_pre
 
     # ------------------------------------------------------------------ #

@@ -42,9 +42,13 @@ class StepInputs(NamedTuple):
     pre_tile_rows: Optional[torch.Tensor] = None  # [K+1, n_sub] int32
     # paged only: [K+1, NB] int32 block ids of each run
     pre_block_tables: Optional[torch.Tensor] = None
+    # POD only (host-side, set by the runner): this step has both prefill
+    # runs and decode slots, so attention runs fused (kernel F)
+    pod: bool = False
 
     @classmethod
-    def from_host(cls, device: torch.device, **arrays) -> "StepInputs":
+    def from_host(cls, device: torch.device, *, pod: bool = False,
+                  **arrays) -> "StepInputs":
         """Move numpy arrays to ``device``: the int32 ones as ONE packed
         host-to-device copy, split into views on the device (each view
         starts 16-byte aligned, as the kernel wrappers require)."""
@@ -69,4 +73,5 @@ class StepInputs(NamedTuple):
         out["sample_idx"] = out["sample_idx"].long()
         for k in cls._fields:
             out.setdefault(k, None)
+        out["pod"] = pod
         return cls(**out)

@@ -10,7 +10,8 @@ static kv-tile grids and their buckets) have no counterpart: the kernel
 loops to each slot's live depth.
 
 Bound on the H100: bytes (each live K/V row is read once; ~1 FMA per
-byte).  Design: csrc/decode_attention.cu -- split over positions
+byte).  Design: csrc/decode_attention.cu, its body in
+decode_attention.cuh (shared with kernel F) -- split over positions
 (flash-decoding) so that 8 slots still fill the card: pass 1 runs one
 block per (slot, kv head, split of SPLIT_POSITIONS positions) covering
 the G query heads of the group, 8 warps splitting the positions, online
@@ -67,15 +68,10 @@ def decode_attention_plain(q, kv_cache, tile_rows, seqlens, layer: int, *,
     return out
 
 
-def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
-                     sub: int, sm_scale: float) -> torch.Tensor:
-    """q: [B, Hq, D]; kv_cache: [L, 2, Hkv, R, D]; tile_rows: [B, n_sub]
-    int32; seqlens: [B] int32, each at most n_sub * sub -> [B, Hq, D] in
-    q's dtype.  CPU tensors take the plain version; CUDA tensors launch
-    kernel C."""
-    if not q.is_cuda:
-        return decode_attention_plain(q, kv_cache, tile_rows, seqlens,
-                                      layer, sub=sub, sm_scale=sm_scale)
+def check_decode_args(name, q, kv_cache, tile_rows, seqlens, layer: int,
+                      sub: int) -> None:
+    """Raise unless kernel C's body (kernels C and F) takes these
+    arguments."""
     B, Hq, D = q.shape
     L, two, Hkv, R, Dc = kv_cache.shape
     dev = q.device
@@ -88,18 +84,38 @@ def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
             or tile_rows.dim() != 2 or tile_rows.shape[0] != B
             or seqlens.shape != (B,) or not 0 <= layer < L or sub <= 0):
         raise ValueError(
-            f"decode_attention: q {tuple(q.shape)} {q.dtype}, cache "
+            f"{name}: q {tuple(q.shape)} {q.dtype}, cache "
             f"{tuple(kv_cache.shape)}, tile_rows {tuple(tile_rows.shape)}, "
             f"seqlens {tuple(seqlens.shape)} (head dim {KERNEL_HEAD_DIM}, "
             f"groups {KERNEL_GROUPS})")
+
+
+def split_count(tile_rows: torch.Tensor, sub: int) -> int:
+    """Pass-1 splits per (slot, head): enough for the table's depth."""
+    return max(1, cdiv(tile_rows.shape[1] * sub, SPLIT_POSITIONS))
+
+
+def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
+                     sub: int, sm_scale: float) -> torch.Tensor:
+    """q: [B, Hq, D]; kv_cache: [L, 2, Hkv, R, D]; tile_rows: [B, n_sub]
+    int32; seqlens: [B] int32, each at most n_sub * sub -> [B, Hq, D] in
+    q's dtype.  CPU tensors take the plain version; CUDA tensors launch
+    kernel C."""
+    if not q.is_cuda:
+        return decode_attention_plain(q, kv_cache, tile_rows, seqlens,
+                                      layer, sub=sub, sm_scale=sm_scale)
+    check_decode_args("decode_attention", q, kv_cache, tile_rows, seqlens,
+                      layer, sub)
+    B, Hq, D = q.shape
+    Hkv, R = kv_cache.shape[2], kv_cache.shape[3]
     out = torch.empty_like(q)
     if B == 0:
         return out
     G = Hq // Hkv
     n_sub = tile_rows.shape[1]
-    nsplit = max(1, cdiv(n_sub * sub, SPLIT_POSITIONS))
+    nsplit = split_count(tile_rows, sub)
     part = torch.empty(B * Hkv * nsplit * G * (D + 2), dtype=torch.float32,
-                       device=dev)
+                       device=q.device)
     DECODE_ATTENTION(q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(),
                      part.data_ptr(), tile_rows.data_ptr(),
                      seqlens.data_ptr(), B, Hkv, G, n_sub, sub, R, layer,

@@ -1,8 +1,8 @@
 """Cache engine factory (counterpart of vattention_tpu/worker/cache_engine/__init__.py).
 
 Routes backends as the JAX factory does: the contiguous-arena names
-(``AttentionBackend.is_vATTN``) and ``no_op`` get the vattn arena, every
-other name the paged pool.  The POD backends are not ported yet.
+(``AttentionBackend.is_vATTN``, the POD names among them) and ``no_op``
+get the vattn arena, every other name the paged pool.
 """
 
 from __future__ import annotations
@@ -25,10 +25,6 @@ from vattention_tpu_torch.worker.cache_engine.vattn_cache_engine import (
 def get_cache_engine(config: SystemConfig,
                      device: torch.device) -> BaseCacheEngine:
     backend = config.model_config.attention_backend
-    if AttentionBackend.is_pod(backend):
-        raise NotImplementedError(
-            f"attention backend {backend!r} (POD fusion) is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
     if AttentionBackend.is_vATTN(backend) or AttentionBackend.is_no_op(backend):
         return VAttnCacheEngine(config, device)
     return PagedCacheEngine(config, device)
