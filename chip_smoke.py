@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from ``vattention_tpu_torch/csrc``
-(one nvcc per source, in parallel) and prints ptxas's registers and
-spills of kernels B, C and F, then runs its phases; any failure raises
-and the script exits non-zero without printing a result.
+Builds the port's eight CUDA kernels (A-H) from the six sources of
+``vattention_tpu_torch/csrc`` (one nvcc per source, in parallel) and
+prints ptxas's registers and spills of kernels B, C, E, F, G and H, then
+runs its phases; any failure raises and the script exits non-zero without
+printing a result.
 
 (a) Kernels at the main paths' shapes (Yi-6B-200K geometry, bf16, the
     2048-token blocks the allocator gives fa_vattn_2mb; for the paged
@@ -57,9 +58,32 @@ and the script exits non-zero without printing a result.
     launched, E and D not, and since the schedule is (c)'s, F's launches
     plus B's must equal B's in (c), and F's plus C's C's in (c); the tokens
     are compared with (c)'s and the short prompts held as in (c).
+    Kernels G and H must not launch in (c), (d) or (e): no serving path
+    runs them.
+(f) The kernel-level A/B entry points (``vattention_tpu_torch/
+    microbenchmarks``) at Yi-6B's attention geometry in bf16, G's and H's
+    launch counts zeroed just before and read just after: kernel_sweep at
+    ctx 1024-32768 with blocks of 256 (the JAX default) and then 16 tokens
+    (vLLM's default block), bench_pagesize, bench_pod and probe_pod_depth
+    at depths 16384, 32768, 65536 and 131072 and with 3 prefill runs at
+    16384.  The sweep and the probe run with ``--check``: every G, H and C
+    output they make (G and H at chunk 2048 to depth 32768, G at chunk 512
+    to depth 131072) is held against its plain version on the same inputs
+    with (a)'s tolerances, the plain prefill run 256 query tokens at a
+    time.  Besides, G must equal H in the sweep and each probe's F must
+    equal G then C, bit for bit.
 
-Prints the phase results, then ``{"kernels": [...]}``, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+Kernels G (single-run arena prefill, rows from the extent table) and H
+(single-run paged prefill) run only in (a) and (f).  In (a) each is held
+against its plain version at B's shape (chunk 512 at kv_len 4096): G over
+8 extents of 512 tokens at 2048-token block starts, and against B on the
+same rows; H over a seeded permutation of 16- and 256-token blocks with
+its tail poisoned to 2**30, and against E on one run (both expected bit for
+bit).
+
+Prints the phase results, then ``{"kernels": [...]}`` (A-H; G's and H's
+launches from (f)), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -74,70 +98,19 @@ import time
 import numpy as np
 import torch
 
-PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores
-PREFILL_TOL = DECODE_TOL = 2e-2
-# max |kernel - plain| in each output row (one query token, all heads)
-# as a fraction of that row's largest |plain| output: rounding P and the
-# output to bf16 moves a row by about one bf16 step (2^-7) of its largest
-# value, while a dropped key tile or a causal mask off by one moves deep
-# rows, whose outputs are small, by several percent
-REL_TOL = 2.0 ** -6
+try:
+    from vattention_tpu_torch.microbenchmarks.timing import (
+        ATTN_TOL, Timer, bound, check_attention, seeded)
+except ImportError as e:  # chip_smoke.py without the port beside it
+    sys.exit(f"chip_smoke: the port is not importable here ({e})")
+
+PREFILL_TOL = DECODE_TOL = ATTN_TOL
 LOGIT_GAP_TOL = 0.25          # engine token's logit vs the reference top
 YI = dict(L=32, HQ=32, HKV=4, D=128)
 
 
 def log(*args):
     print(*args, flush=True)
-
-
-def check_attention(what, got, ref, tol):
-    """Hold ``got`` against ``ref`` ([rows, Hq, D]) within atol = rtol =
-    ``tol`` and each row within REL_TOL of its largest |ref|; returns the
-    max abs err and the largest row's err / max |ref|."""
-    got, ref = got.float(), ref.float()
-    torch.testing.assert_close(got, ref, atol=tol, rtol=tol,
-                               msg=lambda m: f"{what}: {m}")
-    err = (got - ref).abs().flatten(1).amax(1)
-    scale = ref.abs().flatten(1).amax(1)
-    rel = (err / scale.clamp_min(1e-30)).max().item()
-    if not rel <= REL_TOL:
-        raise AssertionError(f"{what}: a row errs by {rel} of its largest "
-                             f"output, above {REL_TOL}")
-    return err.max().item(), rel
-
-
-# --------------------------------------------------------------------- #
-# timing
-# --------------------------------------------------------------------- #
-class Timer:
-    """Mean device milliseconds of ``fn`` over ``iters`` launches, each
-    after an L2 flush (the serving step meets every layer's KV cold)."""
-
-    def __init__(self, device):
-        self.flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8,
-                                     device=device)
-
-    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
-        for _ in range(warmup):
-            fn()
-        total = 0.0
-        for _ in range(iters):
-            self.flush_buf.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
-
-
-def bound(n_bytes: float, flops: float):
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # --------------------------------------------------------------------- #
@@ -163,9 +136,8 @@ def kernel_phase(dev):
     sub = select_kv_tile(bt, 256)
     R = 24 * bt
     n_sub = 8192 // sub                       # row tables of max_model_len 8192
-    gen = torch.Generator(device=dev).manual_seed(0)
-    cache = torch.randn((L, 2, HKV, R + bt, D), generator=gen, device=dev,
-                        dtype=torch.float32).to(dt)
+    randn, _ = seeded(dev)
+    cache = randn(L, 2, HKV, R + bt, D)
     timer = Timer(dev)
     results = []
 
@@ -181,10 +153,6 @@ def kernel_phase(dev):
             seg_cum[b, len(ext):] = t
         return torch.from_numpy(
             tile_rows_from_segments(seg_row, seg_cum, sub, n_sub)).to(dev)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev,
-                           dtype=torch.float32).to(dt)
 
     # -- A: kv_append, 512 prefill rows (two extent runs) + 8 decode rows
     layer = 5
@@ -335,6 +303,8 @@ def kernel_phase(dev):
                               results[-2]["library_ms"]
                               + results[-1]["library_ms"]))
     results.append(paged_kernels(dev, cache, R, timer, randn, layer))
+    results += single_run_kernels(dev, cache, R, bt, sub, n_sub, timer,
+                                  randn, layer)
 
     # -- D: a chained plan from the allocator in strict mode
     plan, live = strict_relocation_plan(L, HKV, D, es)
@@ -463,11 +433,12 @@ def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms):
     return res
 
 
-def ptxas_report(names=("prefill_attention", "decode_attention",
-                        "pod_attention")):
-    """Registers and spills of the bf16 prefill body's kernel and of the
-    G = 8 instances of the others, from each library's ptxas log (written
-    when the library is built)."""
+def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
+                        "decode_attention", "pod_attention")):
+    """Registers and spills of the bf16 prefill body's kernels (B, G, E
+    and H, named by their q map and row map) and of the G = 8 instances
+    of the others, from each library's ptxas log (written when the
+    library is built)."""
     from vattention_tpu_torch.ops.cuda_build import library_path
 
     for name in names:
@@ -488,6 +459,10 @@ def ptxas_report(names=("prefill_attention", "decode_attention",
             if m and fn and ("tc_kernel" in fn or "Li8E" in fn):
                 dtype = "bf16" if "bfloat16" in fn else "f32"
                 kernel = re.search(r"\d+([a-z_]+_kernel)", fn).group(1)
+                maps = re.findall(r"RunTiles|OneRun|TileRows|BlockTables|"
+                                  r"Segments", fn)
+                if maps:
+                    kernel += f"<{', '.join(maps)}>"
                 log(f"ptxas {name}.cu: {kernel} ({dtype}"
                     f"{'' if 'tc_kernel' in fn else ', G=8'}): "
                     f"{m.group(1)} registers, {spills}")
@@ -644,6 +619,118 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
         f"{plain_ms:.4f} library {library_ms:.4f} bound {c_bound:.4f} "
         f"({c_by})")
     return out
+
+
+def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
+                       layer):
+    """(a) for kernels G and H at kernel B's shape (chunk 512 at kv_len
+    4096): G over 8 extents of 512 tokens starting at 2048-token block
+    starts, held against its plain version and against B on the same rows;
+    H over a seeded permutation of the pool's 16- and 256-token blocks, its
+    table poisoned past the run's last block, held against its plain
+    version and against E on one run.  Returns G's result and H's at
+    256-token blocks."""
+    from vattention_tpu_torch.ops import flash_prefill, paged_attention
+    from vattention_tpu_torch.ops.utils import cdiv, tile_rows_from_segments
+
+    HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
+    es = 2
+    sm = D ** -0.5
+    poison = 2 ** 30
+    rng = np.random.default_rng(2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = randn(512, HQ, D)
+    qinfo = torch.tensor([3584, 4096], dtype=torch.int32, device=dev)
+    qt_run = torch.tensor([[0, i] for i in range(4)], dtype=torch.int32,
+                          device=dev)
+    pos = torch.arange(4096, device=dev)
+    mask = (3584 + torch.arange(512, device=dev))[:, None] >= pos[None, :]
+    b_ms, b_by = bound((2 * 512 * HQ * D + 4096 * 2 * HKV * D) * es,
+                       4 * HQ * D * int(mask.sum().item()))
+    qg = q.transpose(0, 1)[None]
+
+    def timed(name, source, replaces, err, fn, plain, grow, shape):
+        kg = cache[layer, 0][:, grow][None]
+        vg = cache[layer, 1][:, grow][None]
+        res = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            max_abs_err=err, ms=timer(fn), plain_ms=timer(plain, iters=3),
+            library_ms=timer(lambda: sdpa(qg, kg, vg, attn_mask=mask,
+                                          enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by, shape=shape)
+        log(f"(a) {name}: {shape}: ms {res['ms']:.4f} plain "
+            f"{res['plain_ms']:.4f} library {res['library_ms']:.4f} bound "
+            f"{b_ms:.4f} ({b_by})")
+        return res
+
+    # -- G: 8 extents at block starts, in no order
+    starts = [3, 9, 1, 14, 6, 11, 20, 17]
+    seg_row = np.array([s * bt for s in starts], np.int32)
+    seg_cum = np.arange(9, dtype=np.int32) * 512
+    sr = torch.from_numpy(seg_row).to(dev)
+    sc = torch.from_numpy(seg_cum).to(dev)
+    gargs = (q, cache, sr, sc, qinfo, layer)
+    got = flash_prefill.segment_prefill_attention(*gargs, sm_scale=sm)
+    ref = flash_prefill.segment_prefill_attention_plain(*gargs, sm_scale=sm)
+    rows_b = torch.from_numpy(tile_rows_from_segments(
+        seg_row[None], seg_cum[None], sub, n_sub)).to(dev)
+    got_b = flash_prefill.prefill_attention(
+        q, cache, qt_run, qinfo[None], rows_b, layer, sub=sub, pad_tile=128,
+        sm_scale=sm)
+    torch.cuda.synchronize()
+    err, rel = check_attention("segment prefill", got, ref, PREFILL_TOL)
+    vs_b = (got.float() - got_b.float()).abs().max().item()
+    log(f"(a) segment_prefill_attention, 8 extents of 512 tokens: max abs "
+        f"err {err} (row worst {rel:.5f}); max |G - B| on the same rows "
+        f"{vs_b}")
+    if not torch.equal(got, got_b):
+        raise AssertionError("G differs from B on the same rows")
+    out = [timed(
+        "segment_prefill_attention",
+        "vattention_tpu_torch/csrc/prefill_attention.cu",
+        "vattention_tpu/ops/flash_prefill.py:178", err,
+        lambda: flash_prefill.segment_prefill_attention(*gargs, sm_scale=sm),
+        lambda: flash_prefill.segment_prefill_attention_plain(
+            *gargs, sm_scale=sm),
+        flash_prefill.segment_rows(sr, sc, 4096),
+        f"chunk 512 at kv_len 4096 over 8 extents, Hq={HQ} Hkv={HKV} "
+        f"D={D} bf16")]
+
+    # -- H: a permutation of the pool's blocks, the tail poisoned
+    for bs in (16, 256):
+        n = cdiv(4096, bs)
+        table = np.full(8192 // bs, poison, np.int32)
+        table[:n] = rng.permutation(pool_rows // bs)[:n]
+        table = torch.from_numpy(table).to(dev)
+        hargs = (q, cache, table, qinfo, layer)
+        hkw = dict(block_size=bs, sm_scale=sm)
+        got = paged_attention.paged_prefill_attention_single(*hargs, **hkw)
+        ref = paged_attention.paged_prefill_attention_single_plain(*hargs,
+                                                                   **hkw)
+        got_e = paged_attention.paged_prefill_attention(
+            q, cache, qt_run, qinfo[None], table[None], layer,
+            block_size=bs, pad_tile=128, sm_scale=sm)
+        torch.cuda.synchronize()
+        err, rel = check_attention(f"paged prefill single bs {bs}", got, ref,
+                                   PREFILL_TOL)
+        vs_e = (got.float() - got_e.float()).abs().max().item()
+        log(f"(a) paged_prefill_attention_single bs {bs}, table poisoned "
+            f"past the run's last block: max abs err {err} (row worst "
+            f"{rel:.5f}); max |H - E| on one run {vs_e}")
+        if not torch.equal(got, got_e):
+            raise AssertionError(f"H differs from E on one run (bs {bs})")
+        res = timed(
+            "paged_prefill_attention_single",
+            "vattention_tpu_torch/csrc/paged_prefill_attention.cu",
+            "vattention_tpu/ops/paged_attention.py:32", err,
+            lambda: paged_attention.paged_prefill_attention_single(
+                *hargs, **hkw),
+            lambda: paged_attention.paged_prefill_attention_single_plain(
+                *hargs, **hkw),
+            paged_attention.block_rows(table, 4096, bs),
+            f"chunk 512 at kv_len 4096 over {bs}-token blocks, Hq={HQ} "
+            f"Hkv={HKV} D={D} bf16")
+    return out + [res]
 
 
 def strict_relocation_plan(L, HKV, D, es, seed=0, blocks=14):
@@ -930,6 +1017,51 @@ def profile_serving(engine, rng, tag):
 
 
 # --------------------------------------------------------------------- #
+# (f) the kernel-level A/B entry points
+# --------------------------------------------------------------------- #
+def harness_phase(kernels):
+    """Run the four harnesses at Yi-6B's attention geometry (their
+    defaults) on the card; ``kernels`` (G, H) have their launch counts
+    zeroed just before and read just after.  The sweep and the probe run
+    with ``--check``: each G, H and C output they make is held against its
+    plain version on the same inputs.  Raises when a kernel disagrees with
+    its plain version or with a kernel it should equal."""
+    from vattention_tpu_torch.microbenchmarks import (bench_pagesize,
+                                                      bench_pod,
+                                                      kernel_sweep,
+                                                      probe_pod_depth)
+
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for bs in ("256", "16"):
+        log(f"(f) kernel_sweep --block-size {bs}")
+        kernel_sweep.main(["--block-size", bs, "--check"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("(f) bench_pagesize")
+    bench_pagesize.main([])
+    log("(f) bench_pod")
+    bench_pod.main([])
+    probes = [["--depth", str(d), "--check"]
+              for d in (16384, 32768, 65536, 131072)]
+    probes.append(["--depth", "16384", "--n-prefill", "3", "--check"])
+    for argv in probes:
+        log(f"(f) probe_pod_depth {' '.join(argv)}")
+        if probe_pod_depth.main(argv) != 0:
+            raise AssertionError(f"(f) probe_pod_depth {argv}: F differs "
+                                 "from G then C")
+    torch.cuda.synchronize()
+    counts = {k.symbol: k.launches for k in kernels}
+    log(f"(f) harnesses ran in {time.perf_counter() - t0:.1f} s; launches: "
+        + ", ".join(f"{s} {n}" for s, n in counts.items()))
+    if any(n <= 0 for n in counts.values()):
+        raise AssertionError(f"(f) a kernel never launched: {counts}")
+    return counts
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -939,9 +1071,10 @@ def main() -> int:
         from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
         from vattention_tpu_torch.ops.cache_append import KV_APPEND
         from vattention_tpu_torch.ops.flash_decode import DECODE_ATTENTION
-        from vattention_tpu_torch.ops.flash_prefill import PREFILL_ATTENTION
+        from vattention_tpu_torch.ops.flash_prefill import (
+            PREFILL_ATTENTION, SEGMENT_PREFILL_ATTENTION)
         from vattention_tpu_torch.ops.paged_attention import (
-            PAGED_PREFILL_ATTENTION)
+            PAGED_PREFILL_ATTENTION, PAGED_PREFILL_SINGLE)
         from vattention_tpu_torch.ops.pod_fused import POD_ATTENTION
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})",
@@ -958,8 +1091,9 @@ def main() -> int:
         f"(per source: {', '.join(f'{k} {v:.1f}' for k, v in secs.items())})")
     ptxas_report()
 
+    single = [SEGMENT_PREFILL_ATTENTION, PAGED_PREFILL_SINGLE]
     kernels = [KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION, ARENA_RELOCATE,
-               PAGED_PREFILL_ATTENTION, POD_ATTENTION]
+               PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single]
     results = kernel_phase(dev)
     parity_phase(dev, "fa_vattn", "b")
     parity_phase(dev, "fa_paged_16", "b'")
@@ -967,14 +1101,14 @@ def main() -> int:
     counts_c, tokens_c = serving_phase(
         dev, kernels, "fa_vattn_2mb", "c",
         required=[KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[PAGED_PREFILL_ATTENTION, POD_ATTENTION])
+        idle=[PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
     # free the (c) engine's memory before the paged engine sizes its pool
     gc.collect()
     torch.cuda.empty_cache()
     counts_d, _ = serving_phase(
         dev, kernels, "fa_paged_256", "d",
         required=[KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION],
+        idle=[PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION, *single],
         reference=tokens_c)
     gc.collect()
     torch.cuda.empty_cache()
@@ -982,7 +1116,8 @@ def main() -> int:
         dev, kernels, "fa_pod", "e",
         required=[POD_ATTENTION, KV_APPEND, PREFILL_ATTENTION,
                   DECODE_ATTENTION],
-        idle=[PAGED_PREFILL_ATTENTION, ARENA_RELOCATE], reference=tokens_c)
+        idle=[PAGED_PREFILL_ATTENTION, ARENA_RELOCATE, *single],
+        reference=tokens_c)
     f, b, c = (POD_ATTENTION.symbol, PREFILL_ATTENTION.symbol,
                DECODE_ATTENTION.symbol)
     log(f"(e) F + B = {counts_e[f]} + {counts_e[b]} against B in (c) "
@@ -991,13 +1126,24 @@ def main() -> int:
     if (counts_e[f] + counts_e[b] != counts_c[b]
             or counts_e[f] + counts_e[c] != counts_c[c]):
         raise AssertionError("(e) the fused launches do not add up to (c)'s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_f = harness_phase(single)
 
-    # launches: E's from the paged run (d), F's from the POD run (e), A-D's
-    # from the vattn run (c)
+    # launches: E's from the paged run (d), F's from the POD run (e), G's
+    # and H's from the harnesses (f), A-D's from the vattn run (c)
+    launches = {
+        "kv_append": (KV_APPEND, counts_c),
+        "prefill_attention": (PREFILL_ATTENTION, counts_c),
+        "decode_attention": (DECODE_ATTENTION, counts_c),
+        "arena_relocate": (ARENA_RELOCATE, counts_c),
+        "paged_prefill_attention": (PAGED_PREFILL_ATTENTION, counts_d),
+        "pod_attention": (POD_ATTENTION, counts_e),
+        "segment_prefill_attention": (SEGMENT_PREFILL_ATTENTION, counts_f),
+        "paged_prefill_attention_single": (PAGED_PREFILL_SINGLE, counts_f)}
     for r in results:
-        k = next(k for k in kernels if k.source == r["name"])
-        r["launches"] = {PAGED_PREFILL_ATTENTION: counts_d,
-                         POD_ATTENTION: counts_e}.get(k, counts_c)[k.symbol]
+        k, counts = launches[r["name"]]
+        r["launches"] = counts[k.symbol]
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, "
         "the kernels' build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -5,10 +5,11 @@ without one they skip.  Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -p no:xdist -q
 
-Kernels E (paged prefill) and C over block tables read tables poisoned
-past each run's or slot's last valid block.  Kernel F (POD) shares B's and
-C's bodies, so its outputs must equal theirs bit for bit.  Tolerances: kv_append and
-arena_relocate move bytes and must match
+Kernels E and H (paged prefill) and C over block tables read tables
+poisoned past each run's or slot's last valid block.  Kernels F (POD), G
+(single-run arena prefill) and H share B's, C's or E's bodies, so their
+outputs must equal those kernels' on the same rows bit for bit.
+Tolerances: kv_append and arena_relocate move bytes and must match
 exactly; the attention kernels sum in another order than the plain
 versions' full softmax, so float32 is held to 1e-4 and bfloat16 outputs
 (rounded once) to 2e-2.
@@ -23,11 +24,13 @@ from vattention_tpu_torch.ops.arena_copy import (arena_relocate,
 from vattention_tpu_torch.ops.cache_append import kv_append, kv_append_plain
 from vattention_tpu_torch.ops.flash_decode import (decode_attention,
                                                    decode_attention_plain)
-from vattention_tpu_torch.ops.flash_prefill import (prefill_attention,
-                                                    prefill_attention_plain)
+from vattention_tpu_torch.ops.flash_prefill import (
+    prefill_attention, prefill_attention_plain, segment_prefill_attention,
+    segment_prefill_attention_plain)
 from vattention_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_prefill_attention,
-    paged_prefill_attention_plain)
+    paged_prefill_attention_plain, paged_prefill_attention_single,
+    paged_prefill_attention_single_plain)
 from vattention_tpu_torch.ops.pod_fused import (pod_attention,
                                                 pod_attention_plain)
 from vattention_tpu_torch.ops.utils import tile_rows_from_segments
@@ -259,4 +262,74 @@ def test_pod_attention_matches_plain_and_b_then_c(dev, dtype):
         torch.testing.assert_close(got_p[lo:hi].float(),
                                    exp_p[lo:hi].float(), atol=tol, rtol=tol)
     torch.testing.assert_close(got_d.float(), exp_d.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_prefill_attention_matches_plain_and_b(dev, dtype, aligned):
+    """Kernel G over 4 extents (aligned to SUB, or not aligned to any
+    tile), within tolerance of its plain version and equal to kernel B on
+    the same rows (B's table at SUB rows per entry, or at 1)."""
+    rng = np.random.default_rng(7)
+    cache = _cache(rng, dtype, dev)
+    extents = ([(2048, 256), (512, 512), (3584, 256), (0, 256)] if aligned
+               else [(2051, 300), (517, 77), (3601, 200), (5, 400)])
+    sub = SUB if aligned else 1
+    seg_row = np.zeros(8, np.int32)
+    seg_cum = np.zeros(9, np.int32)
+    for j, (row, n) in enumerate(extents):
+        seg_row[j], seg_cum[j + 1] = row, seg_cum[j] + n
+    seg_cum[len(extents) + 1:] = seg_cum[len(extents)]
+    kv_len = int(seg_cum[-1])
+    qinfo = torch.tensor([kv_len - 200, kv_len], dtype=torch.int32)
+    q = torch.from_numpy(
+        rng.standard_normal((256, HQ, D)).astype(np.float32)).to(dtype)
+    sr, sc = torch.from_numpy(seg_row), torch.from_numpy(seg_cum)
+    expect = segment_prefill_attention_plain(q, cache.cpu(), sr, sc, qinfo,
+                                             1, sm_scale=D ** -0.5)
+    got = segment_prefill_attention(q.to(dev), cache, sr.to(dev), sc.to(dev),
+                                    qinfo.to(dev), 1, sm_scale=D ** -0.5)
+    rows = torch.from_numpy(tile_rows_from_segments(
+        seg_row[None], seg_cum[None], sub, -(-kv_len // sub))).to(dev)
+    qt_run = torch.tensor([[0, 0], [0, 1]], dtype=torch.int32, device=dev)
+    got_b = prefill_attention(q.to(dev), cache, qt_run, qinfo.to(dev)[None],
+                              rows, 1, sub=sub, pad_tile=128,
+                              sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_b)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), expect.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("bs", [16, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_single_matches_plain_and_e(dev, dtype, bs):
+    """Kernel H over permuted blocks, the table poisoned past the run's
+    last valid block, within tolerance of its plain version and equal to
+    kernel E on one run; kv_len 0 gives zeros."""
+    rng = np.random.default_rng(8)
+    cache = _cache(rng, dtype, dev)
+    n = -(-500 // bs)
+    table = torch.full((n + 2,), 2 ** 30, dtype=torch.int32)
+    table[:n] = torch.from_numpy(rng.permutation(R // bs)[:n].astype(np.int32))
+    q = torch.from_numpy(
+        rng.standard_normal((256, HQ, D)).astype(np.float32)).to(dtype)
+    kw = dict(block_size=bs, sm_scale=D ** -0.5)
+    qinfo = torch.tensor([300, 500], dtype=torch.int32)
+    expect = paged_prefill_attention_single_plain(q, cache.cpu(), table,
+                                                  qinfo, 1, **kw)
+    qd, td, qi = q.to(dev), table.to(dev), qinfo.to(dev)
+    got = paged_prefill_attention_single(qd, cache, td, qi, 1, **kw)
+    qt_run = torch.tensor([[0, 0], [0, 1]], dtype=torch.int32, device=dev)
+    got_e = paged_prefill_attention(qd, cache, qt_run, qi[None], td[None], 1,
+                                    pad_tile=128, **kw)
+    empty = paged_prefill_attention_single(
+        qd, cache, td, torch.zeros(2, dtype=torch.int32, device=dev), 1, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_e)
+    assert not empty.float().any()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), expect.float(), atol=tol,
                                rtol=tol)

@@ -103,14 +103,15 @@ __global__ void __launch_bounds__(kThreads) pod_attention_kernel(
       const int tile = 2 * col + half;
       if (tile < n_tiles)
         prefill::prefill_tile_tc(
-            qp, cache, op, qt_run, qinfo, rows, hq, hkv, pad_tile, rows_total,
-            layer, sm_scale, tile, h, threadIdx.x - half * prefill::kTcThreads,
+            qp, cache, op, prefill::RunTiles{qt_run}, qinfo, rows, hq, hkv,
+            pad_tile, rows_total, layer, sm_scale, tile, h,
+            threadIdx.x - half * prefill::kTcThreads,
             pod_smem + half * prefill::kTcSmemBytes,
             prefill::HalfSync{1 + half});
     } else {
-      prefill::prefill_tile<T>(qp, cache, op, qt_run, qinfo, rows, hq, hkv,
-                               pad_tile, rows_total, layer, sm_scale, col, h,
-                               threadIdx.x,
+      prefill::prefill_tile<T>(qp, cache, op, prefill::RunTiles{qt_run},
+                               qinfo, rows, hq, hkv, pad_tile, rows_total,
+                               layer, sm_scale, col, h, threadIdx.x,
                                reinterpret_cast<float*>(pod_smem),
                                prefill::BlockSync{});
     }

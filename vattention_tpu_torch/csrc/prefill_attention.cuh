@@ -1,13 +1,16 @@
 // The chunked causal GQA prefill body shared by kernel B (rows through the
-// arena's row table), kernel E (rows through per-run block tables) and
-// kernel F (POD: B's rows, beside the decode body in one launch).
+// arena's row table), kernel E (rows through per-run block tables), kernel
+// F (POD: B's rows, beside the decode body in one launch), kernel G (one
+// run, rows through the request's extent table) and kernel H (one run,
+// rows through one block table).
 //
-// B and E replace the TPU's _prefill_kernel of vattention_tpu/ops/flash_prefill.py,
-// which vattention_tpu/ops/paged_attention.py also reuses for its block
-// tables.  The q region [Tq, Hq, D] is a concatenation of prefill runs,
-// each padded to pad_tile (the scheduler's charge unit,
-// config.PREFILL_TOKEN_PAD).  qt_run[i] = (run, local tile) for each
-// pad_tile-row tile i; qinfo[run] = (q_start, kv_len).  Token j of local
+// B, E, G and H replace the TPU's _prefill_kernel of
+// vattention_tpu/ops/flash_prefill.py, which vattention_tpu/ops/paged_attention.py
+// also reuses for its block tables.  The q region [Tq, Hq, D] is a
+// concatenation of prefill runs, each padded to pad_tile (the scheduler's
+// charge unit, config.PREFILL_TOKEN_PAD).  A q map gives (run, local tile)
+// for each pad_tile-row tile i: qt_run[i] for B, E and F, (0, i) for the
+// single-run G and H; qinfo[run] = (q_start, kv_len).  Token j of local
 // tile lt sits at absolute position q_start + lt*pad_tile + j -- not at
 // positions[], which is 0 on padding rows.  It attends positions p <= its
 // own position with p < kv_len; position p lives at the arena row that the
@@ -86,6 +89,60 @@ struct BlockTables {
   }
 };
 
+// Kernel G's row map: one run's extent table, walked for each key position
+// as seg_row_lookup (vattention_tpu/ops/utils.py:281-297) does: position p
+// lives at seg_row[j] + p - seg_cum[j] for the j with seg_cum[j] <= p <
+// seg_cum[j+1] (the last such j), and at row 0 where no extent maps it.
+// Each key resolves its own row, so extents need not align to any tile.
+// The S <= kMaxSegments entries are read once per block into registers;
+// entries past S get the empty range [seg_cum[S], seg_cum[S]).
+constexpr int kMaxSegments = 8;
+
+struct Segments {
+  const int* seg_row;  // [S]
+  const int* seg_cum;  // [S + 1]
+  int num_segments;    // S
+
+  struct Run {
+    int cum[kMaxSegments + 1];
+    int row[kMaxSegments];
+    __device__ __forceinline__ long long operator()(int p) const {
+      long long r = 0;
+#pragma unroll
+      for (int j = 0; j < kMaxSegments; ++j)
+        if (p >= cum[j] && p < cum[j + 1])
+          r = static_cast<long long>(row[j]) + (p - cum[j]);
+      return r;
+    }
+  };
+  __device__ __forceinline__ Run run(int /*run*/, int /*kv_len*/) const {
+    Run out;
+#pragma unroll
+    for (int j = 0; j <= kMaxSegments; ++j)
+      out.cum[j] = seg_cum[min(j, num_segments)];
+#pragma unroll
+    for (int j = 0; j < kMaxSegments; ++j)
+      out.row[j] = j < num_segments ? seg_row[j] : 0;
+    return out;
+  }
+};
+
+// q maps: (run, local tile) of the q region's pad_tile-row tile pt.
+// Kernels B, E and F read the host-built qt_run[pt].
+struct RunTiles {
+  const int* qt_run;  // [num_tokens / pad_tile, 2]
+  __device__ __forceinline__ int2 operator()(int pt) const {
+    return make_int2(qt_run[2 * pt], qt_run[2 * pt + 1]);
+  }
+};
+
+// Kernels G and H: one run, so tile pt is (run 0, local tile pt).
+struct OneRun {
+  __device__ __forceinline__ int2 operator()(int pt) const {
+    return make_int2(0, pt);
+  }
+};
+
 constexpr int kD = 128;               // head dim
 constexpr int kRows = 64;             // query rows (token, head) per block
 constexpr int kKeys = 32;             // keys per tile
@@ -95,17 +152,17 @@ constexpr int kKStride = kD + 1;
 constexpr int kSmemBytes =
     (kRows * kQStride + kKeys * kKStride + kKeys * kD) * static_cast<int>(sizeof(float));
 
-// Barrier of the bodies below over the whole block (kernels B and E).
+// Barrier of the bodies below over the whole block (kernels B, E, G, H).
 struct BlockSync {
   __device__ __forceinline__ void operator()() const { __syncthreads(); }
 };
 
 // The float32 body: q tile `tile` (kRows/G tokens) of kv head `h`, run by
 // kThreads threads (local index `tid`) over `smem` (kSmemBytes).
-template <typename T, typename Rows, typename Sync>
+template <typename T, typename QMap, typename Rows, typename Sync>
 __device__ __forceinline__ void prefill_tile(
     const T* __restrict__ q, const T* __restrict__ cache, T* __restrict__ out,
-    const int* __restrict__ qt_run, const int* __restrict__ qinfo, Rows rows,
+    QMap qmap, const int* __restrict__ qinfo, Rows rows,
     int hq, int hkv, int pad_tile, long long rows_total, int layer,
     float sm_scale, int tile, int h, int tid, float* smem, Sync sync) {
   float* qs = smem;                       // [kRows][kQStride]
@@ -116,8 +173,9 @@ __device__ __forceinline__ void prefill_tile(
   const int qtok = kRows / group;         // tokens per block
   const int tok0 = tile * qtok;
   const int pt = tok0 / pad_tile;
-  const int run = qt_run[2 * pt];
-  const int lqt = qt_run[2 * pt + 1];
+  const int2 qt = qmap(pt);
+  const int run = qt.x;
+  const int lqt = qt.y;
   const int q_start = qinfo[2 * run];
   const int kv_len = qinfo[2 * run + 1];
   const int pos0 = q_start + lqt * pad_tile + (tok0 - pt * pad_tile);
@@ -232,14 +290,14 @@ __device__ __forceinline__ void prefill_tile(
   for (int i = 0; i < kD / 4; ++i) orow[part + 4 * i] = from_float<T>(acc[i] / l);
 }
 
-template <typename T, typename Rows>
+template <typename T, typename QMap, typename Rows>
 __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ cache, T* __restrict__ out,
-    const int* __restrict__ qt_run, const int* __restrict__ qinfo, Rows rows,
+    QMap qmap, const int* __restrict__ qinfo, Rows rows,
     int hq, int hkv, int pad_tile, long long rows_total, int layer,
     float sm_scale) {
   extern __shared__ float smem[];
-  prefill_tile<T>(q, cache, out, qt_run, qinfo, rows, hq, hkv, pad_tile,
+  prefill_tile<T>(q, cache, out, qmap, qinfo, rows, hq, hkv, pad_tile,
                   rows_total, layer, sm_scale, blockIdx.x, blockIdx.y,
                   threadIdx.x, smem, BlockSync{});
 }
@@ -270,10 +328,10 @@ struct HalfSync {
 
 // The bfloat16 body: q tile `tile` of kv head `h`, run by kTcThreads
 // threads (local index `tid`) over `smem` (kTcSmemBytes, 128-byte aligned).
-template <typename Rows, typename Sync>
+template <typename QMap, typename Rows, typename Sync>
 __device__ __forceinline__ void prefill_tile_tc(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ cache,
-    __nv_bfloat16* __restrict__ out, const int* __restrict__ qt_run,
+    __nv_bfloat16* __restrict__ out, QMap qmap,
     const int* __restrict__ qinfo, Rows rows, int hq, int hkv, int pad_tile,
     long long rows_total, int layer, float sm_scale, int tile, int h, int tid,
     unsigned char* smem, Sync sync) {
@@ -289,8 +347,9 @@ __device__ __forceinline__ void prefill_tile_tc(
   const int qtok = kRows / group;
   const int tok0 = tile * qtok;
   const int pt = tok0 / pad_tile;
-  const int run = qt_run[2 * pt];
-  const int lqt = qt_run[2 * pt + 1];
+  const int2 qt = qmap(pt);
+  const int run = qt.x;
+  const int lqt = qt.y;
   const int q_start = qinfo[2 * run];
   const int kv_len = qinfo[2 * run + 1];
   const int pos0 = q_start + lqt * pad_tile + (tok0 - pt * pad_tile);
@@ -443,21 +502,21 @@ __device__ __forceinline__ void prefill_tile_tc(
   for (int i = 0; i < 64; ++i) orow[i] = __float2bfloat16(o[i] / l);
 }
 
-template <typename Rows>
+template <typename QMap, typename Rows>
 __global__ void __launch_bounds__(kTcThreads) prefill_attention_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ cache,
-    __nv_bfloat16* __restrict__ out, const int* __restrict__ qt_run,
+    __nv_bfloat16* __restrict__ out, QMap qmap,
     const int* __restrict__ qinfo, Rows rows, int hq, int hkv, int pad_tile,
     long long rows_total, int layer, float sm_scale) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  prefill_tile_tc(q, cache, out, qt_run, qinfo, rows, hq, hkv, pad_tile,
+  prefill_tile_tc(q, cache, out, qmap, qinfo, rows, hq, hkv, pad_tile,
                   rows_total, layer, sm_scale, blockIdx.x, blockIdx.y,
                   threadIdx.x, tc_smem, BlockSync{});
 }
 
-template <typename Kernel, typename T, typename Rows>
+template <typename Kernel, typename T, typename QMap, typename Rows>
 int launch_one(Kernel kernel, int threads, int smem_bytes, const void* q,
-               const void* cache, void* out, const int* qt_run,
+               const void* cache, void* out, QMap qmap,
                const int* qinfo, Rows rows, int num_tokens, int hq, int hkv,
                int pad_tile, long long rows_total, int layer, float sm_scale,
                cudaStream_t stream) {
@@ -468,36 +527,37 @@ int launch_one(Kernel kernel, int threads, int smem_bytes, const void* q,
   const dim3 grid(num_tokens / qtok, hkv);
   kernel<<<grid, threads, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(cache),
-      static_cast<T*>(out), qt_run, qinfo, rows, hq, hkv, pad_tile,
+      static_cast<T*>(out), qmap, qinfo, rows, hq, hkv, pad_tile,
       rows_total, layer, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // q, out: [num_tokens, hq, 128]; cache: [L, 2, hkv, rows_total, 128];
-// qt_run: [num_tokens / pad_tile, 2]; qinfo: [K, 2] (all int32); `rows`
-// maps each run's key positions to arena rows.  hq/hkv must divide 64,
-// and 64/(hq/hkv) must divide pad_tile, which must divide num_tokens.
-template <typename Rows>
-int launch(const void* q, const void* cache, void* out, const int* qt_run,
+// qinfo: [K, 2] (int32); `qmap` maps each pad_tile-row tile to (run, local
+// tile) and `rows` each run's key positions to arena rows.  hq/hkv must
+// divide 64, and 64/(hq/hkv) must divide pad_tile, which must divide
+// num_tokens.
+template <typename QMap, typename Rows>
+int launch(const void* q, const void* cache, void* out, QMap qmap,
            const int* qinfo, Rows rows, int num_tokens, int hq, int hkv,
            int pad_tile, long long rows_total, int layer, float sm_scale,
            int dtype, void* stream) {
   if (num_tokens <= 0) return 0;
-  const int group = hq / hkv;
-  if (group <= 0 || kRows % group != 0 || pad_tile % (kRows / group) != 0 ||
-      num_tokens % pad_tile != 0)
+  const int group = hkv > 0 ? hq / hkv : 0;
+  if (group <= 0 || kRows % group != 0 || pad_tile <= 0 ||
+      pad_tile % (kRows / group) != 0 || num_tokens % pad_tile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch_one<decltype(&prefill_attention_kernel<float, Rows>), float>(
-        prefill_attention_kernel<float, Rows>, kThreads, kSmemBytes, q, cache,
-        out, qt_run, qinfo, rows, num_tokens, hq, hkv, pad_tile, rows_total,
-        layer, sm_scale, s);
+    return launch_one<decltype(&prefill_attention_kernel<float, QMap, Rows>), float>(
+        prefill_attention_kernel<float, QMap, Rows>, kThreads, kSmemBytes, q,
+        cache, out, qmap, qinfo, rows, num_tokens, hq, hkv, pad_tile,
+        rows_total, layer, sm_scale, s);
   if (dtype == kBFloat16)
-    return launch_one<decltype(&prefill_attention_tc_kernel<Rows>), __nv_bfloat16>(
-        prefill_attention_tc_kernel<Rows>, kTcThreads, kTcSmemBytes, q, cache,
-        out, qt_run, qinfo, rows, num_tokens, hq, hkv, pad_tile, rows_total,
-        layer, sm_scale, s);
+    return launch_one<decltype(&prefill_attention_tc_kernel<QMap, Rows>), __nv_bfloat16>(
+        prefill_attention_tc_kernel<QMap, Rows>, kTcThreads, kTcSmemBytes, q,
+        cache, out, qmap, qinfo, rows, num_tokens, hq, hkv, pad_tile,
+        rows_total, layer, sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

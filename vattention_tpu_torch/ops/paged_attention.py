@@ -1,10 +1,12 @@
 """Paged (block-table) attention, the A/B baseline (kernel E,
-``paged_prefill_attention``, and kernel C over block tables).
+``paged_prefill_attention``; kernel H, ``paged_prefill_attention_single``;
+and kernel C over block tables).
 
-Replaces ``paged_flash_prefill_multi`` and ``paged_flash_decode`` of
-``vattention_tpu/ops/paged_attention.py``.  The pool has the arena's layout
-``[L, 2, Hkv, R, D]`` with ``R = num_blocks * block_size`` (plus one
-scratch block); block ``b`` holds pool rows ``[b*bs, (b+1)*bs)``.
+Replaces ``paged_flash_prefill_multi``, ``paged_flash_prefill`` and
+``paged_flash_decode`` of ``vattention_tpu/ops/paged_attention.py``.  The
+pool has the arena's layout ``[L, 2, Hkv, R, D]`` with ``R = num_blocks *
+block_size`` (plus one scratch block); block ``b`` holds pool rows
+``[b*bs, (b+1)*bs)``.
 
 Prefill (kernel E): the q region holds K runs as for kernel B
 (``ops/flash_prefill.py``), and key position p of run r lives at row
@@ -13,6 +15,9 @@ E is kernel B's body (csrc/prefill_attention.cuh) with that lookup in
 place of B's row table, as the JAX kernel reuses ``_prefill_kernel``; only
 positions below kv_len are loaded, so a table's tail past the run's last
 valid block is never read.  Bound on the H100: operations, as B.
+Kernel H is E for one run through one block table (``qinfo = (q_start,
+kv_len)``, no ``qt_run``), as ``paged_flash_prefill`` is the single-run
+form; it equals E bit for bit on one run.
 
 Decode: a block table is a row table at ``sub = block_size``, so
 ``paged_decode_attention`` builds ``table * block_size`` with each entry
@@ -33,8 +38,9 @@ import torch
 from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, CudaKernel,
                                                  current_stream)
 from vattention_tpu_torch.ops.flash_decode import decode_attention
-from vattention_tpu_torch.ops.flash_prefill import (causal_prefill_plain,
-                                                    check_prefill_args)
+from vattention_tpu_torch.ops.flash_prefill import (
+    causal_prefill_plain, check_prefill_args, check_prefill_shapes,
+    reject_unported, single_run_plain)
 
 PAGED_PREFILL_ATTENTION = CudaKernel(
     "paged_prefill_attention", "vattn_paged_prefill_attention", [
@@ -43,6 +49,13 @@ PAGED_PREFILL_ATTENTION = CudaKernel(
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p])
+
+PAGED_PREFILL_SINGLE = CudaKernel(
+    "paged_prefill_attention", "vattn_paged_prefill_single", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def block_rows(table: torch.Tensor, n: int, block_size: int) -> torch.Tensor:
@@ -84,6 +97,47 @@ def paged_prefill_attention(q, kv_cache, qt_run, qinfo, block_tables,
         q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(), qt_run.data_ptr(),
         qinfo.data_ptr(), block_tables.data_ptr(), Tq, Hq, Hkv, pad_tile,
         block_tables.shape[1], block_size, R, layer, float(sm_scale),
+        DTYPE_CODES[q.dtype], current_stream())
+    return out
+
+
+def paged_prefill_attention_single_plain(q, kv_cache, block_table, qinfo,
+                                         layer: int, *, block_size: int,
+                                         sm_scale: float) -> torch.Tensor:
+    """Plain PyTorch version of kernel H."""
+    return single_run_plain(
+        q, kv_cache, qinfo,
+        lambda run, n: block_rows(block_table, n, block_size), layer,
+        sm_scale=sm_scale)
+
+
+def paged_prefill_attention_single(q, kv_cache, block_table, qinfo,
+                                   layer: int, *, block_size: int,
+                                   sm_scale: float,
+                                   window=None) -> torch.Tensor:
+    """q: [Tq, Hq, D], one chunk at positions ``qinfo[0] + [0, Tq)``;
+    kv_cache: [L, 2, Hkv, R, D]; block_table: [NB] block ids, qinfo: [2] =
+    (q_start, kv_len) (int32) -> [Tq, Hq, D] in q's dtype.  CPU tensors
+    take the plain version; CUDA tensors launch kernel H."""
+    reject_unported("paged_prefill_attention_single", kv_cache, window)
+    if not q.is_cuda:
+        return paged_prefill_attention_single_plain(
+            q, kv_cache, block_table, qinfo, layer, block_size=block_size,
+            sm_scale=sm_scale)
+    check_prefill_shapes(
+        "paged_prefill_attention_single", q, kv_cache, layer, None,
+        qinfo.shape == (2,) and block_table.dim() == 1
+        and block_table.numel() > 0 and block_size > 0,
+        block_table=block_table, qinfo=qinfo)
+    Tq, Hq, _ = q.shape
+    _, _, Hkv, R, _ = kv_cache.shape
+    out = torch.empty_like(q)
+    if Tq == 0:
+        return out
+    PAGED_PREFILL_SINGLE(
+        q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(),
+        block_table.data_ptr(), block_table.shape[0], block_size,
+        qinfo.data_ptr(), Tq, Hq, Hkv, R, layer, float(sm_scale),
         DTYPE_CODES[q.dtype], current_stream())
     return out
 
