@@ -5,9 +5,10 @@
 
 Builds the port's eight CUDA kernels (A-H) from the six sources of
 ``vattention_tpu_torch/csrc`` (one nvcc per source, in parallel) and
-prints ptxas's registers and spills of kernels B, C, E, F, G and H, then
-runs its phases; any failure raises and the script exits non-zero without
-printing a result.
+prints ptxas's registers and spills of kernels B, C, E, F, G and H, with
+the shared memory per block of the bf16 prefill body's instances (and any
+ptxas note on wgmma), then runs its phases; any failure raises and the
+script exits non-zero without printing a result.
 
 (a) Kernels at the main paths' shapes (Yi-6B-200K geometry, bf16, the
     2048-token blocks the allocator gives fa_vattn_2mb; for the paged
@@ -24,7 +25,14 @@ printing a result.
     and C on the same inputs (the same bodies: expected bit for bit), and
     timed beside B then C launched serially in one loop (no single
     PyTorch call computes both outputs, so F has no library time; the two
-    SDPA calls' sum is logged).
+    SDPA calls' sum is logged).  The shared prefill body's edge cases
+    (``microbenchmarks/prefill_edges.py``, at Yi geometry: kv_len 1-4133,
+    q_start 40, 56 and 60 mod 64, the empty run, E and H over 16-token
+    blocks with poisoned tails, G over unaligned extents) are held against
+    the plain versions and E = B, F = B and C, G = B, H = E bit for bit.
+    Then the body at depth: G and H (16-token blocks) at chunk 2048 at
+    kv_len 32768, each held against its plain version and timed beside
+    one SDPA call on the same gathered K/V and its bound (logged only).
     Tolerances: kv_append and arena_relocate bit for bit; prefill and
     decode attention within atol = rtol = 2e-2 in bf16 (one bf16 rounding
     of outputs of magnitude ~1, summed in another order) and, for each
@@ -99,6 +107,8 @@ import numpy as np
 import torch
 
 try:
+    from vattention_tpu_torch.microbenchmarks.prefill_edges import (
+        check_prefill_edges)
     from vattention_tpu_torch.microbenchmarks.timing import (
         ATTN_TOL, Timer, bound, check_attention, seeded)
 except ImportError as e:  # chip_smoke.py without the port beside it
@@ -305,6 +315,13 @@ def kernel_phase(dev):
     results.append(paged_kernels(dev, cache, R, timer, randn, layer))
     results += single_run_kernels(dev, cache, R, bt, sub, n_sub, timer,
                                   randn, layer)
+    err, rel = check_prefill_edges(cache, HQ, layer)
+    log("(a) prefill body edge cases (kv_len 1, 63, 64, 65, 200, 4133; "
+        "q_start 40, 56, 60 mod 64; the empty run; B over 16-token block "
+        "tables with poisoned tails and over unaligned extents): max abs err "
+        f"{err} (row worst {rel:.5f}); E = B, F = B and C, G = B, H = E bit "
+        "for bit")
+    long_context(dev, cache, R, bt, timer, randn, layer)
 
     # -- D: a chained plan from the allocator in strict mode
     plan, live = strict_relocation_plan(L, HKV, D, es)
@@ -435,12 +452,18 @@ def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms):
 
 def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
                         "decode_attention", "pod_attention")):
-    """Registers and spills of the bf16 prefill body's kernels (B, G, E
-    and H, named by their q map and row map) and of the G = 8 instances
-    of the others, from each library's ptxas log (written when the
-    library is built)."""
-    from vattention_tpu_torch.ops.cuda_build import library_path
+    """Registers, spills and shared memory per block of the bf16 prefill
+    body's kernels (B, G, E and H, named by their q map and row map) and
+    of the G = 8 instances of the others, from each library's ptxas log
+    (written when the library is built) and the dynamic shared memory the
+    launchers ask for; ptxas's notes on wgmma, if any, follow."""
+    import ctypes
 
+    from vattention_tpu_torch.ops.cuda_build import library, library_path
+
+    pre = library("prefill_attention").vattn_prefill_smem_bytes
+    pod = library("pod_attention").vattn_pod_smem_bytes
+    pre.argtypes, pod.argtypes = [ctypes.c_int], [ctypes.c_int] * 2
     for name in names:
         path = library_path(name).with_suffix(".so.log")
         if not path.exists():
@@ -448,6 +471,8 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
             continue
         fn = None
         for line in path.read_text().splitlines():
+            if "wgmma" in line:
+                log(f"ptxas {name}.cu: {line.strip()}")
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 fn, spills = m.group(1), "spills not reported"
@@ -457,15 +482,24 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
                 spills = f"{m.group(1)}/{m.group(2)} bytes spilled"
             m = re.search(r"Used (\d+) registers", line)
             if m and fn and ("tc_kernel" in fn or "Li8E" in fn):
-                dtype = "bf16" if "bfloat16" in fn else "f32"
+                bf16 = "bfloat16" in fn
                 kernel = re.search(r"\d+([a-z_]+_kernel)", fn).group(1)
                 maps = re.findall(r"RunTiles|OneRun|TileRows|BlockTables|"
                                   r"Segments", fn)
                 if maps:
                     kernel += f"<{', '.join(maps)}>"
-                log(f"ptxas {name}.cu: {kernel} ({dtype}"
+                smem = ""
+                if name != "decode_attention":
+                    static = re.search(r"(\d+) bytes smem", line)
+                    dynamic = (pod(int(bf16), 8) if name == "pod_attention"
+                               else pre(int(bf16)))
+                    smem = (f", shared memory {dynamic} B dynamic + "
+                            f"{static.group(1) if static else 0} B static "
+                            "per block")
+                log(f"ptxas {name}.cu: {kernel} "
+                    f"({'bf16' if bf16 else 'f32'}"
                     f"{'' if 'tc_kernel' in fn else ', G=8'}): "
-                    f"{m.group(1)} registers, {spills}")
+                    f"{m.group(1)} registers, {spills}{smem}")
 
 
 def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
@@ -733,6 +767,69 @@ def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
     return out + [res]
 
 
+def long_context(dev, cache, pool_rows, bt, timer, randn, layer):
+    """(a) the prefill body at the sweep's deepest prefill, chunk 2048 at
+    kv_len 32768: G over 8 extents of 4096 tokens at 2048-token block
+    starts, H over a seeded permutation of the pool's 16-token blocks with
+    its tail poisoned; each held against its plain version (256 query
+    tokens at a time) and timed beside one SDPA call on the same gathered
+    K/V and beside its bound.  Logged only: the JSON line keeps (a)'s
+    512@4096 shape."""
+    from vattention_tpu_torch.ops import flash_prefill, paged_attention
+
+    HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
+    es = 2
+    sm = D ** -0.5
+    n, chunk, bs = 32768, 2048, 16
+    q = randn(chunk, HQ, D)
+    qinfo = torch.tensor([n - chunk, n], dtype=torch.int32, device=dev)
+    pos = torch.arange(n, device=dev)
+    mask = (n - chunk + torch.arange(chunk, device=dev))[:, None] \
+        >= pos[None, :]
+    pairs = chunk * (n - chunk) + chunk * (chunk + 1) // 2
+    b_ms, b_by = bound((2 * chunk * HQ * D + n * 2 * HKV * D) * es,
+                       4 * HQ * D * pairs)
+    qg = q.transpose(0, 1)[None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    starts = [10, 2, 18, 6, 14, 0, 22, 8]      # pairs of 2048-token blocks
+    sr = torch.tensor([s_ * bt for s_ in starts], dtype=torch.int32,
+                      device=dev)
+    sc = torch.arange(9, dtype=torch.int32, device=dev) * (n // 8)
+    table = np.full(n // bs + 8, 2 ** 30, np.int32)
+    table[:n // bs] = np.random.default_rng(3).permutation(
+        pool_rows // bs)[:n // bs]
+    table = torch.from_numpy(table).to(dev)
+    cases = (
+        ("segment_prefill_attention (G), 8 extents",
+         lambda: flash_prefill.segment_prefill_attention(
+             q, cache, sr, sc, qinfo, layer, sm_scale=sm),
+         lambda: flash_prefill.segment_prefill_attention_plain(
+             q, cache, sr, sc, qinfo, layer, sm_scale=sm),
+         flash_prefill.segment_rows(sr, sc, n)),
+        ("paged_prefill_attention_single (H), 16-token blocks",
+         lambda: paged_attention.paged_prefill_attention_single(
+             q, cache, table, qinfo, layer, block_size=bs, sm_scale=sm),
+         lambda: paged_attention.paged_prefill_attention_single_plain(
+             q, cache, table, qinfo, layer, block_size=bs, sm_scale=sm),
+         paged_attention.block_rows(table, n, bs)))
+    for what, fn, plain, grow in cases:
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err, rel = check_attention(f"{what} at chunk {chunk}, kv_len {n}",
+                                   got, ref, PREFILL_TOL)
+        del got, ref
+        kg = cache[layer, 0][:, grow][None]
+        vg = cache[layer, 1][:, grow][None]
+        ms = timer(fn)
+        lib = timer(lambda: sdpa(qg, kg, vg, attn_mask=mask,
+                                 enable_gqa=True))
+        del kg, vg
+        log(f"(a) {what}: chunk {chunk} at kv_len {n}, Hq={HQ} Hkv={HKV} "
+            f"D={D} bf16: max abs err {err} (row worst {rel:.5f}) ms "
+            f"{ms:.4f} library {lib:.4f} (SDPA, gathered K/V) bound "
+            f"{b_ms:.4f} ({b_by})")
+
+
 def strict_relocation_plan(L, HKV, D, es, seed=0, blocks=14):
     """A relocation plan with chained moves from the allocator in strict
     contiguity (max_segments=1) on a seeded dynamic workload, plus the
@@ -997,11 +1094,15 @@ def profile_serving(engine, rng, tag):
             f"{wall * 1e3:.1f} ms)")
         return
     families = {"port kernels A-F": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, ms, _ in kernels:
+    port = {}
+    for name, ms, count in kernels:
         if any(s in name for s in ("kv_append_kernel", "prefill_attention",
                                    "decode_partial", "decode_merge",
                                    "arena_relocate", "pod_attention")):
             families["port kernels A-F"] += ms
+            short = re.search(r"(\w+_kernel)", name).group(1)
+            ms0, n0 = port.get(short, (0.0, 0))
+            port[short] = (ms0 + ms, n0 + count)
         elif any(s in name.lower() for s in ("gemm", "gemv", "xmma", "nvjet",
                                              "cutlass", "matmul")):
             families["matmul"] += ms
@@ -1012,6 +1113,9 @@ def profile_serving(engine, rng, tag):
         f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), "
         f"idle {100 - 100 * busy / (wall * 1e3):.1f}%; "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in families.items()))
+    log(f"(p {tag}) port kernels: " + ", ".join(
+        f"{k} {ms:.2f} ms in {n}" for k, (ms, n) in sorted(
+            port.items(), key=lambda kv: -kv[1][0])))
     for name, ms, count in sorted(kernels, key=lambda r: -r[1])[:8]:
         log(f"(p {tag})   {ms:9.2f} ms {count:6d} x {name[:90]}")
 

@@ -12,13 +12,18 @@ outputs must equal those kernels' on the same rows bit for bit.
 Tolerances: kv_append and arena_relocate move bytes and must match
 exactly; the attention kernels sum in another order than the plain
 versions' full softmax, so float32 is held to 1e-4 and bfloat16 outputs
-(rounded once) to 2e-2.
+(rounded once) to 2e-2.  The bf16 prefill body's edge cases
+(``microbenchmarks/prefill_edges.py``) are held with
+``timing.check_attention``: 2e-2 and each output row within 2^-6 of its
+largest output.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vattention_tpu_torch.microbenchmarks.prefill_edges import (
+    check_prefill_edges)
 from vattention_tpu_torch.ops.arena_copy import (arena_relocate,
                                                  arena_relocate_plain)
 from vattention_tpu_torch.ops.cache_append import kv_append, kv_append_plain
@@ -333,3 +338,18 @@ def test_paged_prefill_single_matches_plain_and_e(dev, dtype, bs):
     tol = TOL[dtype]
     torch.testing.assert_close(got.cpu().float(), expect.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.parametrize("hq", [8, 16])
+def test_prefill_body_edge_cases(dev, hq):
+    """The bf16 prefill body at G = 4 and 8 (32- and 16-token q tiles):
+    kv_len 1, 63, 64, 65, 200 and 4133, q_start 40, 56 and 60 mod 64 (a
+    key tile above a whole warpgroup, or above some of its rows) and the
+    empty run in one multi-run launch; B against its plain version over
+    16-token block tables with poisoned tails and over unaligned extents,
+    and E = B, F = B and C, G = B, H = E bit for bit."""
+    rng = np.random.default_rng(9)
+    cache = torch.from_numpy(
+        rng.standard_normal((1, 2, HKV, 8192, D)).astype(np.float32)
+    ).to(device=dev, dtype=torch.bfloat16)
+    check_prefill_edges(cache, hq, 0)

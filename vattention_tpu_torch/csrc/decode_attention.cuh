@@ -133,7 +133,7 @@ __device__ __forceinline__ bool decode_split(
     for (int i = 0; i < 4; ++i) sm_acc[(warp * G + g) * kD + lane * 4 + i] = acc[g][i];
   __syncthreads();
   float* dst = part + (static_cast<long long>(bh) * nsplit + split) * kPartFloats<G>;
-  for (int idx = threadIdx.x; idx < G * kD + G; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < G * kD + G; idx += kThreads) {
     const int g = idx < G * kD ? idx / kD : idx - G * kD;
     float mx = -INFINITY;
 #pragma unroll

@@ -19,8 +19,8 @@
 
 // q, out: [num_tokens, hq, 128]; cache: [L, 2, hkv, rows_total, 128];
 // qt_run: [num_tokens / pad_tile, 2]; qinfo: [K, 2]; block_tables: [K, nb]
-// block ids (all int32).  hq/hkv must divide 64, and 64/(hq/hkv) must
-// divide pad_tile, which must divide num_tokens.
+// block ids (all int32).  hq/hkv must divide R (128 in bf16, 64 in f32),
+// and R/(hq/hkv) must divide pad_tile, which must divide num_tokens.
 extern "C" int vattn_paged_prefill_attention(
     const void* q, const void* cache, void* out, const int* qt_run,
     const int* qinfo, const int* block_tables, int num_tokens, int hq,
@@ -36,19 +36,20 @@ extern "C" int vattn_paged_prefill_attention(
 
 // q, out: [num_tokens, hq, 128] at positions qinfo[0] + [0, num_tokens);
 // cache: [L, 2, hkv, rows_total, 128]; block_table: [nb] block ids; qinfo:
-// [2] = (q_start, kv_len) (all int32).  hq/hkv must divide 64, and
-// 64/(hq/hkv) must divide num_tokens.
+// [2] = (q_start, kv_len) (all int32).  hq/hkv must divide R (128 in
+// bf16, 64 in f32), and R/(hq/hkv) must divide num_tokens.
 extern "C" int vattn_paged_prefill_single(
     const void* q, const void* cache, void* out, const int* block_table,
     int nb, int block_size, const int* qinfo, int num_tokens, int hq,
     int hkv, long long rows_total, int layer, float sm_scale, int dtype,
     void* stream) {
   using namespace vattn::prefill;
+  const int rows = block_rows(dtype);
   if (nb <= 0 || block_size <= 0 || hkv <= 0 || hq % hkv != 0 || hq < hkv ||
-      kRows % (hq / hkv) != 0)
+      rows == 0 || rows % (hq / hkv) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, cache, out, OneRun{}, qinfo,
                 BlockTables{block_table, nb, block_size}, num_tokens, hq, hkv,
-                kRows / (hq / hkv), rows_total, layer, sm_scale, dtype,
+                rows / (hq / hkv), rows_total, layer, sm_scale, dtype,
                 stream);
 }

@@ -16,12 +16,12 @@
 // FLOPs per attended (query, key) pair.  The prefill part is tensor-core
 // bound, the decode part bandwidth bound; the larger of the two times
 // bounds the launch (bytes / 3.35 TB/s against FLOPs / 989 TF/s).
-// Design: one grid of n_pre + n_dec blocks of 256 threads.  n_pre blocks
-// cover B's grid (q tiles x kv heads; in bf16 each block runs two q tiles,
-// one per 128-thread half, each half synchronising on its own named
-// barrier), n_dec blocks cover C's pass-1 grid (slot-heads x splits of 256
-// positions).  Block t finds its role from its index through the even
-// weave of build_pod_schedule (pod_fused.py:134-138): it is the
+// Design: one grid of n_pre + n_dec blocks.  n_pre blocks cover B's grid
+// (q tiles x kv heads, one q tile per block: in bf16 128 rows on two
+// consumer warpgroups fed by a producer warpgroup, so bf16 blocks are 384
+// threads), n_dec blocks cover C's pass-1 grid (slot-heads x splits of
+// 256 positions, on 256 of the threads).  Block t finds its role from its
+// index through the even weave of build_pod_schedule (pod_fused.py:134-138): it is the
 // decodes_before(t)-th decode block when decodes_before(t + 1) exceeds
 // it, and prefill otherwise.  Blocks are dispatched roughly in index
 // order, so compute-bound prefill blocks and bandwidth-bound decode blocks
@@ -32,10 +32,10 @@
 // and takes a ticket on its (slot, head) counter; the last of the
 // cdiv(seqlens[b], 256) splits that hold positions runs C's merge over
 // them in split order and resets the counter to 0 for the next launch.
-// Both roles carve one dynamic shared buffer (two bf16 q tiles: 220 KB),
-// so one block fits an SM and the two roles take turns on an SM rather
-// than share it; the bf16 prefill body's registers set the occupancy of
-// both roles.
+// Both roles carve one dynamic shared buffer (the bf16 prefill body's
+// 161 KB), so one block fits an SM and the two roles take turns on an SM
+// rather than share it; the bf16 prefill body's registers (168 x 384
+// threads) set the occupancy of both roles.
 #include <type_traits>
 
 #include "decode_attention.cuh"
@@ -45,9 +45,11 @@ using namespace vattn;
 
 namespace {
 
+// f32 blocks are 256 threads; bf16 blocks add the prefill body's producer
+// warpgroup, which the decode role does not use
 constexpr int kThreads = 256;
 static_assert(prefill::kThreads == kThreads && decode::kThreads == kThreads &&
-                  2 * prefill::kTcThreads == kThreads,
+                  prefill::kTcConsumers == kThreads,
               "one block size for both roles");
 
 // Decode blocks among blocks [0, t) of n when n_dec of them decode: the
@@ -62,18 +64,18 @@ __device__ __forceinline__ long long decodes_before(long long t,
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T>
-constexpr int kTilesPerBlock = kTensorCores<T> ? 2 : 1;
-
 template <typename T, int G>
 constexpr int smem_bytes() {
-  constexpr int pre = kTensorCores<T> ? 2 * prefill::kTcSmemBytes : prefill::kSmemBytes;
+  constexpr int pre = kTensorCores<T> ? prefill::kTcSmemBytes : prefill::kSmemBytes;
   constexpr int dec = decode::kSmemFloats<G> * static_cast<int>(sizeof(float));
   return pre > dec ? pre : dec;
 }
 
+template <typename T>
+constexpr int kBlockThreads = kTensorCores<T> ? prefill::kTcThreads : kThreads;
+
 template <typename T, int G>
-__global__ void __launch_bounds__(kThreads) pod_attention_kernel(
+__global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
     const T* __restrict__ qp, const T* __restrict__ qd,
     const T* __restrict__ cache, T* __restrict__ op, T* __restrict__ od,
     float* __restrict__ part, int* __restrict__ tickets,
@@ -86,39 +88,31 @@ __global__ void __launch_bounds__(kThreads) pod_attention_kernel(
   extern __shared__ __align__(128) unsigned char pod_smem[];
   __shared__ int merge_here;
   const int hq = hkv * G;
-  const int pre_cols = (n_tiles + kTilesPerBlock<T> - 1) / kTilesPerBlock<T>;
   const long long n_dec = static_cast<long long>(batch) * hkv * nsplit;
-  const long long n = static_cast<long long>(pre_cols) * hkv + n_dec;
+  const long long n = static_cast<long long>(n_tiles) * hkv + n_dec;
   const long long t = blockIdx.x;
   const long long di = decodes_before(t, n_dec, n);
 
   if (decodes_before(t + 1, n_dec, n) == di) {
     // prefill: block t - di of B's grid, in B's order (q tiles fastest)
     const int pi = static_cast<int>(t - di);
-    const int h = pi / pre_cols;
-    const int col = pi - h * pre_cols;
+    const int h = pi / n_tiles;
+    const int tile = pi - h * n_tiles;
     const prefill::TileRows rows{pre_rows, pre_n_sub, sub};
-    if constexpr (kTensorCores<T>) {
-      const int half = threadIdx.x / prefill::kTcThreads;
-      const int tile = 2 * col + half;
-      if (tile < n_tiles)
-        prefill::prefill_tile_tc(
-            qp, cache, op, prefill::RunTiles{qt_run}, qinfo, rows, hq, hkv,
-            pad_tile, rows_total, layer, sm_scale, tile, h,
-            threadIdx.x - half * prefill::kTcThreads,
-            pod_smem + half * prefill::kTcSmemBytes,
-            prefill::HalfSync{1 + half});
-    } else {
+    if constexpr (kTensorCores<T>)
+      prefill::prefill_tile_tc(qp, cache, op, prefill::RunTiles{qt_run},
+                               qinfo, rows, hq, hkv, pad_tile, rows_total,
+                               layer, sm_scale, tile, h, pod_smem);
+    else
       prefill::prefill_tile<T>(qp, cache, op, prefill::RunTiles{qt_run},
                                qinfo, rows, hq, hkv, pad_tile, rows_total,
-                               layer, sm_scale, col, h, threadIdx.x,
-                               reinterpret_cast<float*>(pod_smem),
-                               prefill::BlockSync{});
-    }
+                               layer, sm_scale, tile, h, threadIdx.x,
+                               reinterpret_cast<float*>(pod_smem));
     return;
   }
 
   // decode: block di of C's pass-1 grid, in C's order (slot-heads fastest)
+  if (threadIdx.x >= kThreads) return;
   const int bh = static_cast<int>(di % (static_cast<long long>(batch) * hkv));
   const int split = static_cast<int>(di / (static_cast<long long>(batch) * hkv));
   const int b = bh / hkv;
@@ -164,10 +158,10 @@ int launch(const void* qp, const void* qd, const void* cache, void* op,
       pod_attention_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long long pre_cols = (n_tiles + kTilesPerBlock<T> - 1) / kTilesPerBlock<T>;
-  const long long blocks = pre_cols * hkv + static_cast<long long>(batch) * hkv * nsplit;
+  const long long blocks = static_cast<long long>(n_tiles) * hkv +
+                           static_cast<long long>(batch) * hkv * nsplit;
   if (blocks == 0) return 0;
-  pod_attention_kernel<T, G><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  pod_attention_kernel<T, G><<<static_cast<unsigned>(blocks), kBlockThreads<T>, smem, stream>>>(
       static_cast<const T*>(qp), static_cast<const T*>(qd),
       static_cast<const T*>(cache), static_cast<T*>(op), static_cast<T*>(od),
       part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub,
@@ -208,7 +202,8 @@ int dispatch_group(int group, const void* qp, const void* qd,
 // (all int32, seqlens each at most chunk * nsplit).  part: float32 scratch
 // of batch * hkv * nsplit * group * 130 elements; tickets: batch * hkv
 // int32 counters, 0 before the launch and 0 after it.  group must be 1, 2,
-// 4 or 8; 64/group must divide pad_tile, which must divide num_tokens.
+// 4 or 8; R/group (R = 128 in bf16, 64 in f32) must divide pad_tile, which
+// must divide num_tokens.
 extern "C" int vattn_pod_attention(
     const void* q_prefill, const void* q_decode, const void* cache,
     void* out_prefill, void* out_decode, void* part, int* tickets,
@@ -217,11 +212,12 @@ extern "C" int vattn_pod_attention(
     const int* seqlens, int num_tokens, int batch, int hkv, int group,
     int sub, int pad_tile, long long rows_total, int layer, float sm_scale,
     int chunk, int nsplit, int dtype, void* stream) {
-  if (group <= 0 || prefill::kRows % group != 0 || pad_tile <= 0 ||
-      pad_tile % (prefill::kRows / group) != 0 || num_tokens < 0 ||
+  const int rows = prefill::block_rows(dtype);
+  if (group <= 0 || rows == 0 || rows % group != 0 || pad_tile <= 0 ||
+      pad_tile % (rows / group) != 0 || num_tokens < 0 ||
       num_tokens % pad_tile != 0 || batch < 0 || chunk <= 0 || nsplit <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = num_tokens / (prefill::kRows / group);
+  const int n_tiles = num_tokens / (rows / group);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   if (dtype == kFloat32)
@@ -229,4 +225,17 @@ extern "C" int vattn_pod_attention(
   if (dtype == kBFloat16)
     return dispatch_group<__nv_bfloat16>(group, q_prefill, q_decode, cache, out_prefill, out_decode, p, tickets, qt_run, qinfo, pre_tile_rows, pre_n_sub, dec_tile_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, chunk, nsplit, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory per block of kernel F for `dtype` and `group`, in
+// bytes (0 for a group it does not take).
+extern "C" int vattn_pod_smem_bytes(int dtype, int group) {
+  const bool bf16 = dtype == kBFloat16;
+  switch (group) {
+    case 1: return bf16 ? smem_bytes<__nv_bfloat16, 1>() : smem_bytes<float, 1>();
+    case 2: return bf16 ? smem_bytes<__nv_bfloat16, 2>() : smem_bytes<float, 2>();
+    case 4: return bf16 ? smem_bytes<__nv_bfloat16, 4>() : smem_bytes<float, 4>();
+    case 8: return bf16 ? smem_bytes<__nv_bfloat16, 8>() : smem_bytes<float, 8>();
+    default: return 0;
+  }
 }

@@ -16,8 +16,8 @@
 
 // q, out: [num_tokens, hq, 128]; cache: [L, 2, hkv, rows_total, 128];
 // qt_run: [num_tokens / pad_tile, 2]; qinfo: [K, 2]; tile_rows: [K, n_sub]
-// (all int32).  hq/hkv must divide 64, and 64/(hq/hkv) must divide
-// pad_tile, which must divide num_tokens.
+// (all int32).  hq/hkv must divide R (128 in bf16, 64 in f32), and
+// R/(hq/hkv) must divide pad_tile, which must divide num_tokens.
 extern "C" int vattn_prefill_attention(const void* q, const void* cache,
                                        void* out, const int* qt_run,
                                        const int* qinfo, const int* tile_rows,
@@ -35,18 +35,27 @@ extern "C" int vattn_prefill_attention(const void* q, const void* cache,
 // q, out: [num_tokens, hq, 128] at positions qinfo[0] + [0, num_tokens);
 // cache: [L, 2, hkv, rows_total, 128]; seg_row: [S]; seg_cum: [S + 1];
 // qinfo: [2] = (q_start, kv_len) (all int32); 1 <= S <= 8.  hq/hkv must
-// divide 64, and 64/(hq/hkv) must divide num_tokens.
+// divide R (128 in bf16, 64 in f32), and R/(hq/hkv) must divide
+// num_tokens.
 extern "C" int vattn_segment_prefill_attention(
     const void* q, const void* cache, void* out, const int* seg_row,
     const int* seg_cum, int num_segments, const int* qinfo, int num_tokens,
     int hq, int hkv, long long rows_total, int layer, float sm_scale,
     int dtype, void* stream) {
   using namespace vattn::prefill;
+  const int rows = block_rows(dtype);
   if (num_segments < 1 || num_segments > kMaxSegments || hkv <= 0 ||
-      hq % hkv != 0 || hq < hkv || kRows % (hq / hkv) != 0)
+      hq % hkv != 0 || hq < hkv || rows == 0 || rows % (hq / hkv) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, cache, out, OneRun{}, qinfo,
                 Segments{seg_row, seg_cum, num_segments}, num_tokens, hq, hkv,
-                kRows / (hq / hkv), rows_total, layer, sm_scale, dtype,
+                rows / (hq / hkv), rows_total, layer, sm_scale, dtype,
                 stream);
+}
+
+// Dynamic shared memory per block of the prefill body for `dtype`, in
+// bytes (what the launchers above ask for).
+extern "C" int vattn_prefill_smem_bytes(int dtype) {
+  using namespace vattn::prefill;
+  return dtype == vattn::kBFloat16 ? kTcSmemBytes : kSmemBytes;
 }

@@ -116,7 +116,7 @@ def probe(args) -> bool:
                                            cdiv(ctx_pad, sub)))
 
     # what F covers: B's (q tile, kv head) grid and C's pass-1 splits
-    n_pre = sum(pads) // (KERNEL_ROWS // (Hq // Hkv)) * Hkv
+    n_pre = sum(pads) // (KERNEL_ROWS[qp.dtype] // (Hq // Hkv)) * Hkv
     n_dec = B * Hkv * split_count(dec_rows, sub)
     print(f"depth={args.depth} K={K} sched={n_pre + n_dec} "
           f"(pre {n_pre} dec {n_dec})", flush=True)

@@ -4,7 +4,9 @@ kernel timing, roofline bounds and the attention tolerance.
 
 On the card a time is the mean device milliseconds of one call over CUDA
 events, each call after a 256 MB L2 flush (a serving step meets every
-layer's KV cold).  With ``--cpu`` a harness runs the kernels' plain
+layer's KV cold) and a short device-side wait, so the host's work of
+enqueueing the call (the wrapper's checks) is done before the start
+event and is not counted as device time.  With ``--cpu`` a harness runs the kernels' plain
 versions at tiny shapes, and ``Timer`` then gives host wall-clock
 milliseconds: not a device time.
 """
@@ -86,8 +88,11 @@ def check_attention(what, got, ref, tol: float = ATTN_TOL):
 
 class Timer:
     """Mean milliseconds of ``fn`` over ``iters`` calls after ``warmup``
-    calls: device time on the card, each call after an L2 flush; host wall
-    clock on the CPU."""
+    calls: device time on the card, each call after an L2 flush and a
+    device-side wait of ``HOST_SLACK_CYCLES`` clock cycles (the host
+    enqueues the call meanwhile); host wall clock on the CPU."""
+
+    HOST_SLACK_CYCLES = 1_000_000   # ~0.5 ms at the H100's clocks
 
     def __init__(self, device):
         self.cuda = torch.device(device).type == "cuda"
@@ -105,6 +110,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush_buf.zero_()
+            torch.cuda._sleep(self.HOST_SLACK_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()

@@ -13,17 +13,20 @@ chunk's own K/V must already be in the arena (kernel A runs first).
 Tiles whose run has ``kv_len == 0`` -- the empty run that fixed-width
 padding maps tail tiles to -- give zeros.
 
-The kernel's own q tile is 64/G tokens (G = Hq/Hkv); ``pad_tile`` stays
-the scheduler's charge unit (config.PREFILL_TOKEN_PAD = 128).  Dropped
-TPU devices: ``kv_fetch``, ``seq_tile``, static kv grids and their
-buckets -- the kernel walks each q tile's keys to its causal diagonal.
+The kernel's own q tile is ``KERNEL_ROWS[dtype] / G`` tokens (G =
+Hq/Hkv): 128/G in bfloat16, 64/G in float32; ``pad_tile`` stays the
+scheduler's charge unit (config.PREFILL_TOKEN_PAD = 128), which every
+group of 1, 2, 4 or 8 fits.  Dropped TPU devices: ``kv_fetch``,
+``seq_tile``, static kv grids and their buckets -- the kernel walks each
+q tile's keys to its causal diagonal.
 
 Bound on the H100: operations at serving depth (4*Hq*D FLOPs per attended
-(query, key) pair).  Design: csrc/prefill_attention.cu -- a block per
-(q tile, kv head) covers the G heads of one GQA group, stages K/V tiles
-in shared memory and keeps an online float32 softmax per row; bfloat16
-runs both products on the tensor cores (WMMA, float32 accumulate),
-float32 on the CUDA cores.
+(query, key) pair).  Design: csrc/prefill_attention.cuh -- a block per
+(q tile, kv head) covers the G heads of one GQA group and keeps an online
+float32 softmax per row.  bfloat16: two warpgroups of 64 query rows run
+both products with wgmma (S and P in registers, float32 accumulate) over
+K/V tiles that a producer warpgroup brings into a ring in shared memory
+by cp.async; float32: the same algorithm on the CUDA cores.
 
 Kernel G replaces ``flash_prefill`` of the same file: one run (the q
 region is one chunk at positions ``q_start + [0, Tq)``, ``qinfo = (q_start,
@@ -64,7 +67,8 @@ SEGMENT_PREFILL_ATTENTION = CudaKernel(
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 KERNEL_HEAD_DIM = 128
-KERNEL_ROWS = 64  # query rows (token, head) per block
+# query rows (token, head) per block of the CUDA body, by dtype
+KERNEL_ROWS = {torch.bfloat16: 128, torch.float32: 64}
 MAX_SEGMENTS = 8  # extents kernel G holds per request
 PLAIN_Q_SLICE = 256  # query tokens per pass of G's and H's plain versions
 
@@ -105,8 +109,8 @@ def check_prefill_shapes(name, q, kv_cache, layer: int, q_tile, fits: bool,
                          **tables) -> None:
     """Raise unless the CUDA prefill body (kernels B, E, F, G, H) takes
     these arguments: ``q``'s tokens in tiles of ``q_tile`` (None: one
-    block's, 64 / G tokens), ``tables`` the kernel's int32 tables and
-    ``fits`` its own conditions on their shapes."""
+    block's, ``KERNEL_ROWS[q.dtype] / G`` tokens), ``tables`` the kernel's
+    int32 tables and ``fits`` its own conditions on their shapes."""
     Tq, Hq, D = q.shape
     L, _, Hkv, _, Dc = kv_cache.shape
     check_cuda_tensor("q", q)
@@ -114,10 +118,11 @@ def check_prefill_shapes(name, q, kv_cache, layer: int, q_tile, fits: bool,
     for arg, t in tables.items():
         check_cuda_tensor(arg, t, torch.int32, q.device)
     G = Hq // Hkv if Hkv and Hq % Hkv == 0 else 0
-    rows = KERNEL_ROWS // G if G and KERNEL_ROWS % G == 0 else 0
+    block = KERNEL_ROWS.get(q.dtype, 0)
+    rows = block // G if G and block % G == 0 else 0
     if q_tile is None:
         q_tile = rows
-    if (not fits or q.dtype not in DTYPE_CODES or D != KERNEL_HEAD_DIM
+    if (not fits or not block or D != KERNEL_HEAD_DIM
             or Dc != D or not rows or q_tile <= 0 or q_tile % rows
             or Tq % q_tile or not 0 <= layer < L):
         raise ValueError(
@@ -125,7 +130,8 @@ def check_prefill_shapes(name, q, kv_cache, layer: int, q_tile, fits: bool,
             f"{tuple(kv_cache.shape)}, "
             + ", ".join(f"{k} {tuple(t.shape)}" for k, t in tables.items())
             + f", q tile {q_tile} (head dim {KERNEL_HEAD_DIM}, q tiles of "
-            f"a multiple of {KERNEL_ROWS} / G tokens)")
+            f"a multiple of {block or '128 (bf16) or 64 (f32)'} / G "
+            "tokens)")
 
 
 def check_prefill_args(name, q, kv_cache, qt_run, qinfo, table, layer: int,
