@@ -25,7 +25,9 @@ script exits non-zero without printing a result.
     and C on the same inputs (the same bodies: expected bit for bit), and
     timed beside B then C launched serially in one loop (no single
     PyTorch call computes both outputs, so F has no library time; the two
-    SDPA calls' sum is logged).  The shared prefill body's edge cases
+    SDPA calls' sum is logged), and each of its roles alone (the other
+    role's blocks given no work) beside B or C alone.  The timer's mode
+    (``microbenchmarks/timing.py``, ``VATTN_TIMER``) is logged first.  The shared prefill body's edge cases
     (``microbenchmarks/prefill_edges.py``, at Yi geometry: kv_len 1-4133,
     q_start 40, 56 and 60 mod 64, the empty run, E and H over 16-token
     blocks with poisoned tails, G over unaligned extents) are held against
@@ -149,6 +151,7 @@ def kernel_phase(dev):
     randn, _ = seeded(dev)
     cache = randn(L, 2, HKV, R + bt, D)
     timer = Timer(dev)
+    log(f"(a) timer: {timer.mode}")
     results = []
 
     def table(extents_per_seq):
@@ -447,6 +450,19 @@ def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms):
         f"serially {res['serial_ms']:.4f}, plain {res['plain_ms']:.4f}, "
         f"SDPA prefill + SDPA decode {sdpa_ms:.4f}, bound {b_ms:.4f} "
         f"({b_by})")
+    # each role of F alone in F's grid (the other role's blocks have no
+    # work: every slot idle, or every prefill run empty) beside the kernel
+    # that runs that body alone
+    idle = torch.zeros_like(seqlens)
+    empty = torch.zeros_like(pre1[3])
+    f_pre = (*f1[:7], idle, layer)
+    f_dec = (*f1[:4], empty, *f1[5:])
+    log("(a) pod_attention by role: prefill role alone (every slot idle) "
+        f"{timer(lambda: pod_fused.pod_attention(*f_pre, **kw)):.4f} ms, "
+        f"B {timer(lambda: flash_prefill.prefill_attention(*pre1, **kw)):.4f}"
+        " ms; decode role alone (every run empty) "
+        f"{timer(lambda: pod_fused.pod_attention(*f_dec, **kw)):.4f} ms, C "
+        f"{timer(lambda: flash_decode.decode_attention(*dec, **dkw)):.4f} ms")
     return res
 
 
@@ -462,8 +478,7 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
     from vattention_tpu_torch.ops.cuda_build import library, library_path
 
     pre = library("prefill_attention").vattn_prefill_smem_bytes
-    pod = library("pod_attention").vattn_pod_smem_bytes
-    pre.argtypes, pod.argtypes = [ctypes.c_int], [ctypes.c_int] * 2
+    pre.argtypes = [ctypes.c_int]
     for name in names:
         path = library_path(name).with_suffix(".so.log")
         if not path.exists():
@@ -489,11 +504,11 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
                 if maps:
                     kernel += f"<{', '.join(maps)}>"
                 smem = ""
-                if name != "decode_attention":
+                if name != "decode_attention" and bf16:
+                    # F's bf16 blocks carve the prefill body's buffer,
+                    # which is larger than C's
                     static = re.search(r"(\d+) bytes smem", line)
-                    dynamic = (pod(int(bf16), 8) if name == "pod_attention"
-                               else pre(int(bf16)))
-                    smem = (f", shared memory {dynamic} B dynamic + "
+                    smem = (f", shared memory {pre(1)} B dynamic + "
                             f"{static.group(1) if static else 0} B static "
                             "per block")
                 log(f"ptxas {name}.cu: {kernel} "

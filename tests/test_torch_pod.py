@@ -7,8 +7,8 @@ the JAX side gets ``build_pod_schedule`` and its extent tables, the port
 ``qt_run``, ``qinfo`` and ``tile_rows_from_segments`` tables.  Tolerance:
 float32 attention within atol = rtol = 1e-4, as tests/test_torch_paged.py
 (online vs full softmax, summed in other orders); idle decode slots are
-exactly zero on both sides.  Then F's block weave against the schedule's,
-and the port's engine on ``fa_pod`` and ``fa_pod_megacache`` against the
+exactly zero on both sides.  Then F's block order against the schedule's
+tiles, and the port's engine on ``fa_pod`` and ``fa_pod_megacache`` against the
 JAX engine's greedy tokens on the tests/test_e2e.py workload.
 """
 
@@ -129,10 +129,10 @@ def test_pod_matches_pod_fused_attention_multi_prefill():
     np.testing.assert_allclose(gd, od, atol=TOL, rtol=TOL)
 
 
-def decodes_before(t, n_dec, n):
-    """Kernel F's weave (csrc/pod_attention.cu, ``decodes_before``): decode
-    blocks among blocks [0, t) of ``n`` when ``n_dec`` of them decode."""
-    return 0 if t == 0 or n_dec == 0 else (t - 1) * n_dec // n + 1
+def block_role(t, n_pre):
+    """Kernel F's block order (csrc/pod_attention.cu): (0, prefill block t)
+    while t < ``n_pre``, then (1, decode block t - n_pre)."""
+    return (0, t) if t < n_pre else (1, t - n_pre)
 
 
 @pytest.mark.parametrize("chunks,qinfo,seqlens", [
@@ -144,15 +144,21 @@ def decodes_before(t, n_dec, n):
     ([128], [(0, 128)], [8192] * 8),
 ])
 def test_block_weave_is_the_schedule_weave(chunks, qinfo, seqlens):
-    """Kernel F gives block t the role that build_pod_schedule gives
-    entry t, for the same counts of prefill and decode tiles."""
+    """Kernel F gives one block to each tile of build_pod_schedule, each
+    role's tiles in the schedule's order: its blocks are the schedule's
+    entries sorted stably by phase, prefill first.  The TPU weaves the
+    roles evenly on its one core; on the H100 a bf16 F block fills an SM,
+    so F drops the weave and launches its prefill blocks first."""
     sched = build_pod_schedule(chunks, Q_TILE, KV_TILE, np.array(qinfo),
                                np.array(seqlens))
-    phases = sched[:, 0]
-    n_dec = int((phases == 1).sum())
-    n = n_dec + int((phases == 0).sum())
-    before = [decodes_before(t, n_dec, n) for t in range(n + 1)]
-    assert np.diff(before).tolist() == phases[:n].tolist()
+    phases = sched[:, 0].tolist()
+    n = sum(p != 2 for p in phases)
+    assert all(p == 2 for p in phases[n:])
+    n_pre = phases.count(0)
+    # each entry's rank among the schedule's entries of its phase
+    rank = [phases[:t].count(phases[t]) for t in range(n)]
+    assert ([block_role(t, n_pre) for t in range(n)]
+            == sorted(zip(phases[:n], rank)))
 
 
 ENGINE_KW = dict(model="tiny-llama-debug", dtype="float32",

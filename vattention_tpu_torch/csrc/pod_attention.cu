@@ -16,26 +16,24 @@
 // FLOPs per attended (query, key) pair.  The prefill part is tensor-core
 // bound, the decode part bandwidth bound; the larger of the two times
 // bounds the launch (bytes / 3.35 TB/s against FLOPs / 989 TF/s).
-// Design: one grid of n_pre + n_dec blocks.  n_pre blocks cover B's grid
-// (q tiles x kv heads, one q tile per block: in bf16 128 rows on two
+// Design: one grid of n_pre + n_dec blocks.  Blocks [0, n_pre) cover B's
+// grid (q tiles x kv heads, one q tile per block: in bf16 128 rows on two
 // consumer warpgroups fed by a producer warpgroup, so bf16 blocks are 384
-// threads), n_dec blocks cover C's pass-1 grid (slot-heads x splits of
-// 256 positions, on 256 of the threads).  Block t finds its role from its
-// index through the even weave of build_pod_schedule (pod_fused.py:134-138): it is the
-// decodes_before(t)-th decode block when decodes_before(t + 1) exceeds
-// it, and prefill otherwise.  Blocks are dispatched roughly in index
-// order, so compute-bound prefill blocks and bandwidth-bound decode blocks
-// reach the SMs interleaved, the counterpart of the TPU weave that
-// overlaps the decode stream's DMAs with the prefill stream's MXU work
-// (a per-SM runtime balancer is later work).  Decode splits
-// merge inside the launch: each writes its partial to C's scratch, fences,
-// and takes a ticket on its (slot, head) counter; the last of the
-// cdiv(seqlens[b], 256) splits that hold positions runs C's merge over
-// them in split order and resets the counter to 0 for the next launch.
-// Both roles carve one dynamic shared buffer (the bf16 prefill body's
-// 161 KB), so one block fits an SM and the two roles take turns on an SM
-// rather than share it; the bf16 prefill body's registers (168 x 384
-// threads) set the occupancy of both roles.
+// threads), blocks [n_pre, n_pre + n_dec) C's pass-1 grid (slot-heads x
+// splits of 256 positions, on 256 of the threads).  The TPU kernel weaves
+// the two streams evenly on its one core (build_pod_schedule,
+// pod_fused.py:134-138) so that decode DMAs overlap prefill MXU work.  Here
+// a bf16 block holds a whole SM (the prefill body's 161 KB of shared
+// memory, 168 registers x 384 threads), so the roles never share one, and
+// a decode block woven ahead of a prefill block only delays it.  Blocks are
+// dispatched roughly in index order, so the prefill blocks (about one wave
+// at serving chunks) start at once and the decode blocks fill the SMs the
+// prefill leaves, then the whole card; a per-SM balancer is later work.
+// Decode splits merge inside the launch: each writes its partial to C's
+// scratch, fences, and takes a ticket on its (slot, head) counter; the
+// last of the cdiv(seqlens[b], 256) splits that hold positions runs C's
+// merge over them in split order and resets the counter to 0 for the next
+// launch.  Both roles carve one dynamic shared buffer.
 #include <type_traits>
 
 #include "decode_attention.cuh"
@@ -52,15 +50,6 @@ static_assert(prefill::kThreads == kThreads && decode::kThreads == kThreads &&
                   prefill::kTcConsumers == kThreads,
               "one block size for both roles");
 
-// Decode blocks among blocks [0, t) of n when n_dec of them decode: the
-// greedy weave of build_pod_schedule ("take a decode tile while
-// di * n_pre <= pi * n_dec") in closed form.
-__device__ __forceinline__ long long decodes_before(long long t,
-                                                    long long n_dec,
-                                                    long long n) {
-  return (t == 0 || n_dec == 0) ? 0 : (t - 1) * n_dec / n + 1;
-}
-
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
@@ -70,6 +59,10 @@ constexpr int smem_bytes() {
   constexpr int dec = decode::kSmemFloats<G> * static_cast<int>(sizeof(float));
   return pre > dec ? pre : dec;
 }
+
+// chip_smoke's ptxas report gives F's bf16 shared memory as the prefill body's
+static_assert(smem_bytes<__nv_bfloat16, 8>() == prefill::kTcSmemBytes,
+              "bf16 blocks carve the prefill body's buffer");
 
 template <typename T>
 constexpr int kBlockThreads = kTensorCores<T> ? prefill::kTcThreads : kThreads;
@@ -88,14 +81,12 @@ __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
   extern __shared__ __align__(128) unsigned char pod_smem[];
   __shared__ int merge_here;
   const int hq = hkv * G;
-  const long long n_dec = static_cast<long long>(batch) * hkv * nsplit;
-  const long long n = static_cast<long long>(n_tiles) * hkv + n_dec;
+  const long long n_pre = static_cast<long long>(n_tiles) * hkv;
   const long long t = blockIdx.x;
-  const long long di = decodes_before(t, n_dec, n);
 
-  if (decodes_before(t + 1, n_dec, n) == di) {
-    // prefill: block t - di of B's grid, in B's order (q tiles fastest)
-    const int pi = static_cast<int>(t - di);
+  if (t < n_pre) {
+    // prefill: block t of B's grid, in B's order (q tiles fastest)
+    const int pi = static_cast<int>(t);
     const int h = pi / n_tiles;
     const int tile = pi - h * n_tiles;
     const prefill::TileRows rows{pre_rows, pre_n_sub, sub};
@@ -113,6 +104,7 @@ __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
 
   // decode: block di of C's pass-1 grid, in C's order (slot-heads fastest)
   if (threadIdx.x >= kThreads) return;
+  const long long di = t - n_pre;
   const int bh = static_cast<int>(di % (static_cast<long long>(batch) * hkv));
   const int split = static_cast<int>(di / (static_cast<long long>(batch) * hkv));
   const int b = bh / hkv;
@@ -225,17 +217,4 @@ extern "C" int vattn_pod_attention(
   if (dtype == kBFloat16)
     return dispatch_group<__nv_bfloat16>(group, q_prefill, q_decode, cache, out_prefill, out_decode, p, tickets, qt_run, qinfo, pre_tile_rows, pre_n_sub, dec_tile_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, chunk, nsplit, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Dynamic shared memory per block of kernel F for `dtype` and `group`, in
-// bytes (0 for a group it does not take).
-extern "C" int vattn_pod_smem_bytes(int dtype, int group) {
-  const bool bf16 = dtype == kBFloat16;
-  switch (group) {
-    case 1: return bf16 ? smem_bytes<__nv_bfloat16, 1>() : smem_bytes<float, 1>();
-    case 2: return bf16 ? smem_bytes<__nv_bfloat16, 2>() : smem_bytes<float, 2>();
-    case 4: return bf16 ? smem_bytes<__nv_bfloat16, 4>() : smem_bytes<float, 4>();
-    case 8: return bf16 ? smem_bytes<__nv_bfloat16, 8>() : smem_bytes<float, 8>();
-    default: return 0;
-  }
 }

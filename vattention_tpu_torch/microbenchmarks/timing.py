@@ -6,13 +6,17 @@ On the card a time is the mean device milliseconds of one call over CUDA
 events, each call after a 256 MB L2 flush (a serving step meets every
 layer's KV cold) and a short device-side wait, so the host's work of
 enqueueing the call (the wrapper's checks) is done before the start
-event and is not counted as device time.  With ``--cpu`` a harness runs the kernels' plain
-versions at tiny shapes, and ``Timer`` then gives host wall-clock
-milliseconds: not a device time.
+event and is not counted as device time.  ``VATTN_TIMER=enqueue`` in the
+environment leaves the wait out: the host's enqueue time then counts
+wherever it outlasts the flush, which is how a call's cost to a serving
+step that is host bound reads, and how trees without the wait timed.
+With ``--cpu`` a harness runs the kernels' plain versions at tiny shapes,
+and ``Timer`` then gives host wall-clock milliseconds: not a device time.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -90,12 +94,18 @@ class Timer:
     """Mean milliseconds of ``fn`` over ``iters`` calls after ``warmup``
     calls: device time on the card, each call after an L2 flush and a
     device-side wait of ``HOST_SLACK_CYCLES`` clock cycles (the host
-    enqueues the call meanwhile); host wall clock on the CPU."""
+    enqueues the call meanwhile; none under ``VATTN_TIMER=enqueue``); host
+    wall clock on the CPU."""
 
     HOST_SLACK_CYCLES = 1_000_000   # ~0.5 ms at the H100's clocks
 
     def __init__(self, device):
         self.cuda = torch.device(device).type == "cuda"
+        self.wait = os.environ.get("VATTN_TIMER") != "enqueue"
+        self.mode = ("device: L2 flush, then a device-side wait while the "
+                     "host enqueues" if self.wait else
+                     "enqueue: L2 flush only, host enqueue time past it "
+                     "counts")
         self.flush_buf = (torch.empty(256 * 2**20, dtype=torch.uint8,
                                       device=device) if self.cuda else None)
 
@@ -110,7 +120,8 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush_buf.zero_()
-            torch.cuda._sleep(self.HOST_SLACK_CYCLES)
+            if self.wait:
+                torch.cuda._sleep(self.HOST_SLACK_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()

@@ -11,16 +11,16 @@ equal B's and C's on the same inputs.
 
 Dropped TPU devices: ``build_pod_schedule`` (the host weave handed to the
 kernel by scalar prefetch) -- F's blocks find their role from their own
-index through the same even weave, computed in integer arithmetic
-(``decodes_before`` in the kernel); ``POD_KV_LEN_LIMIT`` (a Mosaic scratch-memory fault
+index, prefill blocks first (a bf16 block fills an SM, so a decode block
+woven ahead of a prefill block would only delay it); ``POD_KV_LEN_LIMIT`` (a Mosaic scratch-memory fault
 of the TPU kernel) -- F loops to each run's live depth as B does; the
 manual double-buffered decode DMAs -- blocks of both roles share the SMs
 instead.
 
 Bound on the H100: operations at serving depth (the prefill part's
 tensor-core work), with the decode part's bytes beside it.  Design:
-csrc/pod_attention.cu -- one grid of B's prefill blocks and C's pass-1
-blocks, woven by index; the decode splits merge inside the launch (the
+csrc/pod_attention.cu -- one grid of B's prefill blocks, then C's pass-1
+blocks; the decode splits merge inside the launch (the
 last split of each slot and head to finish merges), so a mixed step
 attends through one launch per layer.
 """
