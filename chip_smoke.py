@@ -6,9 +6,9 @@
 Builds the port's eight CUDA kernels (A-H) from the six sources of
 ``vattention_tpu_torch/csrc`` (one nvcc per source, in parallel) and
 prints ptxas's registers and spills of kernels B, C, E, F, G and H, with
-the shared memory per block of the bf16 prefill body's instances (and any
-ptxas note on wgmma), then runs its phases; any failure raises and the
-script exits non-zero without printing a result.
+the shared memory per block of the bf16 prefill body's instances and of
+kernel C (and any ptxas note on wgmma), then runs its phases; any failure
+raises and the script exits non-zero without printing a result.
 
 (a) Kernels at the main paths' shapes (Yi-6B-200K geometry, bf16, the
     2048-token blocks the allocator gives fa_vattn_2mb; for the paged
@@ -27,12 +27,20 @@ script exits non-zero without printing a result.
     PyTorch call computes both outputs, so F has no library time; the two
     SDPA calls' sum is logged), and each of its roles alone (the other
     role's blocks given no work) beside B or C alone.  The timer's mode
-    (``microbenchmarks/timing.py``, ``VATTN_TIMER``) is logged first.  The shared prefill body's edge cases
+    (``microbenchmarks/timing.py``, ``VATTN_TIMER``) is logged first.
+    Kernel A is also timed against ``index_copy_`` in 5 passes in turns,
+    and the wrappers of A, B, C and F (with ``index_copy_`` and C's SDPA
+    call) for their host microseconds per call (200 enqueues, no sync).
+    The shared prefill body's edge cases
     (``microbenchmarks/prefill_edges.py``, at Yi geometry: kv_len 1-4133,
     q_start 40, 56 and 60 mod 64, the empty run, E and H over 16-token
     blocks with poisoned tails, G over unaligned extents) are held against
     the plain versions and E = B, F = B and C, G = B, H = E bit for bit.
-    Then the body at depth: G and H (16-token blocks) at chunk 2048 at
+    The decode body's edge cases (``microbenchmarks/decode_edges.py``:
+    depths 1-257 at C's tile and split edges and 4133, idle slots, shallow
+    slots in tables 32768 positions deep, at sub 256 and 16 and G 1, 2, 4
+    and 8) are held against C's plain version; idle slots must be exactly
+    zero.  Then the prefill body at depth: G and H (16-token blocks) at chunk 2048 at
     kv_len 32768, each held against its plain version and timed beside
     one SDPA call on the same gathered K/V and its bound (logged only).
     Tolerances: kv_append and arena_relocate bit for bit; prefill and
@@ -109,6 +117,8 @@ import numpy as np
 import torch
 
 try:
+    from vattention_tpu_torch.microbenchmarks.decode_edges import (
+        EDGE_DEPTHS, check_decode_edges)
     from vattention_tpu_torch.microbenchmarks.prefill_edges import (
         check_prefill_edges)
     from vattention_tpu_torch.microbenchmarks.timing import (
@@ -125,13 +135,29 @@ def log(*args):
     print(*args, flush=True)
 
 
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call of ``fn``: ``n`` enqueues after a
+    warm-up, no synchronisation inside the loop (the wrapper's checks, its
+    ctypes call and the launch; not device time)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 # --------------------------------------------------------------------- #
 # (a) kernels
 # --------------------------------------------------------------------- #
 def kernel_phase(dev):
     from vattention_tpu_torch.memory.allocator import VAttentionAllocator
     from vattention_tpu_torch.ops import (arena_copy, cache_append,
-                                          flash_decode, flash_prefill)
+                                          flash_decode, flash_prefill,
+                                          pod_fused)
     from vattention_tpu_torch.ops.utils import (select_kv_tile,
                                                 tile_rows_from_segments)
 
@@ -201,6 +227,16 @@ def kernel_phase(dev):
         library_ms=timer(lambda: got[layer].index_copy_(2, rv, kv_src)),
         bound_ms=b_ms, bound_by=b_by,
         shape=f"T={T} ({nvalid} valid) Hkv={HKV} D={D} bf16"))
+    passes = [(timer(lambda: cache_append.kv_append(got, k, v, rows_d,
+                                                    layer)),
+               timer(lambda: got[layer].index_copy_(2, rv, kv_src)))
+              for _ in range(5)]
+    log("(a) kv_append against index_copy_, 5 passes in turns: "
+        + "; ".join(f"{a:.4f} / {b:.4f}" for a, b in passes) + " ms")
+    host = {"kv_append": host_us(lambda: cache_append.kv_append(
+        got, k, v, rows_d, layer)),
+            "index_copy_": host_us(lambda: got[layer].index_copy_(
+                2, rv, kv_src))}
     del got
 
     # -- B: prefill; case 1 = chunk 512 at kv_len 4096 over two extents
@@ -310,8 +346,21 @@ def kernel_phase(dev):
                                       attn_mask=dmask, enable_gqa=True)),
         bound_ms=b_ms, bound_by=b_by,
         shape=f"B=8 depths {seqlens_l}, Hq={HQ} Hkv={HKV} D={D} bf16"))
-    del kpad, vpad
 
+    f1 = (q, qd, cache, qt_run, qinfo, trows, trows_d, seqlens, layer)
+    fkw = dict(sub=sub, pad_tile=pad, sm_scale=sm)
+    host.update({
+        "prefill_attention": host_us(
+            lambda: flash_prefill.prefill_attention(*args, **kw)),
+        "decode_attention": host_us(
+            lambda: flash_decode.decode_attention(*dargs, **dkw)),
+        "pod_attention": host_us(lambda: pod_fused.pod_attention(*f1,
+                                                                 **fkw)),
+        "SDPA (decode)": host_us(lambda: sdpa(
+            qd[:, :, None], kpad, vpad, attn_mask=dmask, enable_gqa=True))})
+    log("(a) host us per call (200 enqueues, no sync): " + ", ".join(
+        f"{name} {us:.1f}" for name, us in host.items()))
+    del kpad, vpad
     results.append(pod_kernel(timer, args, args2, dargs, seqlens_l, sub,
                               results[-2]["library_ms"]
                               + results[-1]["library_ms"]))
@@ -324,6 +373,10 @@ def kernel_phase(dev):
         "tables with poisoned tails and over unaligned extents): max abs err "
         f"{err} (row worst {rel:.5f}); E = B, F = B and C, G = B, H = E bit "
         "for bit")
+    err, rel = check_decode_edges(cache, layer)
+    log(f"(a) decode body edge cases (depths {EDGE_DEPTHS}, tables "
+        "32768 positions deep, sub 256 and 16, G 1, 2, 4, 8): max abs err "
+        f"{err} (row worst {rel:.5f}); idle slots exactly zero")
     long_context(dev, cache, R, bt, timer, randn, layer)
 
     # -- D: a chained plan from the allocator in strict mode
@@ -470,15 +523,18 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
                         "decode_attention", "pod_attention")):
     """Registers, spills and shared memory per block of the bf16 prefill
     body's kernels (B, G, E and H, named by their q map and row map) and
-    of the G = 8 instances of the others, from each library's ptxas log
-    (written when the library is built) and the dynamic shared memory the
-    launchers ask for; ptxas's notes on wgmma, if any, follow."""
+    of the G = 8 instances of the others (C's shared memory in both
+    dtypes), from each library's ptxas log (written when the library is
+    built) and the dynamic shared memory the launchers ask for; ptxas's
+    notes on wgmma, if any, follow."""
     import ctypes
 
     from vattention_tpu_torch.ops.cuda_build import library, library_path
 
     pre = library("prefill_attention").vattn_prefill_smem_bytes
     pre.argtypes = [ctypes.c_int]
+    dec = library("decode_attention").vattn_decode_smem_bytes
+    dec.argtypes = [ctypes.c_int]
     for name in names:
         path = library_path(name).with_suffix(".so.log")
         if not path.exists():
@@ -504,7 +560,10 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
                 if maps:
                     kernel += f"<{', '.join(maps)}>"
                 smem = ""
-                if name != "decode_attention" and bf16:
+                if name == "decode_attention":
+                    smem = (f", shared memory {dec(int(bf16))} B dynamic "
+                            "per block")
+                elif bf16:
                     # F's bf16 blocks carve the prefill body's buffer,
                     # which is larger than C's
                     static = re.search(r"(\d+) bytes smem", line)
@@ -1112,7 +1171,7 @@ def profile_serving(engine, rng, tag):
     port = {}
     for name, ms, count in kernels:
         if any(s in name for s in ("kv_append_kernel", "prefill_attention",
-                                   "decode_partial", "decode_merge",
+                                   "decode_attention_kernel",
                                    "arena_relocate", "pod_attention")):
             families["port kernels A-F"] += ms
             short = re.search(r"(\w+_kernel)", name).group(1)

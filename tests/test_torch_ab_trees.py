@@ -45,6 +45,38 @@ def test_parse_reads_each_line_kind():
     }
 
 
+LOG_PR6 = textwrap.dedent("""\
+    (a) kv_append against index_copy_, 2 passes in turns: 0.0070 / 0.0093; 0.0071 / 0.0092 ms
+    (a) host us per call (200 enqueues, no sync): kv_append 15.8, index_copy_ 9.9, SDPA (decode) 66.5
+    (p c) port kernels: decode_attention_kernel 24.49 ms in 992, kv_append_kernel 1.90 ms in 992
+    (f) kernel_sweep --block-size 16
+    phase,kernel,ctx,latency_ms,gbps
+    prefill,paged,1024,0.049,43
+    decode,vattn_contig,1024,0.035,960
+    decode,paged,1024,0.036,950
+    """)
+
+
+def test_parse_reads_the_decode_redesign_lines():
+    """The lines chip_smoke prints since kernel C's redesign: A against
+    index_copy_ pass by pass, host microseconds per wrapper call, each
+    port kernel's device time in a profiled window, and the sweep's
+    decode rows under the block size of their sweep."""
+    assert ab_trees.parse(LOG_PR6) == {
+        "(a) kv_append pass 0 ms": 0.0070,
+        "(a) index_copy_ pass 0 ms": 0.0093,
+        "(a) kv_append pass 1 ms": 0.0071,
+        "(a) index_copy_ pass 1 ms": 0.0092,
+        "(a) host us kv_append": 15.8,
+        "(a) host us index_copy_": 9.9,
+        "(a) host us SDPA (decode)": 66.5,
+        "(p c) decode_attention_kernel ms": 24.49,
+        "(p c) kv_append_kernel ms": 1.90,
+        "(f) sweep bs 16 C vattn_contig ctx 1024 ms": 0.035,
+        "(f) sweep bs 16 C paged ctx 1024 ms": 0.036,
+    }
+
+
 def _fake_tree(root, name, wall):
     tree = root / name
     tree.mkdir()

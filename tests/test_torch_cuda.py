@@ -6,7 +6,11 @@ without one they skip.  Run them on the card with
     python -m pytest tests/test_torch_cuda.py -p no:xdist -q
 
 Kernels E and H (paged prefill) and C over block tables read tables
-poisoned past each run's or slot's last valid block.  Kernels F (POD), G
+poisoned past each run's or slot's last valid block.  Kernel C runs at
+every group size, at 16- and 256-row table entries, at depths on its
+tile and split edges, with idle slots (exactly zero), an all-idle batch
+and a slot at 32K, and once under CUDA graph capture (its wrapper reads
+nothing back from the device).  Kernels F (POD), G
 (single-run arena prefill) and H share B's, C's or E's bodies, so their
 outputs must equal those kernels' on the same rows bit for bit.
 Tolerances: kv_append and arena_relocate move bytes and must match
@@ -27,7 +31,9 @@ from vattention_tpu_torch.microbenchmarks.prefill_edges import (
 from vattention_tpu_torch.ops.arena_copy import (arena_relocate,
                                                  arena_relocate_plain)
 from vattention_tpu_torch.ops.cache_append import kv_append, kv_append_plain
-from vattention_tpu_torch.ops.flash_decode import (decode_attention,
+from vattention_tpu_torch.microbenchmarks.timing import check_attention
+from vattention_tpu_torch.ops.flash_decode import (DECODE_ATTENTION,
+                                                   decode_attention,
                                                    decode_attention_plain)
 from vattention_tpu_torch.ops.flash_prefill import (
     prefill_attention, prefill_attention_plain, segment_prefill_attention,
@@ -107,27 +113,104 @@ def test_arena_relocate_matches_plain(dev, dtype):
     assert torch.equal(cache.cpu(), expect)
 
 
+# depths at kernel C's tile (64 positions) and split edges
+EDGE_DEPTHS = [1, 63, 64, 65, 255, 256, 257]
+
+
+def _decode_case(case, dtype, group, sub, device):
+    """Inputs of kernel C for one case: "edges" (the edge depths, idle
+    slots, and every slot's table 4096 positions deep, far past most live
+    depths), "idle" (every slot idle) or "deep" (one slot at 32768 among
+    short ones); each slot's table a seeded permutation of the arena's
+    ``sub``-row blocks."""
+    rng = np.random.default_rng(9)
+    depths = {"edges": [500, 1000, 3, 0] + EDGE_DEPTHS + [0, 5],
+              "idle": [0] * 6,
+              "deep": [32768, 1, 0, 300]}[case]
+    rows = 32768 + 1024 if case == "deep" else R
+    cache = torch.from_numpy(rng.standard_normal(
+        (1, 2, HKV, rows, D)).astype(np.float32)).to(device=device,
+                                                     dtype=dtype)
+    width = max(4096, max(depths)) // sub
+    tile_rows = torch.from_numpy(np.stack([
+        rng.permutation(rows // sub)[:width] * sub for _ in depths]).astype(
+            np.int32))
+    q = torch.from_numpy(rng.standard_normal(
+        (len(depths), HKV * group, D)).astype(np.float32)).to(dtype)
+    return q, cache, tile_rows, torch.tensor(depths, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", ["edges", "idle", "deep"])
+@pytest.mark.parametrize("sub", [16, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_attention_matches_plain(dev, dtype):
-    rng = np.random.default_rng(2)
-    cache = _cache(rng, dtype, dev)
-    extents = [[(0, 512)], [(512, 256), (1280, 768)], [(2048, 256)],
-               [(3072, 512)]]
-    seqlens = torch.tensor([500, 1000, 3, 0], dtype=torch.int32)
-    tile_rows = torch.from_numpy(_tables(extents, R // SUB))
-    q = torch.from_numpy(
-        rng.standard_normal((4, HQ, D)).astype(np.float32)).to(dtype)
-    expect = decode_attention_plain(q, cache.cpu(), tile_rows, seqlens, 1,
-                                    sub=SUB, sm_scale=D ** -0.5)
+def test_decode_attention_matches_plain(dev, dtype, group, sub, case):
+    """Kernel C against its plain version at tile and split edges, with
+    idle slots (exactly zero) and tables far deeper than the live depth;
+    float32 within 1e-4, bfloat16 with ``check_attention`` (2e-2 and each
+    slot within 2^-6 of its largest output)."""
+    q, cache, tile_rows, seqlens = _decode_case(case, dtype, group, sub,
+                                                dev)
+    kw = dict(sub=sub, sm_scale=D ** -0.5)
+    expect = decode_attention_plain(q, cache.cpu(), tile_rows, seqlens, 0,
+                                    **kw)
     got = decode_attention(q.to(dev), cache, tile_rows.to(dev),
-                           seqlens.to(dev), 1, sub=SUB, sm_scale=D ** -0.5)
+                           seqlens.to(dev), 0, **kw)
     torch.cuda.synchronize()
     got = got.cpu()
     assert torch.isfinite(got).all()
-    assert torch.equal(got[3], torch.zeros_like(got[3]))
-    tol = TOL[dtype]
-    torch.testing.assert_close(got.float(), expect.float(), atol=tol,
-                               rtol=tol)
+    for b, n in enumerate(seqlens.tolist()):
+        if n == 0:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+        elif dtype == torch.float32:
+            torch.testing.assert_close(got[b], expect[b], atol=1e-4,
+                                       rtol=1e-4)
+        else:
+            check_attention(f"C slot {b} at depth {n}", got[b:b + 1],
+                            expect[b:b + 1])
+
+
+def test_decode_attention_ignores_table_depth(dev):
+    """Kernel C's grid and split plan come from the depths alone: the same
+    slots through row tables 4096 and 32768 positions deep give the same
+    output bit for bit."""
+    q, cache, tile_rows, seqlens = _decode_case("edges", torch.bfloat16, 8,
+                                                16, dev)
+    deep = torch.cat([tile_rows, tile_rows.repeat(1, 7)], 1).contiguous()
+    kw = dict(sub=16, sm_scale=D ** -0.5)
+    args = (q.to(dev), cache)
+    a = decode_attention(*args, tile_rows.to(dev), seqlens.to(dev), 0, **kw)
+    b = decode_attention(*args, deep.to(dev), seqlens.to(dev), 0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_decode_attention_captures_in_a_cuda_graph(dev):
+    """Kernel C's wrapper reads nothing back from the device: its call
+    captures in a CUDA graph, one launch, and a replay after new depths
+    are written to ``seqlens`` plans over those depths on the device."""
+    q, cache, tile_rows, seqlens = _decode_case("edges", torch.bfloat16, 8,
+                                                16, dev)
+    args = [q.to(dev), cache, tile_rows.to(dev), seqlens.to(dev), 0]
+    kw = dict(sub=16, sm_scale=D ** -0.5)
+    decode_attention(*args, **kw)   # builds the kernel and its scratch
+    torch.cuda.synchronize()
+    before = DECODE_ATTENTION.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = decode_attention(*args, **kw)
+    assert DECODE_ATTENTION.launches == before + 1
+    new = seqlens.flip(0).clone()
+    args[3].copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    expect = decode_attention_plain(q, cache.cpu(), tile_rows, new, 0, **kw)
+    for b, n in enumerate(new.tolist()):
+        if n == 0:
+            assert torch.equal(got[b].cpu(), torch.zeros_like(expect[b]))
+        else:
+            check_attention(f"graph replay, slot {b} at depth {n}",
+                            got[b:b + 1].cpu(), expect[b:b + 1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

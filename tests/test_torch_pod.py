@@ -131,7 +131,7 @@ def test_pod_matches_pod_fused_attention_multi_prefill():
 
 def block_role(t, n_pre):
     """Kernel F's block order (csrc/pod_attention.cu): (0, prefill block t)
-    while t < ``n_pre``, then (1, decode block t - n_pre)."""
+    while t < ``n_pre``, then (1, block t - n_pre of kernel C's grid)."""
     return (0, t) if t < n_pre else (1, t - n_pre)
 
 
@@ -144,21 +144,24 @@ def block_role(t, n_pre):
     ([128], [(0, 128)], [8192] * 8),
 ])
 def test_block_weave_is_the_schedule_weave(chunks, qinfo, seqlens):
-    """Kernel F gives one block to each tile of build_pod_schedule, each
-    role's tiles in the schedule's order: its blocks are the schedule's
-    entries sorted stably by phase, prefill first.  The TPU weaves the
-    roles evenly on its one core; on the H100 a bf16 F block fills an SM,
-    so F drops the weave and launches its prefill blocks first."""
+    """Kernel F gives one block to each prefill tile of
+    build_pod_schedule, in the schedule's order, and launches them first:
+    its prefill blocks are the schedule's prefill entries.  The TPU weaves
+    the roles evenly on its one core; on the H100 a bf16 F block fills an
+    SM, so F drops the weave.  Its decode blocks follow as kernel C's
+    fixed grid, which plans its splits over the live depths on the device
+    (tests/test_torch_decode.py) instead of the schedule's decode tiles."""
     sched = build_pod_schedule(chunks, Q_TILE, KV_TILE, np.array(qinfo),
                                np.array(seqlens))
     phases = sched[:, 0].tolist()
     n = sum(p != 2 for p in phases)
     assert all(p == 2 for p in phases[n:])
     n_pre = phases.count(0)
-    # each entry's rank among the schedule's entries of its phase
-    rank = [phases[:t].count(phases[t]) for t in range(n)]
-    assert ([block_role(t, n_pre) for t in range(n)]
-            == sorted(zip(phases[:n], rank)))
+    # each prefill entry's rank among the schedule's prefill entries
+    rank = [phases[:t].count(0) for t in range(n) if phases[t] == 0]
+    assert [block_role(t, n_pre) for t in range(n_pre)] == [(0, r)
+                                                            for r in rank]
+    assert block_role(n_pre, n_pre) == (1, 0)
 
 
 ENGINE_KW = dict(model="tiny-llama-debug", dtype="float32",

@@ -36,24 +36,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// four consecutive elements (8-byte aligned for bf16, 16-byte for f32)
-__device__ __forceinline__ void load4(const float* p, float o[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float o[4]) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  o[0] = a.x;
-  o[1] = a.y;
-  o[2] = b.x;
-  o[3] = b.y;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);

@@ -19,9 +19,12 @@
 // Design: one grid of n_pre + n_dec blocks.  Blocks [0, n_pre) cover B's
 // grid (q tiles x kv heads, one q tile per block: in bf16 128 rows on two
 // consumer warpgroups fed by a producer warpgroup, so bf16 blocks are 384
-// threads), blocks [n_pre, n_pre + n_dec) C's pass-1 grid (slot-heads x
-// splits of 256 positions, on 256 of the threads).  The TPU kernel weaves
-// the two streams evenly on its one core (build_pod_schedule,
+// threads), blocks [n_pre, n_pre + n_dec) are C's fixed grid of n_dec
+// blocks (decode_attention.cuh on the first 128 threads: the same split
+// plan over the slots' live depths, the same per-warp K/V rings and
+// tensor-core tiles, the same ticket merge inside the launch, so F's
+// decode output is C's bit for bit when n_dec is C's grid).  The TPU kernel
+// weaves the two streams evenly on its one core (build_pod_schedule,
 // pod_fused.py:134-138) so that decode DMAs overlap prefill MXU work.  Here
 // a bf16 block holds a whole SM (the prefill body's 161 KB of shared
 // memory, 168 registers x 384 threads), so the roles never share one, and
@@ -29,11 +32,7 @@
 // dispatched roughly in index order, so the prefill blocks (about one wave
 // at serving chunks) start at once and the decode blocks fill the SMs the
 // prefill leaves, then the whole card; a per-SM balancer is later work.
-// Decode splits merge inside the launch: each writes its partial to C's
-// scratch, fences, and takes a ticket on its (slot, head) counter; the
-// last of the cdiv(seqlens[b], 256) splits that hold positions runs C's
-// merge over them in split order and resets the counter to 0 for the next
-// launch.  Both roles carve one dynamic shared buffer.
+// Both roles carve one dynamic shared buffer.
 #include <type_traits>
 
 #include "decode_attention.cuh"
@@ -43,12 +42,11 @@ using namespace vattn;
 
 namespace {
 
-// f32 blocks are 256 threads; bf16 blocks add the prefill body's producer
-// warpgroup, which the decode role does not use
-constexpr int kThreads = 256;
-static_assert(prefill::kThreads == kThreads && decode::kThreads == kThreads &&
-                  prefill::kTcConsumers == kThreads,
-              "one block size for both roles");
+// f32 blocks are the prefill body's 256 threads, bf16 blocks its 384; the
+// decode role runs on the first decode::kThreads of them
+static_assert(decode::kThreads <= prefill::kThreads &&
+                  decode::kThreads <= prefill::kTcThreads,
+              "the decode body fits in either block");
 
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
@@ -56,7 +54,7 @@ constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 template <typename T, int G>
 constexpr int smem_bytes() {
   constexpr int pre = kTensorCores<T> ? prefill::kTcSmemBytes : prefill::kSmemBytes;
-  constexpr int dec = decode::kSmemFloats<G> * static_cast<int>(sizeof(float));
+  constexpr int dec = decode::kSmemBytes<T>;
   return pre > dec ? pre : dec;
 }
 
@@ -65,7 +63,7 @@ static_assert(smem_bytes<__nv_bfloat16, 8>() == prefill::kTcSmemBytes,
               "bf16 blocks carve the prefill body's buffer");
 
 template <typename T>
-constexpr int kBlockThreads = kTensorCores<T> ? prefill::kTcThreads : kThreads;
+constexpr int kBlockThreads = kTensorCores<T> ? prefill::kTcThreads : prefill::kThreads;
 
 template <typename T, int G>
 __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
@@ -77,9 +75,8 @@ __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
     const int* __restrict__ dec_rows, int dec_n_sub,
     const int* __restrict__ seqlens, int hkv, int sub, int pad_tile,
     long long rows_total, int layer, float sm_scale, int n_tiles, int batch,
-    int nsplit, int chunk) {
+    int n_dec) {
   extern __shared__ __align__(128) unsigned char pod_smem[];
-  __shared__ int merge_here;
   const int hq = hkv * G;
   const long long n_pre = static_cast<long long>(n_tiles) * hkv;
   const long long t = blockIdx.x;
@@ -102,39 +99,12 @@ __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
     return;
   }
 
-  // decode: block di of C's pass-1 grid, in C's order (slot-heads fastest)
-  if (threadIdx.x >= kThreads) return;
-  const long long di = t - n_pre;
-  const int bh = static_cast<int>(di % (static_cast<long long>(batch) * hkv));
-  const int split = static_cast<int>(di / (static_cast<long long>(batch) * hkv));
-  const int b = bh / hkv;
-  const int h = bh - b * hkv;
-  const int depth = seqlens[b];
-  T* o = od + (static_cast<long long>(b) * hq + h * G) * decode::kD;
-  const float* src = part + static_cast<long long>(bh) * nsplit * decode::kPartFloats<G>;
-  if (depth <= 0) {  // idle slot: split 0 writes the zeros
-    if (split == 0) decode::decode_merge<T, G>(src, o, depth, chunk, threadIdx.x, kThreads);
-    return;
-  }
-  if (!decode::decode_split<T, G>(qd, cache, part, dec_rows, seqlens, hkv,
-                                  dec_n_sub, sub, rows_total, layer, sm_scale,
-                                  chunk, bh, split, nsplit,
-                                  reinterpret_cast<float*>(pod_smem)))
-    return;  // past the slot's depth: no partial, no ticket
-  // this split's partial is written: publish it, then take a ticket; the
-  // split that takes the last one merges
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int used = (depth + chunk - 1) / chunk;
-    merge_here = atomicAdd(tickets + bh, 1) == used - 1;
-    // every split of (slot, head) has taken its ticket: reset for the next launch
-    if (merge_here) atomicExch(tickets + bh, 0);
-  }
-  __syncthreads();
-  if (!merge_here) return;
-  __threadfence();
-  decode::decode_merge<T, G>(src, o, depth, chunk, threadIdx.x, kThreads);
+  // decode: block t - n_pre of C's grid
+  if (threadIdx.x >= decode::kThreads) return;
+  decode::decode_blocks<T, G>(qd, cache, od, part, tickets, dec_rows, seqlens,
+                              batch, hkv, dec_n_sub, sub, rows_total, layer,
+                              sm_scale, static_cast<int>(t - n_pre), n_dec,
+                              pod_smem);
 }
 
 template <typename T, int G>
@@ -143,22 +113,20 @@ int launch(const void* qp, const void* qd, const void* cache, void* op,
            const int* qinfo, const int* pre_rows, int pre_n_sub,
            const int* dec_rows, int dec_n_sub, const int* seqlens, int n_tiles,
            int batch, int hkv, int sub, int pad_tile, long long rows_total,
-           int layer, float sm_scale, int chunk, int nsplit,
-           cudaStream_t stream) {
+           int layer, float sm_scale, int n_dec, cudaStream_t stream) {
   constexpr int smem = smem_bytes<T, G>();
   const cudaError_t attr = cudaFuncSetAttribute(
       pod_attention_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long long blocks = static_cast<long long>(n_tiles) * hkv +
-                           static_cast<long long>(batch) * hkv * nsplit;
+  const long long blocks = static_cast<long long>(n_tiles) * hkv + n_dec;
   if (blocks == 0) return 0;
   pod_attention_kernel<T, G><<<static_cast<unsigned>(blocks), kBlockThreads<T>, smem, stream>>>(
       static_cast<const T*>(qp), static_cast<const T*>(qd),
       static_cast<const T*>(cache), static_cast<T*>(op), static_cast<T*>(od),
       part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub,
       seqlens, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_tiles, batch,
-      nsplit, chunk);
+      n_dec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -169,17 +137,16 @@ int dispatch_group(int group, const void* qp, const void* qd,
                    const int* pre_rows, int pre_n_sub, const int* dec_rows,
                    int dec_n_sub, const int* seqlens, int n_tiles, int batch,
                    int hkv, int sub, int pad_tile, long long rows_total,
-                   int layer, float sm_scale, int chunk, int nsplit,
-                   cudaStream_t s) {
+                   int layer, float sm_scale, int n_dec, cudaStream_t s) {
   switch (group) {
     case 1:
-      return launch<T, 1>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, chunk, nsplit, s);
+      return launch<T, 1>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
     case 2:
-      return launch<T, 2>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, chunk, nsplit, s);
+      return launch<T, 2>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
     case 4:
-      return launch<T, 4>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, chunk, nsplit, s);
+      return launch<T, 4>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
     case 8:
-      return launch<T, 8>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, chunk, nsplit, s);
+      return launch<T, 8>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -191,11 +158,12 @@ int dispatch_group(int group, const void* qp, const void* qd,
 // out_decode: [batch, hkv*group, 128]; cache: [L, 2, hkv, rows_total, 128];
 // qt_run: [num_tokens / pad_tile, 2]; qinfo: [K, 2]; pre_tile_rows:
 // [K, pre_n_sub]; dec_tile_rows: [batch, dec_n_sub]; seqlens: [batch]
-// (all int32, seqlens each at most chunk * nsplit).  part: float32 scratch
-// of batch * hkv * nsplit * group * 130 elements; tickets: batch * hkv
-// int32 counters, 0 before the launch and 0 after it.  group must be 1, 2,
-// 4 or 8; R/group (R = 128 in bf16, 64 in f32) must divide pad_tile, which
-// must divide num_tokens.
+// (all int32).  n_dec: the decode blocks (kernel C's grid; 0 when batch
+// is 0; at most 1024).  part: float32 scratch as kernel C's, of (n_dec +
+// batch * hkv) partials; tickets: batch * hkv int32 counters, 0 before the launch and 0
+// after it.  group must be 1, 2, 4 or 8 and batch at most 1024; R/group (R
+// = 128 in bf16, 64 in f32) must divide pad_tile, which must divide
+// num_tokens.
 extern "C" int vattn_pod_attention(
     const void* q_prefill, const void* q_decode, const void* cache,
     void* out_prefill, void* out_decode, void* part, int* tickets,
@@ -203,18 +171,19 @@ extern "C" int vattn_pod_attention(
     int pre_n_sub, const int* dec_tile_rows, int dec_n_sub,
     const int* seqlens, int num_tokens, int batch, int hkv, int group,
     int sub, int pad_tile, long long rows_total, int layer, float sm_scale,
-    int chunk, int nsplit, int dtype, void* stream) {
+    int n_dec, int dtype, void* stream) {
   const int rows = prefill::block_rows(dtype);
   if (group <= 0 || rows == 0 || rows % group != 0 || pad_tile <= 0 ||
       pad_tile % (rows / group) != 0 || num_tokens < 0 ||
-      num_tokens % pad_tile != 0 || batch < 0 || chunk <= 0 || nsplit <= 0)
+      num_tokens % pad_tile != 0 || batch < 0 || batch > decode::kMaxSlots ||
+      n_dec < 0 || n_dec > decode::kMaxGrid || (batch > 0 && n_dec == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = num_tokens / (rows / group);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   if (dtype == kFloat32)
-    return dispatch_group<float>(group, q_prefill, q_decode, cache, out_prefill, out_decode, p, tickets, qt_run, qinfo, pre_tile_rows, pre_n_sub, dec_tile_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, chunk, nsplit, s);
+    return dispatch_group<float>(group, q_prefill, q_decode, cache, out_prefill, out_decode, p, tickets, qt_run, qinfo, pre_tile_rows, pre_n_sub, dec_tile_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
   if (dtype == kBFloat16)
-    return dispatch_group<__nv_bfloat16>(group, q_prefill, q_decode, cache, out_prefill, out_decode, p, tickets, qt_run, qinfo, pre_tile_rows, pre_n_sub, dec_tile_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, chunk, nsplit, s);
+    return dispatch_group<__nv_bfloat16>(group, q_prefill, q_decode, cache, out_prefill, out_decode, p, tickets, qt_run, qinfo, pre_tile_rows, pre_n_sub, dec_tile_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,9 +17,13 @@ call falls on both sides.  Each pass's output goes to
 
 The summary, printed and written to ``<out>/summary.json``, lists for
 every pass: phase (a)'s kernel and library times, F beside B then C and
-F's roles alone, the serving walls of (c), (d) and (e), the wall and
-device-busy time of their profiled windows, and bench_pod's serial and
-fused times per layer call; then each metric's mean per label.  Numbers
+F's roles alone, kernel A against ``index_copy_`` pass by pass and each
+wrapper's host microseconds per call (where the pass prints them), the
+serving walls of (c), (d) and (e), the wall and device-busy time of their
+profiled windows with each port kernel's device time there, the sweep's
+decode times (kernel C) at each block size and context, and bench_pod's
+serial and fused times per layer call; then each metric's mean per
+label.  Numbers
 are copied as the passes printed them.  Exits non-zero if a pass fails.
 """
 
@@ -49,12 +53,47 @@ WALL = re.compile(r"^\((c|d|e)\) \S+: served .* wall ([0-9.]+) s")
 PROFILE = re.compile(r"^\(p (c|d|e)\) profiled .* wall ([0-9.]+) ms, "
                      r"device busy ([0-9.]+) ms")
 POD = re.compile(r"^\s*(serial|pod_fused):\s+([0-9.]+) us")
+PORT = re.compile(r"^\(p (c|d|e)\) port kernels: (.*)$")
+PORT_ITEM = re.compile(r"(\w+) ([0-9.]+) ms in (\d+)")
+SWEEP = re.compile(r"^\(f\) kernel_sweep --block-size (\d+)")
+SWEEP_DECODE = re.compile(r"^decode,(\w+),(\d+),([0-9.]+),")
+HOST = re.compile(r"^\(a\) host us per call [^:]*: (.*)$")
+HOST_ITEM = re.compile(r"([\w_]+(?: \(\w+\))?) ([0-9.]+)")
+A_PASSES = re.compile(r"^\(a\) kv_append against index_copy_, \d+ passes "
+                      r"in turns: (.*) ms$")
 
 
 def parse(text: str) -> dict:
     """Metric name -> the number one chip_smoke pass printed for it."""
     out = {}
+    sweep_bs = None
     for line in text.splitlines():
+        m = SWEEP.match(line)
+        if m:
+            sweep_bs = m.group(1)
+            continue
+        m = SWEEP_DECODE.match(line)
+        if m and sweep_bs:
+            out[f"(f) sweep bs {sweep_bs} C {m.group(1)} ctx {m.group(2)} "
+                "ms"] = float(m.group(3))
+            continue
+        m = PORT.match(line)
+        if m:
+            for name, ms, _ in PORT_ITEM.findall(m.group(2)):
+                out[f"(p {m.group(1)}) {name} ms"] = float(ms)
+            continue
+        m = HOST.match(line)
+        if m:
+            for name, us in HOST_ITEM.findall(m.group(1)):
+                out[f"(a) host us {name}"] = float(us)
+            continue
+        m = A_PASSES.match(line)
+        if m:
+            for i, pair in enumerate(m.group(1).split("; ")):
+                a, lib = (float(x) for x in pair.split(" / "))
+                out[f"(a) kv_append pass {i} ms"] = a
+                out[f"(a) index_copy_ pass {i} ms"] = lib
+            continue
         m = ROLES.match(line)
         if m:
             for key, v in zip(("F prefill role alone", "B beside it",

@@ -1,0 +1,69 @@
+"""Edge cases of kernel C's body (kernels C and F's decode role) on the
+card, held against the plain version: the counterpart of
+``prefill_edges.py`` for decode.
+
+One batch of slots whose depths reach the body's tile (64 positions) and
+split edges: 1, 63, 64, 65, 255, 256, 257 and 4133; two idle slots, which
+must be exactly zero; and two shallow slots (5 and 100 positions) whose
+tables are 32768 positions deep, as deep as every other slot's.  Each
+slot's table is a seeded permutation of the arena's blocks.  The batch runs
+at ``sub`` 256 and 16 (the arena's tiles and vLLM's block) and at every
+group size the kernel takes (G = 1, 2, 4, 8: Hq = G * Hkv query heads).
+
+``check_decode_edges`` raises on the first failure.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vattention_tpu_torch.microbenchmarks.timing import check_attention
+from vattention_tpu_torch.ops.flash_decode import (KERNEL_GROUPS,
+                                                   decode_attention,
+                                                   decode_attention_plain)
+
+EDGE_DEPTHS = [1, 63, 64, 65, 255, 256, 257, 0, 4133, 0, 5, 100]
+TABLE_DEPTH = 32768
+SUBS = (256, 16)
+
+
+def check_decode_edges(cache: torch.Tensor, layer: int, seed: int = 0):
+    """The cases above over ``cache`` ([L, 2, Hkv, R, D] on the card, R >=
+    TABLE_DEPTH).  Raises on the first failure; returns (max abs err
+    against the plain version, the worst slot's err as a fraction of its
+    largest output)."""
+    dev = cache.device
+    Hkv, R, D = cache.shape[2], cache.shape[3], cache.shape[4]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seqlens = torch.tensor(EDGE_DEPTHS, dtype=torch.int32, device=dev)
+    err, rel = 0.0, 0.0
+    for sub in SUBS:
+        width = TABLE_DEPTH // sub
+        rows = np.stack([rng.permutation(R // sub)[:width] * sub
+                         for _ in EDGE_DEPTHS]).astype(np.int32)
+        tile_rows = torch.from_numpy(rows).to(dev)
+        for g in KERNEL_GROUPS:
+            q = torch.randn((len(EDGE_DEPTHS), g * Hkv, D), generator=gen,
+                            device=dev).to(cache.dtype)
+            args = (q, cache, tile_rows, seqlens, layer)
+            kw = dict(sub=sub, sm_scale=D ** -0.5)
+            got = decode_attention(*args, **kw)
+            ref = decode_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"decode edges sub {sub} G {g}: "
+                                     "non-finite output")
+            for b, n in enumerate(EDGE_DEPTHS):
+                if n == 0:
+                    if got[b].abs().max().item() != 0.0:
+                        raise AssertionError(
+                            f"decode edges sub {sub} G {g}: idle slot {b} "
+                            "is not zero")
+                    continue
+                e, r = check_attention(
+                    f"decode edges sub {sub} G {g}, slot {b} at depth {n}",
+                    got[b:b + 1], ref[b:b + 1])
+                err, rel = max(err, e), max(rel, r)
+    return err, rel

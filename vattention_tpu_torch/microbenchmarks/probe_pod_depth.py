@@ -8,8 +8,9 @@ the others 384-token chunks at depth 4096, each over one extent -- fused
 with ``--batch`` decode sequences at depth ``--ctx``, then kernel G on each
 run and kernel C on the batch, on the same inputs.  F shares G's and C's
 bodies, so its outputs must equal theirs bit for bit: it prints the JAX
-twin's lines (the first counts the prefill q tiles and decode splits that
-F covers, in place of the TPU schedule's steps) and exits 0 when they are
+twin's lines (the first counts F's prefill blocks and its decode blocks,
+C's fixed grid -- 0 on the CPU, where no kernel runs -- in place of the
+TPU schedule's steps) and exits 0 when they are
 equal, 1 when not.  With ``--check`` G's and C's outputs are also held
 against their plain PyTorch versions on the same inputs
 (``timing.check_attention``), each with a line ``# check ...`` before the
@@ -65,7 +66,7 @@ def probe(args) -> bool:
         TABLE_SUB)
     from vattention_tpu_torch.ops.flash_decode import (decode_attention,
                                                        decode_attention_plain,
-                                                       split_count)
+                                                       decode_grid)
     from vattention_tpu_torch.ops.flash_prefill import (
         KERNEL_ROWS, MAX_SEGMENTS, segment_prefill_attention,
         segment_prefill_attention_plain)
@@ -115,9 +116,9 @@ def probe(args) -> bool:
     dec_rows = i32(tile_rows_from_segments(dec_seg_row, dec_seg_cum, sub,
                                            cdiv(ctx_pad, sub)))
 
-    # what F covers: B's (q tile, kv head) grid and C's pass-1 splits
+    # F's grid: B's (q tile, kv head) blocks and C's fixed decode grid
     n_pre = sum(pads) // (KERNEL_ROWS[qp.dtype] // (Hq // Hkv)) * Hkv
-    n_dec = B * Hkv * split_count(dec_rows, sub)
+    n_dec = decode_grid(dev) if dev.type == "cuda" and B else 0
     print(f"depth={args.depth} K={K} sched={n_pre + n_dec} "
           f"(pre {n_pre} dec {n_dec})", flush=True)
     op, od = pod_attention(qp, qd, kv, i32(qt_run), i32(qinfo), pre_rows,

@@ -9,37 +9,52 @@ give zeros, never NaN.  The TPU devices (``seq_tile``, ``kv_fetch``,
 static kv-tile grids and their buckets) have no counterpart: the kernel
 loops to each slot's live depth.
 
-Bound on the H100: bytes (each live K/V row is read once; ~1 FMA per
+Bound on the H100: bytes (each live K/V row is read once; ~2G FLOPs per
 byte).  Design: csrc/decode_attention.cu, its body in
-decode_attention.cuh (shared with kernel F) -- split over positions
-(flash-decoding) so that 8 slots still fill the card: pass 1 runs one
-block per (slot, kv head, split of SPLIT_POSITIONS positions) covering
-the G query heads of the group, 8 warps splitting the positions, online
-softmax per head in float32 registers; pass 2 merges the splits.  One
-call of the wrapper is one launch of kernel C (both passes).
+decode_attention.cuh (shared with kernel F): one launch of a fixed grid
+(``decode_grid``: twice the SM count, whatever the table's depth); every
+block plans the splits over the slots' live depths from ``seqlens`` on
+the device (tiles of ``DECODE_TILE`` positions, at least
+``MIN_SPLIT_TILES`` per split), streams K/V tiles through per-warp
+cp.async rings into tensor-core products (bf16; float32 on the CUDA
+cores), and the last split of each (slot, head) merges the splits inside
+the launch.  The wrapper reads nothing back from the device, so a call
+can be captured in a CUDA graph.  One call of the wrapper is one launch
+of kernel C.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, CudaKernel,
                                                  check_cuda_tensor,
                                                  current_stream)
-from vattention_tpu_torch.ops.utils import cdiv
 
+P, I = ctypes.c_void_p, ctypes.c_int
 DECODE_ATTENTION = CudaKernel("decode_attention", "vattn_decode_attention", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p])
+    P, P, P, P, P, P, P, I, I, I, I, I, ctypes.c_longlong, I,
+    ctypes.c_float, I, I, P])
 
 KERNEL_HEAD_DIM = 128
 KERNEL_GROUPS = (1, 2, 4, 8)
-SPLIT_POSITIONS = 256  # positions per pass-1 block
+# the split plan of csrc/decode_attention.cuh
+DECODE_TILE = 64        # positions per tile
+MIN_SPLIT_TILES = 4     # a split's least tiles
+BLOCKS_PER_SM = 2       # the grid: this many blocks per SM
+MAX_SLOTS = 1024        # batch limit of the plan's prefix in shared memory
+MAX_GRID = 1024         # grid limit (a merge's weights in shared memory)
+
+# per-device split scratch and (slot, head) ticket counters of the
+# in-launch merge, shared by kernels C and F: each launch leaves the
+# counters at 0, so one buffer serves every layer and step.  Both kernels
+# launch on the current stream and the engine uses one, so no two launches
+# that share it run at once.
+_scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+_grid: Dict[torch.device, int] = {}
 
 
 def gather_rows(tile_rows_b: torch.Tensor, n: int, sub: int) -> torch.Tensor:
@@ -82,17 +97,41 @@ def check_decode_args(name, q, kv_cache, tile_rows, seqlens, layer: int,
     if (q.dtype not in DTYPE_CODES or D != KERNEL_HEAD_DIM or Dc != D
             or Hq % Hkv or Hq // Hkv not in KERNEL_GROUPS
             or tile_rows.dim() != 2 or tile_rows.shape[0] != B
-            or seqlens.shape != (B,) or not 0 <= layer < L or sub <= 0):
+            or seqlens.shape != (B,) or B > MAX_SLOTS
+            or not 0 <= layer < L or sub <= 0):
         raise ValueError(
             f"{name}: q {tuple(q.shape)} {q.dtype}, cache "
             f"{tuple(kv_cache.shape)}, tile_rows {tuple(tile_rows.shape)}, "
             f"seqlens {tuple(seqlens.shape)} (head dim {KERNEL_HEAD_DIM}, "
-            f"groups {KERNEL_GROUPS})")
+            f"groups {KERNEL_GROUPS}, at most {MAX_SLOTS} slots)")
 
 
-def split_count(tile_rows: torch.Tensor, sub: int) -> int:
-    """Pass-1 splits per (slot, head): enough for the table's depth."""
-    return max(1, cdiv(tile_rows.shape[1] * sub, SPLIT_POSITIONS))
+def decode_grid(device: torch.device) -> int:
+    """Blocks of kernel C's grid (and of F's decode role) on ``device``:
+    BLOCKS_PER_SM per SM, whatever the depth of the tables."""
+    grid = _grid.get(device)
+    if grid is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        grid = _grid[device] = min(BLOCKS_PER_SM * sms, MAX_GRID)
+    return grid
+
+
+def decode_scratch(device: torch.device, batch: int, hkv: int, group: int,
+                   grid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(partials, tickets) for one launch of C's body: float32 room for
+    ``grid + batch * hkv`` split partials of ``group * (D + 2)`` floats
+    rounded up to 16 bytes (the plan makes at most that many ranges) and
+    ``batch * hkv`` int32 counters at 0, grown when a launch needs more."""
+    per_part = -(-group * (KERNEL_HEAD_DIM + 2) // 4) * 4
+    floats = (grid + batch * hkv) * per_part
+    part, tickets = _scratch.get(device, (None, None))
+    if part is None or part.numel() < floats or tickets.numel() < batch * hkv:
+        part = torch.empty(max(floats, 1), dtype=torch.float32,
+                           device=device)
+        tickets = torch.zeros(max(batch * hkv, 64), dtype=torch.int32,
+                              device=device)
+        _scratch[device] = (part, tickets)
+    return part, tickets
 
 
 def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
@@ -100,7 +139,7 @@ def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
     """q: [B, Hq, D]; kv_cache: [L, 2, Hkv, R, D]; tile_rows: [B, n_sub]
     int32; seqlens: [B] int32, each at most n_sub * sub -> [B, Hq, D] in
     q's dtype.  CPU tensors take the plain version; CUDA tensors launch
-    kernel C."""
+    kernel C once."""
     if not q.is_cuda:
         return decode_attention_plain(q, kv_cache, tile_rows, seqlens,
                                       layer, sub=sub, sm_scale=sm_scale)
@@ -112,13 +151,11 @@ def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
     if B == 0:
         return out
     G = Hq // Hkv
-    n_sub = tile_rows.shape[1]
-    nsplit = split_count(tile_rows, sub)
-    part = torch.empty(B * Hkv * nsplit * G * (D + 2), dtype=torch.float32,
-                       device=q.device)
+    grid = decode_grid(q.device)
+    part, tickets = decode_scratch(q.device, B, Hkv, G, grid)
     DECODE_ATTENTION(q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(),
-                     part.data_ptr(), tile_rows.data_ptr(),
-                     seqlens.data_ptr(), B, Hkv, G, n_sub, sub, R, layer,
-                     float(sm_scale), SPLIT_POSITIONS, nsplit,
-                     DTYPE_CODES[q.dtype], current_stream())
+                     part.data_ptr(), tickets.data_ptr(),
+                     tile_rows.data_ptr(), seqlens.data_ptr(), B, Hkv, G,
+                     tile_rows.shape[1], sub, R, layer, float(sm_scale),
+                     grid, DTYPE_CODES[q.dtype], current_stream())
     return out

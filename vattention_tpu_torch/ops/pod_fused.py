@@ -19,44 +19,33 @@ instead.
 
 Bound on the H100: operations at serving depth (the prefill part's
 tensor-core work), with the decode part's bytes beside it.  Design:
-csrc/pod_attention.cu -- one grid of B's prefill blocks, then C's pass-1
-blocks; the decode splits merge inside the launch (the
-last split of each slot and head to finish merges), so a mixed step
-attends through one launch per layer.
+csrc/pod_attention.cu -- one grid of B's prefill blocks, then C's grid
+(``decode_grid``) running C's body: the same split plan over the live
+depths, and the same merge inside the launch (the last split of each slot
+and head to finish merges), so a mixed step attends through one launch
+per layer.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, CudaKernel,
                                                  current_stream)
-from vattention_tpu_torch.ops.flash_decode import (SPLIT_POSITIONS,
-                                                   check_decode_args,
+from vattention_tpu_torch.ops.flash_decode import (check_decode_args,
                                                    decode_attention_plain,
-                                                   split_count)
+                                                   decode_grid,
+                                                   decode_scratch)
 from vattention_tpu_torch.ops.flash_prefill import (check_prefill_args,
                                                     prefill_attention_plain)
 
 P, I = ctypes.c_void_p, ctypes.c_int
 POD_ATTENTION = CudaKernel("pod_attention", "vattn_pod_attention", [
     P, P, P, P, P, P, P, P, P, P, I, P, I, P, I, I, I, I, I, I,
-    ctypes.c_longlong, I, ctypes.c_float, I, I, I, P])
-
-# per-device (slot, head) ticket counters of the in-launch merge: each
-# launch leaves them at 0, so one buffer serves every layer and step
-_tickets: Dict[torch.device, torch.Tensor] = {}
-
-
-def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
-    buf = _tickets.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _tickets[device] = buf
-    return buf
+    ctypes.c_longlong, I, ctypes.c_float, I, I, P])
 
 
 def pod_attention_plain(q_prefill, q_decode, kv_cache, qt_run, qinfo,
@@ -108,10 +97,8 @@ def pod_attention(q_prefill, q_decode, kv_cache, qt_run, qinfo,
         return out_p, out_d
     G = Hq // Hkv
     dev = q_prefill.device
-    nsplit = split_count(dec_tile_rows, sub)
-    part = torch.empty(B * Hkv * nsplit * G * (D + 2), dtype=torch.float32,
-                       device=dev)
-    tickets = _ticket_counters(dev, B * Hkv)
+    n_dec = decode_grid(dev) if B else 0
+    part, tickets = decode_scratch(dev, B, Hkv, G, n_dec)
     POD_ATTENTION(
         q_prefill.data_ptr(), q_decode.data_ptr(), kv_cache.data_ptr(),
         out_p.data_ptr(), out_d.data_ptr(), part.data_ptr(),
@@ -119,6 +106,6 @@ def pod_attention(q_prefill, q_decode, kv_cache, qt_run, qinfo,
         pre_tile_rows.data_ptr(), pre_tile_rows.shape[1],
         dec_tile_rows.data_ptr(), dec_tile_rows.shape[1],
         dec_seqlens.data_ptr(), Tq, B, Hkv, G, sub, pad_tile, R, layer,
-        float(sm_scale), SPLIT_POSITIONS, nsplit, DTYPE_CODES[q_prefill.dtype],
+        float(sm_scale), n_dec, DTYPE_CODES[q_prefill.dtype],
         current_stream())
     return out_p, out_d
