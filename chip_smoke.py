@@ -7,8 +7,9 @@ Builds the port's eight CUDA kernels (A-H) from the six sources of
 ``vattention_tpu_torch/csrc`` (one nvcc per source, in parallel) and
 prints ptxas's registers and spills of kernels B, C, E, F, G and H, with
 the shared memory per block of the bf16 prefill body's instances and of
-kernel C (and any ptxas note on wgmma), then runs its phases; any failure
-raises and the script exits non-zero without printing a result.
+kernel C, for each K/V storage type (and any ptxas note on wgmma), then
+runs its phases; any failure raises and the script exits non-zero without
+printing a result.
 
 (a) Kernels at the main paths' shapes (Yi-6B-200K geometry, bf16, the
     2048-token blocks the allocator gives fa_vattn_2mb; for the paged
@@ -49,11 +50,25 @@ raises and the script exits non-zero without printing a result.
     output row (a query token or decode slot), a max error within 2^-6 of
     that row's largest output (deep outputs are small, so 2e-2 alone
     would let a wrong kernel through).
+(a e4m3), (a int8) The same on 1-byte arenas (the seeded arena quantized
+    as kernel A writes it, int8 in steps of 0.04 folded into sm_scale, bf16
+    queries): A bit for bit against its plain version on the
+    quantization's edges (the flush cutoff and its neighbours, 448 and
+    past it, int8 half steps); B, C, E, F, G, H with (a)'s tolerances and
+    F = B then C, G = B, H = E bit for bit; the edge cases; every finite
+    e4m3 pattern (every int8 value) widened exactly by every body (zero
+    queries at kv_len 1: each output row is V's row); D on 1-byte rows;
+    each timed beside its plain version, its bound at one byte per K/V
+    element and SDPA over K/V widened to bf16 once, outside the timed
+    call (so reading twice the bytes); A has no library yardstick.
 (b) f32 parity: tiny-llama-debug, float32, sarathi chunk 128 on the
     two-prompt workload of tests/test_e2e.py, through fa_vattn, then
     (b') fa_paged_16 and (b'') fa_pod (whose mixed step must run through
     kernel F); the engine's greedy tokens must equal a dense
-    full-recompute reference's.
+    full-recompute reference's.  (b8) The same with ``kv_quant`` fp8 and
+    int8 on the three backends, the reference's K and V taken through
+    the arena's round trip (quantized, widened, times the int8 step);
+    E's and F's launches on 1-byte arenas are read here.
 (c) Serving at full width: yi-6b-200k (32 layers, bf16, random weights
     from a seed) through LLMEngine with fa_vattn_2mb, sarathi chunk 512,
     max_model_len 8192, max_batch_size 8: 8 requests of seeded prompt
@@ -67,6 +82,15 @@ raises and the script exits non-zero without printing a result.
     on the same bf16 weights.  Last, 4 more requests run under
     torch.profiler for a breakdown of device time and idle share, lines
     "(p)".
+(c8) (c)'s 8 requests and 2 short prompts with ``kv_quant`` fp8, then
+    int8 (fresh engines, no profile): A, B and C must launch; the tokens
+    per 2 MB page, tok/s, and how many greedy tokens equal (c)'s
+    (information only) are printed; first tokens within (c)'s 0.25 of a
+    quantizing dense reference in the model's bf16 arithmetic (attention
+    in float32 over K/V taken through the arena's round trip).  A float32
+    reference quantizes K/V that differ from the engine's by bf16
+    rounding, which e4m3's 3-bit mantissa turns into whole steps on the
+    values near a rounding boundary; its gap is printed beside.
 (d) The same through a fresh engine with fa_paged_256 (the (c) engine
     freed first): kv_append, paged prefill and decode attention must
     have launched, prefill_attention and arena_relocate not; the tokens
@@ -89,7 +113,10 @@ raises and the script exits non-zero without printing a result.
     to depth 131072) is held against its plain version on the same inputs
     with (a)'s tolerances, the plain prefill run 256 query tokens at a
     time.  Besides, G must equal H in the sweep and each probe's F must
-    equal G then C, bit for bit.
+    equal G then C, bit for bit.  Then kernel_sweep --check on an e4m3
+    arena (ctx 1024-32768, batch 16: C's time against the 1-byte bytes
+    bound) and on an int8 arena (ctx 1024, 4096); G's and H's launches
+    on 1-byte arenas are read there.
 
 Kernels G (single-run arena prefill, rows from the extent table) and H
 (single-run paged prefill) run only in (a) and (f).  In (a) each is held
@@ -99,13 +126,15 @@ same rows; H over a seeded permutation of 16- and 256-token blocks with
 its tail poisoned to 2**30, and against E on one run (both expected bit for
 bit).
 
-Prints the phase results, then ``{"kernels": [...]}`` (A-H; G's and H's
-launches from (f)), the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.
+Prints the phase results, then ``{"kernels": [...]}`` (A-H, then their
+e4m3 and int8 instances, ``<name>[e4m3]``; G's and H's launches from
+(f)), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import re
@@ -129,6 +158,21 @@ except ImportError as e:  # chip_smoke.py without the port beside it
 PREFILL_TOL = DECODE_TOL = ATTN_TOL
 LOGIT_GAP_TOL = 0.25          # engine token's logit vs the reference top
 YI = dict(L=32, HQ=32, HKV=4, D=128)
+INT8_STEP = 0.04              # KV_INT8_SCALE's default
+# the 1-byte arenas: kv_quant name, instance tag
+QUANT = {torch.float8_e4m3fn: ("fp8", "e4m3"), torch.int8: ("int8", "int8")}
+
+
+def arena_setup(arena):
+    """(name suffix, log label, sm_scale, int8 step) of phase (a) on an
+    arena of dtype ``arena``: an int8 arena's step folds into sm_scale, as
+    the backends fold it."""
+    D = YI["D"]
+    if arena == torch.bfloat16:
+        return "", "(a)", D ** -0.5, None
+    tag = QUANT[arena][1]
+    step = INT8_STEP if arena == torch.int8 else None
+    return f"[{tag}]", f"(a {tag})", D ** -0.5 * (step or 1.0), step
 
 
 def log(*args):
@@ -153,19 +197,28 @@ def host_us(fn, n: int = 200) -> float:
 # --------------------------------------------------------------------- #
 # (a) kernels
 # --------------------------------------------------------------------- #
-def kernel_phase(dev):
+def kernel_phase(dev, arena=torch.bfloat16):
+    """Phase (a) over an arena of dtype ``arena``: bf16 (the main path), or
+    1-byte e4m3 or int8 (instances named ``<kernel>[e4m3]``, ...), whose
+    values are the seeded bf16 arena's quantized as kernel A writes them
+    and whose library yardsticks read K/V widened to bf16 once, outside the
+    timed call (twice the bytes the kernel reads).  The 1-byte runs skip
+    the host-time, 5-pass and long-context extras."""
     from vattention_tpu_torch.memory.allocator import VAttentionAllocator
     from vattention_tpu_torch.ops import (arena_copy, cache_append,
                                           flash_decode, flash_prefill,
                                           pod_fused)
-    from vattention_tpu_torch.ops.utils import (select_kv_tile,
+    from vattention_tpu_torch.ops.utils import (quantize_kv, select_kv_tile,
                                                 tile_rows_from_segments)
 
     L, HQ, HKV, D = YI["L"], YI["HQ"], YI["HKV"], YI["D"]
     G = HQ // HKV
     dt = torch.bfloat16
-    es = 2
-    sm = D ** -0.5
+    es = 2                                    # q, outputs, the model's K/V
+    suffix, lbl, sm, step = arena_setup(arena)
+    main = arena == dt
+    out_scale = step or 1.0   # an int8 arena's outputs count in its steps
+    check = functools.partial(check_attention, scale=out_scale)
     probe = VAttentionAllocator()
     probe.init_kvcache(num_layers=L, num_kv_heads=HKV, head_size=D,
                        max_batch_size=8, max_context_length=8192,
@@ -176,8 +229,11 @@ def kernel_phase(dev):
     n_sub = 8192 // sub                       # row tables of max_model_len 8192
     randn, _ = seeded(dev)
     cache = randn(L, 2, HKV, R + bt, D)
+    if not main:
+        cache = quantize_kv(cache, arena, step)
+    kv_es = cache.element_size()              # the arena's K/V bytes
     timer = Timer(dev)
-    log(f"(a) timer: {timer.mode}")
+    log(f"{lbl} timer: {timer.mode}")
     results = []
 
     def table(extents_per_seq):
@@ -201,42 +257,59 @@ def kernel_phase(dev):
     rows[300:480] = np.arange(9 * bt, 9 * bt + 180)      # 480..511: padding
     rows[512:518] = [bt * i + 17 * i for i in (11, 12, 13, 14, 15, 16)]
     k, v = randn(T, HKV, D), randn(T, HKV, D)
+    if not main:
+        # the quantization's edges: the flush cutoff and its bf16
+        # neighbours, e4m3's largest value and past it, int8 half steps
+        s_ = step or 1.0
+        edge = torch.tensor([15 * 2 ** -10, 1.8671875 * 2 ** -7,
+                             1.8828125 * 2 ** -7, 448, 500, 1000, 0.5 * s_,
+                             1.5 * s_, 126.5 * s_, 300 * s_], device=dev)
+        edge = torch.cat([edge, -edge]).to(dt)
+        k.view(-1)[:512:512 // edge.numel()][:edge.numel()] = edge
+        v.view(-1)[1::997][:edge.numel()] = edge
     rows_d = torch.from_numpy(rows).to(dev)
     expect = cache.clone()
-    cache_append.kv_append_plain(expect, k, v, rows_d, layer)
+    cache_append.kv_append_plain(expect, k, v, rows_d, layer, step)
     got = cache.clone()
-    cache_append.kv_append(got, k, v, rows_d, layer)
+    cache_append.kv_append(got, k, v, rows_d, layer, kv_scale=step)
     torch.cuda.synchronize()
-    if not torch.equal(got, expect):
-        raise AssertionError("kv_append differs from its plain version")
+    if not torch.equal(got.view(torch.uint8), expect.view(torch.uint8)):
+        raise AssertionError(f"kv_append{suffix} differs from its plain "
+                             "version")
     del expect
     valid = rows >= 0
     nvalid = int(valid.sum())
     rv = torch.from_numpy(rows[valid].astype(np.int64)).to(dev)
     kv_src = torch.stack([k[torch.from_numpy(valid).to(dev)],
                           v[torch.from_numpy(valid).to(dev)]]).transpose(1, 2)
-    b_ms, b_by = bound(nvalid * 2 * HKV * D * es * 2 + T * 4, 0)
+    b_ms, b_by = bound(nvalid * 2 * HKV * D * (es + kv_es) + T * 4, 0)
     results.append(dict(
-        name="kv_append", route="cuda",
+        name="kv_append" + suffix, route="cuda",
         source="vattention_tpu_torch/csrc/kv_append.cu",
         replaces="vattention_tpu/ops/cache_append.py:152,274",
         max_abs_err=0.0,
-        ms=timer(lambda: cache_append.kv_append(got, k, v, rows_d, layer)),
+        ms=timer(lambda: cache_append.kv_append(got, k, v, rows_d, layer,
+                                                kv_scale=step)),
         plain_ms=timer(lambda: cache_append.kv_append_plain(
-            got, k, v, rows_d, layer)),
-        library_ms=timer(lambda: got[layer].index_copy_(2, rv, kv_src)),
+            got, k, v, rows_d, layer, step)),
+        # no one PyTorch call quantizes and scatters
+        library_ms=(timer(lambda: got[layer].index_copy_(2, rv, kv_src))
+                    if main else None),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"T={T} ({nvalid} valid) Hkv={HKV} D={D} bf16"))
-    passes = [(timer(lambda: cache_append.kv_append(got, k, v, rows_d,
-                                                    layer)),
-               timer(lambda: got[layer].index_copy_(2, rv, kv_src)))
-              for _ in range(5)]
-    log("(a) kv_append against index_copy_, 5 passes in turns: "
-        + "; ".join(f"{a:.4f} / {b:.4f}" for a, b in passes) + " ms")
-    host = {"kv_append": host_us(lambda: cache_append.kv_append(
-        got, k, v, rows_d, layer)),
-            "index_copy_": host_us(lambda: got[layer].index_copy_(
-                2, rv, kv_src))}
+        shape=f"T={T} ({nvalid} valid) Hkv={HKV} D={D} bf16 -> "
+              f"{cache.dtype}"))
+    host = {}
+    if main:
+        passes = [(timer(lambda: cache_append.kv_append(got, k, v, rows_d,
+                                                        layer)),
+                   timer(lambda: got[layer].index_copy_(2, rv, kv_src)))
+                  for _ in range(5)]
+        log("(a) kv_append against index_copy_, 5 passes in turns: "
+            + "; ".join(f"{a:.4f} / {b:.4f}" for a, b in passes) + " ms")
+        host = {"kv_append": host_us(lambda: cache_append.kv_append(
+            got, k, v, rows_d, layer)),
+                "index_copy_": host_us(lambda: got[layer].index_copy_(
+                    2, rv, kv_src))}
     del got
 
     # -- B: prefill; case 1 = chunk 512 at kv_len 4096 over two extents
@@ -253,7 +326,7 @@ def kernel_phase(dev):
     got = flash_prefill.prefill_attention(*args, **kw)
     ref = flash_prefill.prefill_attention_plain(*args, **kw)
     torch.cuda.synchronize()
-    err, rel = check_attention("prefill case 1", got, ref, PREFILL_TOL)
+    err, rel = check("prefill case 1", got, ref, PREFILL_TOL)
     checks = [f"chunk 512 at kv_len 4096: {err} (row worst {rel:.5f})"]
     # case 2: 3 runs + the empty padding run in one launch
     ext2 = [[(bt, 1024)], [(4 * bt, bt), (12 * bt, bt)], [(14 * bt, 64)], []]
@@ -268,25 +341,27 @@ def kernel_phase(dev):
     if got2[384:].abs().max().item() != 0.0:
         raise AssertionError("prefill: the empty run's tile is not zero")
     for lo, n, depth in ((0, 128, 128), (128, 100, 2100), (256, 60, 60)):
-        e, r = check_attention(f"prefill case 2, run at {lo}",
+        e, r = check(f"prefill case 2, run at {lo}",
                                got2[lo:lo + n], ref2[lo:lo + n], PREFILL_TOL)
         checks.append(f"run of {n} rows to depth {depth}: {e} "
                       f"(row worst {r:.5f})")
         err = max(err, e)
-    log("(a) prefill_attention max abs err per case: " + "; ".join(checks))
-    # yardstick: SDPA over the case-1 K/V gathered once, bottom-right causal
+    log(f"{lbl} prefill_attention max abs err per case: "
+        + "; ".join(checks))
+    # yardstick: SDPA over the case-1 K/V gathered (and widened) once,
+    # bottom-right causal
     pos = torch.arange(4096, device=dev)
     grow = trows[0].long()[pos // sub] + pos % sub
-    kg = cache[layer, 0][:, grow][None]          # [1, Hkv, 4096, D]
-    vg = cache[layer, 1][:, grow][None]
+    kg = cache[layer, 0][:, grow][None].to(dt)   # [1, Hkv, 4096, D]
+    vg = cache[layer, 1][:, grow][None].to(dt)
     qg = q.transpose(0, 1)[None]                 # [1, Hq, 512, D]
     mask = (3584 + torch.arange(512, device=dev))[:, None] >= pos[None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     pairs = int(mask.sum().item())
-    b_ms, b_by = bound((2 * 512 * HQ * D + 4096 * 2 * HKV * D) * es,
+    b_ms, b_by = bound(2 * 512 * HQ * D * es + 4096 * 2 * HKV * D * kv_es,
                        4 * HQ * D * pairs)
     results.append(dict(
-        name="prefill_attention", route="cuda",
+        name="prefill_attention" + suffix, route="cuda",
         source="vattention_tpu_torch/csrc/prefill_attention.cu",
         replaces="vattention_tpu/ops/flash_prefill.py:273",
         max_abs_err=err,
@@ -296,7 +371,8 @@ def kernel_phase(dev):
         library_ms=timer(lambda: sdpa(qg, kg, vg, attn_mask=mask,
                                       enable_gqa=True)),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"chunk 512 at kv_len 4096, Hq={HQ} Hkv={HKV} D={D} bf16"))
+        shape=f"chunk 512 at kv_len 4096, Hq={HQ} Hkv={HKV} D={D} bf16, "
+              f"{cache.dtype} K/V"))
     del kg, vg
 
     # -- C: decode, B=8 at depths 0..4096
@@ -317,11 +393,12 @@ def kernel_phase(dev):
     err, checks = 0.0, []
     for b, n in enumerate(seqlens_l):
         if n:
-            e, r = check_attention(f"decode slot {b} at depth {n}",
+            e, r = check(f"decode slot {b} at depth {n}",
                                    got[b:b + 1], ref[b:b + 1], DECODE_TOL)
             checks.append(f"depth {n}: {e} (row worst {r:.5f})")
             err = max(err, e)
-    log("(a) decode_attention max abs err per slot: " + "; ".join(checks))
+    log(f"{lbl} decode_attention max abs err per slot: "
+        + "; ".join(checks))
     kpad = torch.zeros((8, HKV, 4096, D), dtype=dt, device=dev)
     vpad = torch.zeros_like(kpad)
     for b, n in enumerate(seqlens_l):
@@ -332,10 +409,11 @@ def kernel_phase(dev):
             vpad[b, :, :n] = cache[layer, 1][:, r]
     dmask = (torch.arange(4096, device=dev)[None, :]
              < seqlens[:, None])[:, None, None, :]
-    b_ms, b_by = bound((sum(seqlens_l) * 2 * HKV * D + 2 * 8 * HQ * D) * es
-                       + 8 * 4, 4 * HQ * D * sum(seqlens_l))
+    b_ms, b_by = bound(sum(seqlens_l) * 2 * HKV * D * kv_es
+                       + 2 * 8 * HQ * D * es + 8 * 4,
+                       4 * HQ * D * sum(seqlens_l))
     results.append(dict(
-        name="decode_attention", route="cuda",
+        name="decode_attention" + suffix, route="cuda",
         source="vattention_tpu_torch/csrc/decode_attention.cu",
         replaces="vattention_tpu/ops/flash_decode.py:157",
         max_abs_err=err,
@@ -345,41 +423,52 @@ def kernel_phase(dev):
         library_ms=timer(lambda: sdpa(qd[:, :, None], kpad, vpad,
                                       attn_mask=dmask, enable_gqa=True)),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"B=8 depths {seqlens_l}, Hq={HQ} Hkv={HKV} D={D} bf16"))
+        shape=f"B=8 depths {seqlens_l}, Hq={HQ} Hkv={HKV} D={D} bf16, "
+              f"{cache.dtype} K/V"))
 
     f1 = (q, qd, cache, qt_run, qinfo, trows, trows_d, seqlens, layer)
     fkw = dict(sub=sub, pad_tile=pad, sm_scale=sm)
-    host.update({
-        "prefill_attention": host_us(
-            lambda: flash_prefill.prefill_attention(*args, **kw)),
-        "decode_attention": host_us(
-            lambda: flash_decode.decode_attention(*dargs, **dkw)),
-        "pod_attention": host_us(lambda: pod_fused.pod_attention(*f1,
-                                                                 **fkw)),
-        "SDPA (decode)": host_us(lambda: sdpa(
-            qd[:, :, None], kpad, vpad, attn_mask=dmask, enable_gqa=True))})
-    log("(a) host us per call (200 enqueues, no sync): " + ", ".join(
-        f"{name} {us:.1f}" for name, us in host.items()))
+    if main:
+        host.update({
+            "prefill_attention": host_us(
+                lambda: flash_prefill.prefill_attention(*args, **kw)),
+            "decode_attention": host_us(
+                lambda: flash_decode.decode_attention(*dargs, **dkw)),
+            "pod_attention": host_us(lambda: pod_fused.pod_attention(
+                *f1, **fkw)),
+            "SDPA (decode)": host_us(lambda: sdpa(
+                qd[:, :, None], kpad, vpad, attn_mask=dmask,
+                enable_gqa=True))})
+        log("(a) host us per call (200 enqueues, no sync): " + ", ".join(
+            f"{name} {us:.1f}" for name, us in host.items()))
     del kpad, vpad
     results.append(pod_kernel(timer, args, args2, dargs, seqlens_l, sub,
                               results[-2]["library_ms"]
-                              + results[-1]["library_ms"]))
-    results.append(paged_kernels(dev, cache, R, timer, randn, layer))
+                              + results[-1]["library_ms"], sm, suffix, lbl,
+                              out_scale))
+    results.append(paged_kernels(dev, cache, R, timer, randn, layer, sm,
+                                 suffix, lbl, out_scale))
     results += single_run_kernels(dev, cache, R, bt, sub, n_sub, timer,
-                                  randn, layer)
-    err, rel = check_prefill_edges(cache, HQ, layer)
-    log("(a) prefill body edge cases (kv_len 1, 63, 64, 65, 200, 4133; "
+                                  randn, layer, sm, suffix, lbl, out_scale)
+    err, rel = check_prefill_edges(cache, HQ, layer, sm_scale=sm,
+                                   out_scale=out_scale)
+    log(f"{lbl} prefill body edge cases (kv_len 1, 63, 64, 65, 200, 4133; "
         "q_start 40, 56, 60 mod 64; the empty run; B over 16-token block "
         "tables with poisoned tails and over unaligned extents): max abs err "
         f"{err} (row worst {rel:.5f}); E = B, F = B and C, G = B, H = E bit "
         "for bit")
-    err, rel = check_decode_edges(cache, layer)
-    log(f"(a) decode body edge cases (depths {EDGE_DEPTHS}, tables "
+    err, rel = check_decode_edges(cache, layer, sm_scale=sm,
+                                  out_scale=out_scale)
+    log(f"{lbl} decode body edge cases (depths {EDGE_DEPTHS}, tables "
         "32768 positions deep, sub 256 and 16, G 1, 2, 4, 8): max abs err "
         f"{err} (row worst {rel:.5f}); idle slots exactly zero")
-    long_context(dev, cache, R, bt, timer, randn, layer)
+    if main:
+        long_context(dev, cache, R, bt, timer, randn, layer)
+    else:
+        widening_check(dev, arena, sm, lbl)
 
-    # -- D: a chained plan from the allocator in strict mode
+    # -- D: a chained plan from the allocator in strict mode (the bf16
+    # arena's 2048-row blocks on every arena: D moves bytes)
     plan, live = strict_relocation_plan(L, HKV, D, es)
     n_moves = len(plan.moves)
     src = torch.tensor([m.src for m in plan.moves], dtype=torch.int32,
@@ -391,13 +480,15 @@ def kernel_phase(dev):
     arena_copy.arena_relocate_plain(expect, src, dst, n_moves, bt)
     arena_copy.arena_relocate(cache, src, dst, n_moves, bt)
     torch.cuda.synchronize()
-    if not torch.equal(cache, expect):
-        raise AssertionError("arena_relocate differs from its plain version")
+    if not torch.equal(cache.view(torch.uint8), expect.view(torch.uint8)):
+        raise AssertionError(f"arena_relocate{suffix} differs from its "
+                             "plain version")
     del expect
     for old_rows, new_rows in live:
         o = torch.from_numpy(old_rows).to(dev)
         nw = torch.from_numpy(new_rows).to(dev)
-        if not torch.equal(before[:, :, :, o], cache[:, :, :, nw]):
+        if not torch.equal(before[:, :, :, o].view(torch.uint8),
+                           cache[:, :, :, nw].view(torch.uint8)):
             raise AssertionError("a live slot's KV did not survive relocation")
     del before
     moves = [(m.src, m.dst) for m in plan.moves]
@@ -407,10 +498,10 @@ def kernel_phase(dev):
             cache[:, :, :, d_ * bt:(d_ + 1) * bt].copy_(
                 cache[:, :, :, s_ * bt:(s_ + 1) * bt])
 
-    b_ms, b_by = bound(n_moves * L * 2 * HKV * bt * D * es * 2
+    b_ms, b_by = bound(n_moves * L * 2 * HKV * bt * D * kv_es * 2
                        + n_moves * 8, 0)
     results.append(dict(
-        name="arena_relocate", route="cuda",
+        name="arena_relocate" + suffix, route="cuda",
         source="vattention_tpu_torch/csrc/arena_relocate.cu",
         replaces="vattention_tpu/ops/arena_copy.py:59",
         max_abs_err=0.0,
@@ -421,29 +512,91 @@ def kernel_phase(dev):
         library_ms=timer(library_moves),
         bound_ms=b_ms, bound_by=b_by,
         shape=f"{n_moves} chained moves {moves} of {bt}-row blocks, "
-              f"L={L} Hkv={HKV} D={D} bf16"))
+              f"L={L} Hkv={HKV} D={D} {cache.dtype}"))
     del cache
     torch.cuda.empty_cache()
     for r in results:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"(a) {r['name']}: {r['shape']}: max_abs_err {r['max_abs_err']}"
+        log(f"{lbl} {r['name']}: {r['shape']}: max_abs_err {r['max_abs_err']}"
             f" ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library {lib} "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
     return results
 
 
-def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms):
+def widening_check(dev, arena, sm, lbl):
+    """(a) on a 1-byte arena: row 0's V holds every finite e4m3 pattern (or
+    every int8 value) in each kv head; zero queries at kv_len 1 give that
+    key weight 1, so every output row of C, B, E, G, H and F must be V's
+    row widened to bf16, exactly."""
+    from vattention_tpu_torch.ops import (flash_decode, flash_prefill,
+                                          paged_attention, pod_fused)
+
+    HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
+    if arena == torch.float8_e4m3fn:
+        raw = torch.tensor([b for b in range(256) if b & 0x7F != 0x7F]
+                           + [0, 0], dtype=torch.uint8)
+    else:
+        raw = torch.arange(-128, 128, dtype=torch.int16).to(
+            torch.int8).view(torch.uint8)
+    # the bytes, then reversed: Yi's 4 kv heads x 128 lanes
+    row = torch.cat([raw, raw.flip(0)]).view(HKV, D)
+    row = row.view(arena)
+    cache = torch.zeros((1, 2, HKV, 4096, D), dtype=torch.uint8)
+    cache[0, 1, :, 0] = row.view(torch.uint8)
+    cache = cache.view(arena)
+    expect = row.to(torch.bfloat16).repeat_interleave(HQ // HKV, 0)
+    cache = cache.to(dev)
+    expect = expect.to(dev)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    qp = torch.zeros((128, HQ, D), dtype=torch.bfloat16, device=dev)
+    qd = torch.zeros((2, HQ, D), dtype=torch.bfloat16, device=dev)
+    qinfo, qt_run, table, rows = i32([[0, 1]]), i32([[0, 0]]), i32([[0]]), \
+        i32([[0], [0]])
+    outs = {
+        "C": flash_decode.decode_attention(qd, cache, rows, i32([1, 1]), 0,
+                                           sub=256, sm_scale=sm),
+        "B": flash_prefill.prefill_attention(qp, cache, qt_run, qinfo, table,
+                                             0, sub=256, pad_tile=128,
+                                             sm_scale=sm),
+        "E": paged_attention.paged_prefill_attention(
+            qp, cache, qt_run, qinfo, table, 0, block_size=16, pad_tile=128,
+            sm_scale=sm),
+        "G": flash_prefill.segment_prefill_attention(
+            qp, cache, i32([0]), i32([0, 1]), i32([0, 1]), 0, sm_scale=sm),
+        "H": paged_attention.paged_prefill_attention_single(
+            qp, cache, i32([0]), i32([0, 1]), 0, block_size=16,
+            sm_scale=sm)}
+    outs["F prefill"], outs["F decode"] = pod_fused.pod_attention(
+        qp, qd, cache, qt_run, qinfo, table, rows, i32([1, 1]), 0, sub=256,
+        pad_tile=128, sm_scale=sm)
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        if not torch.equal(out, expect.expand_as(out)):
+            raise AssertionError(f"{lbl} {name} does not widen every "
+                                 f"{arena} value exactly")
+    what = "int8 value" if arena == torch.int8 else "finite e4m3 pattern"
+    log(f"{lbl} widening: every {what} ({raw.numel()} values) widens "
+        "exactly in C, B, E, G, H and F")
+
+
+def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms, sm, suffix,
+               lbl, out_scale):
     """(a) for kernel F: each of kernel B's two cases (``pre1``: chunk 512
     at kv_len 4096; ``pre2``: 3 runs and the empty run) fused with kernel
     C's batch (``dec``) in one launch, held against F's plain version and
-    against B and C on the same inputs; F timed on ``pre1`` beside B then
-    C.  ``sdpa_ms`` is the sum of B's and C's SDPA times."""
+    against B and C on the same inputs (bit for bit: a difference raises);
+    F timed on ``pre1`` beside B then C.  ``sdpa_ms`` is the sum of B's and
+    C's SDPA times."""
     from vattention_tpu_torch.ops import flash_decode, flash_prefill, pod_fused
 
     HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
     es = 2
     qd, cache, trows_d, seqlens, layer = dec
-    sm = D ** -0.5
+    kv_es = cache.element_size()
+    check = functools.partial(check_attention, scale=out_scale)
     kw = dict(sub=sub, pad_tile=128, sm_scale=sm)
     dkw = dict(sub=sub, sm_scale=sm)
     err, checks = 0.0, []
@@ -463,13 +616,13 @@ def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms):
             raise AssertionError("pod: the seqlen-0 slot is not zero")
         case_err = 0.0
         for lo, n in ranges:
-            e, _ = check_attention(f"pod prefill rows {lo}..{lo + n}",
+            e, _ = check(f"pod prefill rows {lo}..{lo + n}",
                                    got_p[lo:lo + n], ref_p[lo:lo + n],
                                    PREFILL_TOL)
             case_err = max(case_err, e)
         for b, n in enumerate(depths):
             if n:
-                e, _ = check_attention(f"pod decode slot {b} at depth {n}",
+                e, _ = check(f"pod decode slot {b} at depth {n}",
                                        got_d[b:b + 1], ref_d[b:b + 1],
                                        DECODE_TOL)
                 case_err = max(case_err, e)
@@ -478,16 +631,19 @@ def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms):
         vs_c = (got_d.float() - got_c.float()).abs().max().item()
         checks.append(f"{len(ranges)} run(s): max |F - plain| {case_err}, "
                       f"max |F - B| {vs_b}, max |F - C| {vs_c}")
-    log("(a) pod_attention, prefill fused with B=8 decode slots at depths "
+        if not (torch.equal(got_p, got_b) and torch.equal(got_d, got_c)):
+            raise AssertionError(f"pod_attention{suffix} differs from B "
+                                 "then C")
+    log(f"{lbl} pod_attention, prefill fused with B=8 decode slots at depths "
         f"{depths}: " + "; ".join(checks))
     f1 = (pre1[0], qd, cache, *pre1[2:5], trows_d, seqlens, layer)
     pairs = 512 * 3584 + 512 * 513 // 2   # causal (query, key) pairs of pre1
     b_ms, b_by = bound(
-        (2 * 512 * HQ * D + 4096 * 2 * HKV * D
-         + sum(depths) * 2 * HKV * D + 2 * 8 * HQ * D) * es + 8 * 4,
+        (2 * 512 * HQ * D + 2 * 8 * HQ * D) * es
+        + (4096 + sum(depths)) * 2 * HKV * D * kv_es + 8 * 4,
         4 * HQ * D * (pairs + sum(depths)))
     res = dict(
-        name="pod_attention", route="cuda",
+        name="pod_attention" + suffix, route="cuda",
         source="vattention_tpu_torch/csrc/pod_attention.cu",
         replaces="vattention_tpu/ops/pod_fused.py:341",
         max_abs_err=err,
@@ -498,8 +654,8 @@ def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms):
                        iters=3),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
         shape=f"chunk 512 at kv_len 4096 + B=8 depths {depths}, "
-              f"Hq={HQ} Hkv={HKV} D={D} bf16")
-    log(f"(a) pod_attention: {res['shape']}: ms {res['ms']:.4f}, B then C "
+              f"Hq={HQ} Hkv={HKV} D={D} bf16, {cache.dtype} K/V")
+    log(f"{lbl} pod_attention: {res['shape']}: ms {res['ms']:.4f}, B then C "
         f"serially {res['serial_ms']:.4f}, plain {res['plain_ms']:.4f}, "
         f"SDPA prefill + SDPA decode {sdpa_ms:.4f}, bound {b_ms:.4f} "
         f"({b_by})")
@@ -510,7 +666,7 @@ def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms):
     empty = torch.zeros_like(pre1[3])
     f_pre = (*f1[:7], idle, layer)
     f_dec = (*f1[:4], empty, *f1[5:])
-    log("(a) pod_attention by role: prefill role alone (every slot idle) "
+    log(f"{lbl} pod_attention by role: prefill role alone (every slot idle) "
         f"{timer(lambda: pod_fused.pod_attention(*f_pre, **kw)):.4f} ms, "
         f"B {timer(lambda: flash_prefill.prefill_attention(*pre1, **kw)):.4f}"
         " ms; decode role alone (every run empty) "
@@ -532,9 +688,20 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
     from vattention_tpu_torch.ops.cuda_build import library, library_path
 
     pre = library("prefill_attention").vattn_prefill_smem_bytes
-    pre.argtypes = [ctypes.c_int]
+    pre.argtypes = [ctypes.c_int, ctypes.c_int]
     dec = library("decode_attention").vattn_decode_smem_bytes
-    dec.argtypes = [ctypes.c_int]
+    dec.argtypes = [ctypes.c_int, ctypes.c_int]
+
+    def storage(fn):
+        """The K/V storage type of a mangled instance: e4m3, int8 (signed
+        char, mangled "a", right after the compute type) or the compute
+        type."""
+        if "fp8" in fn:
+            return "e4m3", 2
+        if re.search(r"kernelI(?:f|13__nv_bfloat16)?a", fn):
+            return "int8", 3
+        return None, None
+
     for name in names:
         path = library_path(name).with_suffix(".so.log")
         if not path.exists():
@@ -560,23 +727,27 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
                 if maps:
                     kernel += f"<{', '.join(maps)}>"
                 smem = ""
+                kv, code = storage(fn)
                 if name == "decode_attention":
-                    smem = (f", shared memory {dec(int(bf16))} B dynamic "
-                            "per block")
+                    code = int(bf16) if code is None else code
+                    smem = (f", shared memory {dec(int(bf16), code)} B "
+                            "dynamic per block")
                 elif bf16:
                     # F's bf16 blocks carve the prefill body's buffer,
                     # which is larger than C's
                     static = re.search(r"(\d+) bytes smem", line)
-                    smem = (f", shared memory {pre(1)} B dynamic + "
+                    smem = (f", shared memory {pre(1, code or 1)} B dynamic + "
                             f"{static.group(1) if static else 0} B static "
                             "per block")
                 log(f"ptxas {name}.cu: {kernel} "
                     f"({'bf16' if bf16 else 'f32'}"
+                    f"{f', {kv} K/V' if kv else ''}"
                     f"{'' if 'tc_kernel' in fn else ', G=8'}): "
                     f"{m.group(1)} registers, {spills}{smem}")
 
 
-def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
+def paged_kernels(dev, cache, pool_rows, timer, randn, layer, sm, suffix,
+                  lbl, out_scale):
     """(a) for the paged engine: kernel E at blocks of 16 and 256 tokens
     over the first ``pool_rows`` rows of ``cache``, E against B on the
     same rows, and kernel C over 16-token blocks.  Returns E's result at
@@ -587,7 +758,8 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
 
     HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
     es = 2
-    sm = D ** -0.5
+    kv_es = cache.element_size()
+    check = functools.partial(check_attention, scale=out_scale)
     pad = 128
     poison = 2 ** 30
     rng = np.random.default_rng(1)
@@ -625,7 +797,7 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
                           device=dev)
     pos = torch.arange(4096, device=dev)
     mask = (3584 + torch.arange(512, device=dev))[:, None] >= pos[None, :]
-    b_ms, b_by = bound((2 * 512 * HQ * D + 4096 * 2 * HKV * D) * es,
+    b_ms, b_by = bound(2 * 512 * HQ * D * es + 4096 * 2 * HKV * D * kv_es,
                        4 * HQ * D * int(mask.sum().item()))
     out = None
     for bs in (16, 256):
@@ -646,25 +818,25 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
                 f"paged prefill bs {bs}: the empty run's tile is not zero")
         err, checks = 0.0, []
         for r, (q0, n, chunk) in enumerate(runs):
-            e, rel = check_attention(
+            e, rel = check(
                 f"paged prefill bs {bs}, run {r}",
                 got[offs[r]:offs[r] + chunk], ref[offs[r]:offs[r] + chunk],
                 PREFILL_TOL)
             checks.append(f"chunk {chunk} at kv_len {n}: {e} "
                           f"(row worst {rel:.5f})")
             err = max(err, e)
-        vs_b = (got - got_b).abs().max().item()
-        log(f"(a) paged_prefill_attention bs {bs}, tables poisoned past "
+        vs_b = (got.float() - got_b.float()).abs().max().item()
+        log(f"{lbl} paged_prefill_attention bs {bs}, tables poisoned past "
             f"each run's last block: " + "; ".join(checks)
             + f"; max |E - B| on the same rows {vs_b}")
         t1 = (q[:512], cache, qt_run1, qinfo1,
               tables_for([4096, 0], bs), layer)
         grow = paged_attention.block_rows(t1[4][0], 4096, bs)
-        kg = cache[layer, 0][:, grow][None]
-        vg = cache[layer, 1][:, grow][None]
+        kg = cache[layer, 0][:, grow][None].to(torch.bfloat16)
+        vg = cache[layer, 1][:, grow][None].to(torch.bfloat16)
         qg = q[:512].transpose(0, 1)[None]
         res = dict(
-            name="paged_prefill_attention", route="cuda",
+            name="paged_prefill_attention" + suffix, route="cuda",
             source="vattention_tpu_torch/csrc/paged_prefill_attention.cu",
             replaces="vattention_tpu/ops/paged_attention.py:107",
             max_abs_err=err,
@@ -677,9 +849,9 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
                                           enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by,
             shape=f"chunk 512 at kv_len 4096 over {bs}-token blocks, "
-                  f"Hq={HQ} Hkv={HKV} D={D} bf16")
+                  f"Hq={HQ} Hkv={HKV} D={D} bf16, {cache.dtype} K/V")
         del kg, vg
-        log(f"(a) paged_prefill_attention: {res['shape']}: ms "
+        log(f"{lbl} paged_prefill_attention: {res['shape']}: ms "
             f"{res['ms']:.4f} plain {res['plain_ms']:.4f} library "
             f"{res['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
         out = res
@@ -703,7 +875,7 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
     err = 0.0
     for b, n in enumerate(seqlens_l):
         if n:
-            e, _ = check_attention(f"paged decode slot {b} at depth {n}",
+            e, _ = check(f"paged decode slot {b} at depth {n}",
                                    got[b:b + 1], ref[b:b + 1], DECODE_TOL)
             err = max(err, e)
     kpad = torch.zeros((8, HKV, 4096, D), dtype=torch.bfloat16, device=dev)
@@ -715,14 +887,15 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
             vpad[b, :, :n] = cache[layer, 1][:, r]
     dmask = (torch.arange(4096, device=dev)[None, :]
              < seqlens[:, None])[:, None, None, :]
-    c_bound, c_by = bound((sum(seqlens_l) * 2 * HKV * D + 2 * 8 * HQ * D)
-                          * es + 8 * 4, 4 * HQ * D * sum(seqlens_l))
+    c_bound, c_by = bound(sum(seqlens_l) * 2 * HKV * D * kv_es
+                          + 2 * 8 * HQ * D * es + 8 * 4,
+                          4 * HQ * D * sum(seqlens_l))
     ms = timer(lambda: flash_decode.decode_attention(*cargs, **ckw))
     plain_ms = timer(lambda: flash_decode.decode_attention_plain(
         *cargs, **ckw), iters=3)
     library_ms = timer(lambda: sdpa(qd[:, :, None], kpad, vpad,
                                     attn_mask=dmask, enable_gqa=True))
-    log(f"(a) decode_attention over {bs}-token blocks (sub={bs}), B=8 "
+    log(f"{lbl} decode_attention over {bs}-token blocks (sub={bs}), B=8 "
         f"depths {seqlens_l}: max_abs_err {err} ms {ms:.4f} plain "
         f"{plain_ms:.4f} library {library_ms:.4f} bound {c_bound:.4f} "
         f"({c_by})")
@@ -730,7 +903,7 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer):
 
 
 def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
-                       layer):
+                       layer, sm, suffix, lbl, out_scale):
     """(a) for kernels G and H at kernel B's shape (chunk 512 at kv_len
     4096): G over 8 extents of 512 tokens starting at 2048-token block
     starts, held against its plain version and against B on the same rows;
@@ -743,7 +916,8 @@ def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
 
     HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
     es = 2
-    sm = D ** -0.5
+    kv_es = cache.element_size()
+    check = functools.partial(check_attention, scale=out_scale)
     poison = 2 ** 30
     rng = np.random.default_rng(2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -753,20 +927,21 @@ def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
                           device=dev)
     pos = torch.arange(4096, device=dev)
     mask = (3584 + torch.arange(512, device=dev))[:, None] >= pos[None, :]
-    b_ms, b_by = bound((2 * 512 * HQ * D + 4096 * 2 * HKV * D) * es,
+    b_ms, b_by = bound(2 * 512 * HQ * D * es + 4096 * 2 * HKV * D * kv_es,
                        4 * HQ * D * int(mask.sum().item()))
     qg = q.transpose(0, 1)[None]
 
     def timed(name, source, replaces, err, fn, plain, grow, shape):
-        kg = cache[layer, 0][:, grow][None]
-        vg = cache[layer, 1][:, grow][None]
+        kg = cache[layer, 0][:, grow][None].to(torch.bfloat16)
+        vg = cache[layer, 1][:, grow][None].to(torch.bfloat16)
         res = dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name + suffix, route="cuda", source=source,
+            replaces=replaces,
             max_abs_err=err, ms=timer(fn), plain_ms=timer(plain, iters=3),
             library_ms=timer(lambda: sdpa(qg, kg, vg, attn_mask=mask,
                                           enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by, shape=shape)
-        log(f"(a) {name}: {shape}: ms {res['ms']:.4f} plain "
+        log(f"{lbl} {name}: {shape}: ms {res['ms']:.4f} plain "
             f"{res['plain_ms']:.4f} library {res['library_ms']:.4f} bound "
             f"{b_ms:.4f} ({b_by})")
         return res
@@ -786,9 +961,9 @@ def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
         q, cache, qt_run, qinfo[None], rows_b, layer, sub=sub, pad_tile=128,
         sm_scale=sm)
     torch.cuda.synchronize()
-    err, rel = check_attention("segment prefill", got, ref, PREFILL_TOL)
+    err, rel = check("segment prefill", got, ref, PREFILL_TOL)
     vs_b = (got.float() - got_b.float()).abs().max().item()
-    log(f"(a) segment_prefill_attention, 8 extents of 512 tokens: max abs "
+    log(f"{lbl} segment_prefill_attention, 8 extents of 512 tokens: max abs "
         f"err {err} (row worst {rel:.5f}); max |G - B| on the same rows "
         f"{vs_b}")
     if not torch.equal(got, got_b):
@@ -802,7 +977,7 @@ def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
             *gargs, sm_scale=sm),
         flash_prefill.segment_rows(sr, sc, 4096),
         f"chunk 512 at kv_len 4096 over 8 extents, Hq={HQ} Hkv={HKV} "
-        f"D={D} bf16")]
+        f"D={D} bf16, {cache.dtype} K/V")]
 
     # -- H: a permutation of the pool's blocks, the tail poisoned
     for bs in (16, 256):
@@ -819,10 +994,10 @@ def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
             q, cache, qt_run, qinfo[None], table[None], layer,
             block_size=bs, pad_tile=128, sm_scale=sm)
         torch.cuda.synchronize()
-        err, rel = check_attention(f"paged prefill single bs {bs}", got, ref,
+        err, rel = check(f"paged prefill single bs {bs}", got, ref,
                                    PREFILL_TOL)
         vs_e = (got.float() - got_e.float()).abs().max().item()
-        log(f"(a) paged_prefill_attention_single bs {bs}, table poisoned "
+        log(f"{lbl} paged_prefill_attention_single bs {bs}, table poisoned "
             f"past the run's last block: max abs err {err} (row worst "
             f"{rel:.5f}); max |H - E| on one run {vs_e}")
         if not torch.equal(got, got_e):
@@ -837,7 +1012,7 @@ def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
                 *hargs, **hkw),
             paged_attention.block_rows(table, 4096, bs),
             f"chunk 512 at kv_len 4096 over {bs}-token blocks, Hq={HQ} "
-            f"Hkv={HKV} D={D} bf16")
+            f"Hkv={HKV} D={D} bf16, {cache.dtype} K/V")
     return out + [res]
 
 
@@ -962,32 +1137,46 @@ def strict_relocation_plan(L, HKV, D, es, seed=0, blocks=14):
 # --------------------------------------------------------------------- #
 # dense references (plain PyTorch, float32)
 # --------------------------------------------------------------------- #
-def dense_logits(model, params, ids, dev):
-    """Last-position logits of a full-recompute float32 forward."""
+def dense_logits(model, params, ids, dev, arena=None, dtype=torch.float32):
+    """Last-position logits of a full-recompute forward in ``dtype``
+    (float32, or the model's bfloat16 arithmetic), attention in float32;
+    with a 1-byte ``arena`` dtype, K and V go through the arena's round
+    trip (quantized as kernel A stores them, widened, times the int8
+    step)."""
     from vattention_tpu_torch.model_executor.layers.activation import (
         silu_and_mul)
     from vattention_tpu_torch.model_executor.layers.layernorm import rms_norm
     from vattention_tpu_torch.ops.attention_ref import mha_reference
+    from vattention_tpu_torch.ops.utils import quantize_kv
+
+    step = INT8_STEP if arena == torch.int8 else None
+
+    def round_trip(x):
+        if arena is None:
+            return x
+        return quantize_kv(x, arena, step).float() * (step or 1.0)
 
     a, D = model.arch, model.head_dim
     lp = params["layers"]
     T = len(ids)
-    x = params["embed"][torch.tensor(ids, device=dev)].float()
+    x = params["embed"][torch.tensor(ids, device=dev)].to(dtype)
     positions = torch.arange(T, device=dev)
     for l in range(a.num_layers):
-        h = rms_norm(x, lp["input_norm"][l].float(), a.rms_norm_eps)
-        qkv = h @ lp["qkv_w"][l].float()
+        h = rms_norm(x, lp["input_norm"][l].to(dtype), a.rms_norm_eps)
+        qkv = h @ lp["qkv_w"][l].to(dtype)
         q = qkv[:, :model.hq * D].reshape(T, model.hq, D)
         k = qkv[:, model.hq * D:(model.hq + model.hkv) * D].reshape(
             T, model.hkv, D)
         v = qkv[:, (model.hq + model.hkv) * D:].reshape(T, model.hkv, D)
         q, k = model.rope(positions, q, k)
-        attn = mha_reference(q, k, v, causal=True, sm_scale=model.sm_scale)
-        x = x + attn.reshape(T, model.hq * D) @ lp["o_w"][l].float()
-        h2 = rms_norm(x, lp["post_norm"][l].float(), a.rms_norm_eps)
-        x = x + silu_and_mul(h2 @ lp["gate_up_w"][l].float()) \
-            @ lp["down_w"][l].float()
-    x = rms_norm(x, params["final_norm"].float(), a.rms_norm_eps)
+        k, v = round_trip(k), round_trip(v)
+        attn = mha_reference(q, k, v, causal=True,
+                             sm_scale=model.sm_scale).to(dtype)
+        x = x + attn.reshape(T, model.hq * D) @ lp["o_w"][l].to(dtype)
+        h2 = rms_norm(x, lp["post_norm"][l].to(dtype), a.rms_norm_eps)
+        x = x + silu_and_mul(h2 @ lp["gate_up_w"][l].to(dtype)) \
+            @ lp["down_w"][l].to(dtype)
+    x = rms_norm(x.float(), params["final_norm"].float(), a.rms_norm_eps)
     return x[-1] @ params["lm_head"].float()
 
 
@@ -1025,48 +1214,65 @@ def fresh_metrics():
 # --------------------------------------------------------------------- #
 # (b) f32 parity
 # --------------------------------------------------------------------- #
-def parity_phase(dev, backend, tag):
+def parity_phase(dev, backend, tag, arena=None, kernels=()):
+    """(b): greedy tokens of the f32 tiny model on ``backend`` against the
+    dense reference's; with a 1-byte ``arena`` (b8) the engine serves
+    ``kv_quant`` and the reference takes the arena's round trip.  Returns
+    the launches of ``kernels``, zeroed just before serving."""
     from vattention_tpu_torch import LLMEngine
 
     fresh_metrics()
     engine = LLMEngine.from_engine_args(
         model="tiny-llama-debug", dtype="float32", attention_backend=backend,
         scheduler_type="sarathi", max_model_len=512, max_batch_size=4,
-        max_num_seqs=4, chunk_size=128, gpu_memory_utilization=0.9)
+        max_num_seqs=4, chunk_size=128, gpu_memory_utilization=0.9,
+        kv_quant=QUANT[arena][0] if arena is not None else "none")
     rng = np.random.default_rng(5)
     prompts = {f"r{i}": rng.integers(1, 2000, int(n)).tolist()
                for i, n in enumerate([200, 37])}
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
     got = serve(engine, [(s, p, 6) for s, p in prompts.items()])
+    torch.cuda.synchronize()
+    counts = {k.symbol: k.launches for k in kernels}
     runner = engine.worker.model_runner
+    kv = str(engine.worker.cache_engine.kv_cache.dtype)
     for seq_id, ids in prompts.items():
         ids = list(ids)
         for _ in range(6):
             ids.append(int(torch.argmax(dense_logits(
-                runner.model, runner.params, ids, dev))))
+                runner.model, runner.params, ids, dev, arena))))
         expect = ids[len(prompts[seq_id]):]
         if got[seq_id] != expect:
             raise AssertionError(
                 f"({tag}) {seq_id}: engine {got[seq_id]} != dense {expect}")
-        log(f"({tag}) f32 parity, {backend}, {seq_id}: engine == dense "
-            f"{expect}")
+        log(f"({tag}) f32 parity, {backend}, {kv} arena, {seq_id}: engine "
+            f"== dense {expect}")
     pod_steps = getattr(runner.backend, "pod_steps", None)
     if pod_steps is not None:
         log(f"({tag}) steps through kernel F: {pod_steps}")
         if pod_steps <= 0:
             raise AssertionError(f"({tag}) no step ran through kernel F")
+    if counts:
+        log(f"({tag}) launches: " + ", ".join(f"{s_} {n}"
+                                              for s_, n in counts.items()))
     engine.cleanup()
+    return counts
 
 
 # --------------------------------------------------------------------- #
 # (c) full-width serving
 # --------------------------------------------------------------------- #
 def serving_phase(dev, kernels, backend, tag, required, idle,
-                  reference=None):
+                  reference=None, arena=None):
     """Serve the 8 requests through a fresh full-width engine on
     ``backend``; the kernels named in ``required`` must launch in that run
     and those in ``idle`` must not.  Returns the launch counts and the
     tokens; with ``reference`` (another run's tokens) prints how many
-    agree."""
+    agree.  With a 1-byte ``arena`` dtype (c8) the engine serves
+    ``kv_quant``, the dense reference takes the arena's round trip, and no
+    profile follows."""
     from vattention_tpu_torch import LLMEngine
     from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
 
@@ -1074,7 +1280,8 @@ def serving_phase(dev, kernels, backend, tag, required, idle,
     engine = LLMEngine.from_engine_args(
         model="yi-6b-200k", dtype="bfloat16", attention_backend=backend,
         scheduler_type="sarathi", chunk_size=512, max_model_len=8192,
-        max_batch_size=8, max_num_seqs=8, seed=0)
+        max_batch_size=8, max_num_seqs=8, seed=0,
+        kv_quant=QUANT[arena][0] if arena is not None else "none")
     rng = np.random.default_rng(0)
     lens = rng.integers(1024, 4097, 8)
     requests = [(f"s{i}", rng.integers(1, 64000, int(n)).tolist(), 32)
@@ -1102,6 +1309,9 @@ def serving_phase(dev, kernels, backend, tag, required, idle,
         f"generated tokens {n_gen}, wall {wall:.3f} s, "
         f"{n_gen / wall:.2f} generated tok/s, "
         f"{(n_prompt + n_gen) / wall:.2f} processed tok/s")
+    log(f"({tag}) arena {cache_engine.kv_cache.dtype}, "
+        f"{cache_engine.block_tokens} tokens per block"
+        + (" (one 2 MB page)" if backend.endswith("2mb") else ""))
     log(f"({tag}) launches in the 8-request run: "
         + ", ".join(f"{s} {n}" for s, n in counts.items())
         + f"; the allocator planned {moves} block moves")
@@ -1121,7 +1331,8 @@ def serving_phase(dev, kernels, backend, tag, required, idle,
                              f"launched {counts[relocate]} times")
     if reference is not None:
         same = sum(a == b for s in out for a, b in zip(out[s], reference[s]))
-        log(f"({tag}) {same} of {n_gen} generated tokens equal (c)'s")
+        log(f"({tag}) {same} of {n_gen} generated tokens equal (c)'s "
+            f"({same / n_gen:.3f}; information only)")
 
     # 2 short prompts: first token against a dense f32 reference
     short = [(f"p{i}", rng.integers(1, 64000, n).tolist(), 1)
@@ -1130,15 +1341,29 @@ def serving_phase(dev, kernels, backend, tag, required, idle,
 
     runner = engine.worker.model_runner
     for seq_id, ids, _ in short:
-        logits = dense_logits(runner.model, runner.params, ids, dev)
         tok = first[seq_id][0]
+        # a 1-byte arena's reference runs the model's own bf16 arithmetic:
+        # rounding K/V to e4m3 turns the small bf16-against-f32 differences
+        # of K/V into whole e4m3 steps on the values near a rounding
+        # boundary, so a float32 forward quantizes other values than the
+        # engine (its gap is printed, not held)
+        ref_dtype = torch.float32 if arena is None else torch.bfloat16
+        logits = dense_logits(runner.model, runner.params, ids, dev, arena,
+                              ref_dtype)
         gap = float(logits.max() - logits[tok])
+        extra = ""
+        if arena is not None:
+            f32 = dense_logits(runner.model, runner.params, ids, dev, arena)
+            extra = (f"; float32 reference top {int(f32.argmax())}, gap "
+                     f"{float(f32.max() - f32[tok]):.5f} (information only)")
         log(f"({tag}) {seq_id} ({len(ids)} tokens): engine token {tok}, "
-            f"dense top {int(logits.argmax())}, logit gap {gap:.5f} "
-            f"(tolerance {LOGIT_GAP_TOL})")
+            f"dense {'bf16' if arena is not None else 'f32'} top "
+            f"{int(logits.argmax())}, logit gap {gap:.5f} "
+            f"(tolerance {LOGIT_GAP_TOL}){extra}")
         if not gap <= LOGIT_GAP_TOL:
             raise AssertionError(f"({tag}) {seq_id}: logit gap {gap}")
-    profile_serving(engine, rng, tag)
+    if arena is None:
+        profile_serving(engine, rng, tag)
     engine.cleanup()
     return counts, out
 
@@ -1197,6 +1422,43 @@ def profile_serving(engine, rng, tag):
 # --------------------------------------------------------------------- #
 # (f) the kernel-level A/B entry points
 # --------------------------------------------------------------------- #
+def quant_sweeps(kernels):
+    """(f) on 1-byte arenas: kernel_sweep --check with an e4m3 arena at its
+    default ctx 1024-32768 and batch 16 (C's time against the 1-byte bytes
+    bound: batch x ctx x 2 x Hkv x D bytes over 3.35 TB/s), then with an
+    int8 arena at ctx 1024 and 4096.  Returns the launches of ``kernels``
+    (G, H) in each sweep, zeroed just before it."""
+    from vattention_tpu_torch.microbenchmarks import kernel_sweep
+
+    out = {}
+    for kv, ctx in (("fp8", []), ("int8", ["--ctx", "1024", "4096"])):
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        log(f"(f) kernel_sweep --kv-dtype {kv} --check {' '.join(ctx)}")
+        args = kernel_sweep.parser().parse_args(
+            ["--kv-dtype", kv, "--check", *ctx])
+        rows = kernel_sweep.sweep(args)
+        torch.cuda.synchronize()
+        counts = {k.symbol: k.launches for k in kernels}
+        out[QUANT[kernel_sweep.KV_DTYPES[kv]][1]] = counts
+        for phase, kernel, c, ms, gbps in rows:
+            if phase == "decode" and kernel == "vattn_contig":
+                b_ms, _ = bound(args.batch * c * 2 * args.kv_heads
+                                * args.head_dim, 0)
+                log(f"(f) {kv} decode sweep: C at batch {args.batch}, ctx "
+                    f"{c}: {ms:.4f} ms, {gbps:.0f} GB/s, "
+                    f"{100 * b_ms / ms:.1f}% of the 1-byte bytes bound "
+                    f"{b_ms:.4f} ms")
+        log(f"(f) launches in the {kv} sweep: " + ", ".join(
+            f"{s_} {n}" for s_, n in counts.items()))
+        if any(n <= 0 for n in counts.values()):
+            raise AssertionError(f"(f) a kernel never launched: {counts}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def harness_phase(kernels):
     """Run the four harnesses at Yi-6B's attention geometry (their
     defaults) on the card; ``kernels`` (G, H) have their launch counts
@@ -1273,16 +1535,42 @@ def main() -> int:
     kernels = [KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION, ARENA_RELOCATE,
                PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single]
     results = kernel_phase(dev)
+    for arena in QUANT:
+        results += kernel_phase(dev, arena)
     parity_phase(dev, "fa_vattn", "b")
     parity_phase(dev, "fa_paged_16", "b'")
     parity_phase(dev, "fa_pod", "b''")
+    # (b8): the f32 tiny model on 1-byte arenas; E's and F's launches on
+    # them come from here (the full-width quantized run is fa_vattn only)
+    counts_b8 = {}
+    for arena, (quant, tag) in QUANT.items():
+        counts_b8[tag] = {}
+        for backend, kernel in (("fa_vattn", None),
+                                ("fa_paged_16", PAGED_PREFILL_ATTENTION),
+                                ("fa_pod", POD_ATTENTION)):
+            counts = parity_phase(dev, backend, f"b8 {tag}", arena,
+                                  kernels)
+            if kernel is not None:
+                counts_b8[tag][kernel.symbol] = counts[kernel.symbol]
+                if counts[kernel.symbol] <= 0:
+                    raise AssertionError(f"(b8 {tag}) {kernel.symbol} never "
+                                         f"launched on {backend}")
     counts_c, tokens_c = serving_phase(
         dev, kernels, "fa_vattn_2mb", "c",
         required=[KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
         idle=[PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
-    # free the (c) engine's memory before the paged engine sizes its pool
+    # free the (c) engine's memory before the next engine sizes its arena
     gc.collect()
     torch.cuda.empty_cache()
+    counts_c8 = {}
+    for arena, (_, tag) in QUANT.items():
+        counts_c8[tag], _ = serving_phase(
+            dev, kernels, "fa_vattn_2mb", f"c8 {tag}",
+            required=[KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+            idle=[PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single],
+            reference=tokens_c, arena=arena)
+        gc.collect()
+        torch.cuda.empty_cache()
     counts_d, _ = serving_phase(
         dev, kernels, "fa_paged_256", "d",
         required=[KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
@@ -1307,9 +1595,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts_f = harness_phase(single)
+    counts_f8 = quant_sweeps(single)
 
     # launches: E's from the paged run (d), F's from the POD run (e), G's
-    # and H's from the harnesses (f), A-D's from the vattn run (c)
+    # and H's from the harnesses (f), A-D's from the vattn run (c); on
+    # 1-byte arenas A-D's from (c8), E's and F's from (b8), G's and H's
+    # from the quantized sweeps
     launches = {
         "kv_append": (KV_APPEND, counts_c),
         "prefill_attention": (PREFILL_ATTENTION, counts_c),
@@ -1319,6 +1610,15 @@ def main() -> int:
         "pod_attention": (POD_ATTENTION, counts_e),
         "segment_prefill_attention": (SEGMENT_PREFILL_ATTENTION, counts_f),
         "paged_prefill_attention_single": (PAGED_PREFILL_SINGLE, counts_f)}
+    for _, tag in QUANT.values():
+        for name, (k, counts) in list(launches.items()):
+            if "[" in name:
+                continue
+            source = (counts_b8[tag] if k in (PAGED_PREFILL_ATTENTION,
+                                              POD_ATTENTION)
+                      else counts_f8[tag] if k in single
+                      else counts_c8[tag])
+            launches[f"{name}[{tag}]"] = (k, source)
     for r in results:
         k, counts = launches[r["name"]]
         r["launches"] = counts[k.symbol]

@@ -77,6 +77,24 @@ def test_parse_reads_the_decode_redesign_lines():
     }
 
 
+def test_parse_keys_the_quantized_lines_apart():
+    """The lines of the 1-byte arenas: the (a e4m3) instances and the
+    (c8) run are not read as (a) and (c); the quantized sweep's decode
+    rows are keyed by its arena dtype, not by the bf16 sweep before it."""
+    log = textwrap.dedent("""\
+        (f) kernel_sweep --block-size 16
+        decode,vattn_contig,1024,0.035,1
+        (f) kernel_sweep --kv-dtype fp8 --check
+        decode,vattn_contig,1024,0.026,1
+        (a e4m3) prefill_attention[e4m3]: chunk 512 at kv_len 4096: max_abs_err 0.0 ms 0.1265 plain 2.3 library 0.1226 bound 0.0326 (operations)
+        (c8 e4m3) fa_vattn_2mb: served 8 requests in 65 steps: wall 2.807 s
+        """)
+    assert ab_trees.parse(log) == {
+        "(f) sweep bs 16 C vattn_contig ctx 1024 ms": 0.035,
+        "(f) sweep kv fp8 C vattn_contig ctx 1024 ms": 0.026,
+    }
+
+
 def _fake_tree(root, name, wall):
     tree = root / name
     tree.mkdir()

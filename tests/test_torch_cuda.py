@@ -20,12 +20,23 @@ versions' full softmax, so float32 is held to 1e-4 and bfloat16 outputs
 (``microbenchmarks/prefill_edges.py``) are held with
 ``timing.check_attention``: 2e-2 and each output row within 2^-6 of its
 largest output.
+
+1-byte arenas (e4m3, int8 in steps of 0.04): kernel A's quantization
+equals its plain version's byte for byte (flush cutoff, saturation past
+448, int8 half steps); every body widens every e4m3 pattern and int8 value
+exactly (zero queries give one key of weight 1, so each output row is its
+V row widened); C (every group, 16- and 256-row entries), B, E, G, H and F
+on 1-byte arenas are held against their plain versions as above, with
+G = B, H = E and F = B then C bit for bit; D moves 1-byte rows.  An int8
+arena's scores take sm_scale * 0.04, as the backends fold its step.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vattention_tpu_torch.microbenchmarks.decode_edges import (
+    check_decode_edges)
 from vattention_tpu_torch.microbenchmarks.prefill_edges import (
     check_prefill_edges)
 from vattention_tpu_torch.ops.arena_copy import (arena_relocate,
@@ -44,7 +55,8 @@ from vattention_tpu_torch.ops.paged_attention import (
     paged_prefill_attention_single_plain)
 from vattention_tpu_torch.ops.pod_fused import (pod_attention,
                                                 pod_attention_plain)
-from vattention_tpu_torch.ops.utils import tile_rows_from_segments
+from vattention_tpu_torch.ops.utils import (quantize_kv,
+                                            tile_rows_from_segments)
 
 pytestmark = pytest.mark.cuda
 
@@ -436,3 +448,274 @@ def test_prefill_body_edge_cases(dev, hq):
         rng.standard_normal((1, 2, HKV, 8192, D)).astype(np.float32)
     ).to(device=dev, dtype=torch.bfloat16)
     check_prefill_edges(cache, hq, 0)
+
+
+# ---------------------------------------------------------------------- #
+# 1-byte arenas
+# ---------------------------------------------------------------------- #
+QUANT = [torch.float8_e4m3fn, torch.int8]
+STEP = 0.04
+
+
+def _quant(cache, arena):
+    """A float arena (any device) as kernel A would write it."""
+    return quantize_kv(cache.float(), arena, STEP)
+
+
+def _sm(arena):
+    return D ** -0.5 * _step(arena)
+
+
+def _step(arena):
+    """An int8 arena's step (its scores and outputs count in it), else 1."""
+    return STEP if arena == torch.int8 else 1.0
+
+
+def _append_values(rng, T, src):
+    x = (rng.standard_normal((T, HKV, D)) * 3).astype(np.float32)
+    cut = 15.0 * 2.0 ** -10
+    special = np.float32([cut, np.nextafter(np.float32(cut), 0), 448, 447,
+                          464, 500, 1000, 0.5 * STEP, 1.5 * STEP,
+                          126.5 * STEP, 200 * STEP, 2.0 ** -9])
+    special = np.concatenate([special, -special])
+    x.reshape(-1)[rng.permutation(x.size)[:special.size]] = special
+    return torch.from_numpy(x).to(src)
+
+
+@pytest.mark.parametrize("arena", QUANT)
+@pytest.mark.parametrize("src", [torch.float32, torch.bfloat16])
+def test_kv_append_quantizes_as_plain(dev, src, arena):
+    rng = np.random.default_rng(10)
+    cache = _quant(_cache(rng, torch.float32, dev), arena)
+    T = 40
+    k, v = _append_values(rng, T, src), _append_values(rng, T, src)
+    rows = rng.permutation(R)[:T].astype(np.int32)
+    rows[::7] = -1
+    rows = torch.from_numpy(rows)
+    scale = STEP if arena == torch.int8 else None
+    expect = cache.cpu()
+    kv_append_plain(expect, k, v, rows, 1, scale)
+    kv_append(cache, k.to(dev), v.to(dev), rows.to(dev), 1, kv_scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(cache.cpu().view(torch.uint8),
+                       expect.view(torch.uint8))
+
+
+@pytest.mark.parametrize("arena", QUANT)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_body_widens_every_pattern_exactly(dev, dtype, arena):
+    """Row 0's V holds every finite e4m3 pattern (or every int8 value);
+    zero queries at kv_len 1 give that key weight 1, so every output row
+    of C, B, E, G, H and F is V's row widened, exactly."""
+    if arena == torch.float8_e4m3fn:
+        pats = [b for b in range(256) if b & 0x7F != 0x7F] + [0, 0]
+        vals = torch.tensor(pats, dtype=torch.uint8).view(arena)
+    else:
+        vals = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    cache = torch.zeros((1, 2, HKV, R, D), dtype=arena)
+    cache[0, 1, :, 0] = vals.view(HKV, D)
+    expect = cache[0, 1, :, 0].to(dtype)                     # [HKV, D]
+    expect = expect.repeat_interleave(HQ // HKV, 0)          # [HQ, D]
+    cache = cache.to(dev)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    sm = _sm(arena)
+    qp = torch.zeros((128, HQ, D), dtype=dtype, device=dev)
+    qd = torch.zeros((2, HQ, D), dtype=dtype, device=dev)
+    qinfo, qt_run = i32([[0, 1]]), i32([[0, 0]])
+    table, rows = i32([[0]]), i32([[0], [0]])
+    outs = {
+        "C": decode_attention(qd, cache, rows, i32([1, 1]), 0, sub=SUB,
+                              sm_scale=sm),
+        "B": prefill_attention(qp, cache, qt_run, qinfo, table, 0, sub=SUB,
+                               pad_tile=128, sm_scale=sm),
+        "E": paged_prefill_attention(qp, cache, qt_run, qinfo, table, 0,
+                                     block_size=16, pad_tile=128,
+                                     sm_scale=sm),
+        "G": segment_prefill_attention(qp, cache, i32([0]), i32([0, 1]),
+                                       i32([0, 1]), 0, sm_scale=sm),
+        "H": paged_prefill_attention_single(qp, cache, i32([0]),
+                                            i32([0, 1]), 0, block_size=16,
+                                            sm_scale=sm)}
+    outs["F prefill"], outs["F decode"] = pod_attention(
+        qp, qd, cache, qt_run, qinfo, table, rows, i32([1, 1]), 0, sub=SUB,
+        pad_tile=128, sm_scale=sm)
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        out = out.cpu()
+        for row in range(out.shape[0]):
+            assert torch.equal(out[row], expect), (name, row)
+
+
+@pytest.mark.parametrize("arena", QUANT)
+@pytest.mark.parametrize("sub", [16, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_decode_attention_matches_plain(dev, dtype, group, sub,
+                                                  arena):
+    q, cache, tile_rows, seqlens = _decode_case("edges", dtype, group, sub,
+                                                dev)
+    cache = _quant(cache, arena)
+    kw = dict(sub=sub, sm_scale=_sm(arena))
+    expect = decode_attention_plain(q, cache.cpu(), tile_rows, seqlens, 0,
+                                    **kw)
+    got = decode_attention(q.to(dev), cache, tile_rows.to(dev),
+                           seqlens.to(dev), 0, **kw)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    s = _step(arena)
+    for b, n in enumerate(seqlens.tolist()):
+        if n == 0:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+        elif dtype == torch.float32:
+            torch.testing.assert_close(got[b] * s, expect[b] * s, atol=1e-4,
+                                       rtol=1e-4)
+        else:
+            check_attention(f"C slot {b} at depth {n}", got[b:b + 1],
+                            expect[b:b + 1], scale=s)
+
+
+def _close(what, got, expect, dtype, arena):
+    """Outputs compared after the backend's multiply by an int8 step."""
+    s = _step(arena)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu() * s, expect * s, atol=1e-4,
+                                   rtol=1e-4)
+    else:
+        check_attention(what, got.cpu(), expect, scale=s)
+
+
+@pytest.mark.parametrize("arena", QUANT)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_prefill_kernels_match_plain(dev, dtype, arena):
+    """B over two runs (then the empty run), E over 16-token blocks, G over
+    unaligned extents (= B on the same rows) and H (= E on one run), each
+    against its plain version on a 1-byte arena."""
+    rng = np.random.default_rng(11)
+    cache = _quant(_cache(rng, torch.float32, dev), arena)
+    cpu = cache.cpu()
+    sm = _sm(arena)
+    pad = 128
+    extents = [[(256, 256), (1024, 512)], [(2048, 256)], []]
+    qinfo = torch.tensor([[300, 500], [0, 60], [0, 0]], dtype=torch.int32)
+    qt_run = torch.tensor([[0, 0], [0, 1], [1, 0], [2, 0]],
+                          dtype=torch.int32)
+    tile_rows = torch.from_numpy(_tables(extents, R // SUB))
+    q = torch.from_numpy(
+        rng.standard_normal((4 * pad, HQ, D)).astype(np.float32)).to(dtype)
+    b_args = (q, cpu, qt_run, qinfo, tile_rows, 0)
+    kw = dict(sub=SUB, pad_tile=pad, sm_scale=sm)
+    expect = prefill_attention_plain(*b_args, **kw)
+    got = prefill_attention(*(x.to(dev) for x in b_args[:-1]), 0, **kw)
+    assert not got[3 * pad:].float().any()
+    for lo, hi in ((0, 200), (2 * pad, 2 * pad + 60)):
+        _close("B", got[lo:hi], expect[lo:hi], dtype, arena)
+
+    bs = 16
+    n = -(-500 // bs)
+    tables = torch.full((3, n + 2), 2 ** 30, dtype=torch.int32)
+    perm = torch.from_numpy(rng.permutation(R // bs).astype(np.int32))
+    tables[0, :n], tables[1, :4] = perm[:n], perm[n:n + 4]
+    ekw = dict(block_size=bs, pad_tile=pad, sm_scale=sm)
+    e_args = (q, cpu, qt_run, qinfo, tables, 0)
+    expect = paged_prefill_attention_plain(*e_args, **ekw)
+    got = paged_prefill_attention(*(x.to(dev) for x in e_args[:-1]), 0,
+                                  **ekw)
+    for lo, hi in ((0, 200), (2 * pad, 2 * pad + 60)):
+        _close("E", got[lo:hi], expect[lo:hi], dtype, arena)
+
+    # G over unaligned extents and B at one row per entry; H against E
+    seg_row = np.zeros(8, np.int32)
+    seg_cum = np.zeros(9, np.int32)
+    for j, (row, k) in enumerate([(2051, 300), (517, 77), (3601, 123)]):
+        seg_row[j], seg_cum[j + 1] = row, seg_cum[j] + k
+    seg_cum[4:] = seg_cum[3]
+    info = torch.tensor([300, 500], dtype=torch.int32)
+    q2 = q[:256]
+    sr, sc = torch.from_numpy(seg_row), torch.from_numpy(seg_cum)
+    expect = segment_prefill_attention_plain(q2, cpu, sr, sc, info, 0,
+                                             sm_scale=sm)
+    got = segment_prefill_attention(q2.to(dev), cache, sr.to(dev),
+                                    sc.to(dev), info.to(dev), 0, sm_scale=sm)
+    rows = torch.from_numpy(tile_rows_from_segments(
+        seg_row[None], seg_cum[None], 1, 500)).to(dev)
+    qt2 = torch.tensor([[0, 0], [0, 1]], dtype=torch.int32, device=dev)
+    got_b = prefill_attention(q2.to(dev), cache, qt2, info.to(dev)[None],
+                              rows, 0, sub=1, pad_tile=pad, sm_scale=sm)
+    _close("G", got, expect, dtype, arena)
+    table = tables[0].to(dev)
+    got_h = paged_prefill_attention_single(q2.to(dev), cache, table,
+                                           info.to(dev), 0, block_size=bs,
+                                           sm_scale=sm)
+    got_e = paged_prefill_attention(q2.to(dev), cache, qt2,
+                                    info.to(dev)[None], table[None], 0,
+                                    **ekw)
+    expect = paged_prefill_attention_single_plain(q2, cpu, tables[0], info,
+                                                  0, block_size=bs,
+                                                  sm_scale=sm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_b) and torch.equal(got_h, got_e)
+    _close("H", got_h, expect, dtype, arena)
+
+
+@pytest.mark.parametrize("arena", QUANT)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_pod_attention_equals_b_then_c(dev, dtype, arena):
+    rng = np.random.default_rng(12)
+    cache = _quant(_cache(rng, torch.float32, dev), arena)
+    pad = 128
+    sm = _sm(arena)
+    qinfo = torch.tensor([[300, 500], [0, 60], [0, 0]], dtype=torch.int32)
+    qt_run = torch.tensor([[0, 0], [0, 1], [1, 0], [2, 0]],
+                          dtype=torch.int32)
+    pre_rows = torch.from_numpy(_tables(
+        [[(256, 256), (1024, 512)], [(2048, 256)], []], R // SUB))
+    seqlens = torch.tensor([500, 1000, 0, 3], dtype=torch.int32)
+    dec_rows = torch.from_numpy(_tables(
+        [[(0, 512)], [(512, 256), (1280, 768)], [(2048, 256)],
+         [(3072, 512)]], R // SUB))
+    qp = torch.from_numpy(
+        rng.standard_normal((4 * pad, HQ, D)).astype(np.float32)).to(dtype)
+    qd = torch.from_numpy(
+        rng.standard_normal((4, HQ, D)).astype(np.float32)).to(dtype)
+    kw = dict(sub=SUB, pad_tile=pad, sm_scale=sm)
+    exp_p, exp_d = pod_attention_plain(qp, qd, cache.cpu(), qt_run, qinfo,
+                                       pre_rows, dec_rows, seqlens, 1, **kw)
+    args = (qp.to(dev), qd.to(dev), cache, qt_run.to(dev), qinfo.to(dev),
+            pre_rows.to(dev), dec_rows.to(dev), seqlens.to(dev), 1)
+    got_p, got_d = pod_attention(*args, **kw)
+    b = prefill_attention(args[0], cache, args[3], args[4], args[5], 1, **kw)
+    c = decode_attention(args[1], cache, args[6], args[7], 1, sub=SUB,
+                         sm_scale=sm)
+    torch.cuda.synchronize()
+    assert torch.equal(got_p, b) and torch.equal(got_d, c)
+    for lo, hi in ((0, 200), (2 * pad, 2 * pad + 60)):
+        _close("F prefill", got_p[lo:hi], exp_p[lo:hi], dtype, arena)
+    _close("F decode", got_d, exp_d, dtype, arena)
+
+
+@pytest.mark.parametrize("arena", QUANT)
+def test_arena_relocate_moves_one_byte_rows(dev, arena):
+    rng = np.random.default_rng(13)
+    cache = _quant(_cache(rng, torch.float32, dev), arena)
+    src = torch.tensor([3, 1, 7, 0], dtype=torch.int32)
+    dst = torch.tensor([5, 3, 1, 7], dtype=torch.int32)
+    expect = cache.cpu()
+    arena_relocate_plain(expect, src, dst, 4, 256)
+    arena_relocate(cache, src.to(dev), dst.to(dev), 4, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(cache.cpu().view(torch.uint8),
+                       expect.view(torch.uint8))
+
+
+@pytest.mark.parametrize("arena", QUANT)
+def test_quantized_body_edge_cases(dev, arena):
+    """The edge cases of the bf16 prefill and decode bodies on a 1-byte
+    arena (G = 8)."""
+    rng = np.random.default_rng(14)
+    cache = _quant(torch.from_numpy(
+        rng.standard_normal((1, 2, HKV, 32768, D)).astype(np.float32)
+    ).to(dev), arena)
+    check_prefill_edges(cache, 16, 0, sm_scale=_sm(arena),
+                        out_scale=_step(arena))
+    check_decode_edges(cache, 0, sm_scale=_sm(arena), out_scale=_step(arena))

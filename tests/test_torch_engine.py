@@ -119,8 +119,6 @@ def test_engine_defaults_to_cuda():
 
 @pytest.mark.parametrize("kwargs", [
     dict(enable_async_execution=True),
-    dict(kv_quant="fp8"),
-    dict(kv_quant="int8"),
     dict(use_native_allocator=True),
     dict(model="falcon-7b-32k-l8"),
     dict(tensor_parallel_size=2),

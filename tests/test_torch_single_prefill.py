@@ -185,8 +185,8 @@ def test_paged_single_equals_e_on_one_run(bs):
 
 @pytest.mark.parametrize("kernel", ["G", "H"])
 def test_single_prefill_options_of_later_items_raise(kernel):
-    """Sliding windows come with ROADMAP Queue 1 item 12, fp8 KV with
-    item 10."""
+    """Sliding windows come with ROADMAP Queue 1 item 12 (1-byte arenas
+    are served: tests/test_torch_quant.py)."""
     _, _, (q, cache) = inputs(5, "float32", Tq=8)
     seg_row, seg_cum = seg_tables([(0, 64)])
 
@@ -201,8 +201,6 @@ def test_single_prefill_options_of_later_items_raise(kernel):
 
     with pytest.raises(NotImplementedError, match="item 12"):
         call(cache, window=32)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        call(cache.to(torch.float8_e4m3fn))
 
 
 # ---------------------------------------------------------------------- #

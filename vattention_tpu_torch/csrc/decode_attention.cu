@@ -6,7 +6,9 @@
 // heads) attends arena rows of positions [0, seqlens[b]); position p lives
 // at arena row tile_rows[b, p / sub] + p % sub (the host-resolved extent
 // table, ops/utils.tile_rows_from_segments).  Slots with seqlens[b] == 0
-// write zeros.  Storage float32 or bfloat16, arithmetic float32.
+// write zeros.  Queries and outputs float32 or bfloat16; the arena that
+// type, or 1-byte e4m3 or int8 widened exactly in the kernel (the TPU
+// kernel's upcast_kv); arithmetic float32.
 //
 // Bound: bytes.  The kernel reads each live K and V row once (2*Hkv*D
 // elements per position) and the queries once; its arithmetic is ~2G
@@ -24,38 +26,38 @@ using namespace vattn;
 
 namespace {
 
-template <typename T, int G>
+template <typename T, typename KV, int G>
 __global__ void __launch_bounds__(decode::kThreads) decode_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ cache, T* __restrict__ out,
+    const T* __restrict__ q, const KV* __restrict__ cache, T* __restrict__ out,
     float* __restrict__ part, int* __restrict__ tickets,
     const int* __restrict__ tile_rows, const int* __restrict__ seqlens,
     int batch, int hkv, int n_sub, int sub, long long rows_total, int layer,
     float sm_scale) {
   extern __shared__ __align__(128) unsigned char dec_smem[];
-  decode::decode_blocks<T, G>(q, cache, out, part, tickets, tile_rows,
+  decode::decode_blocks<T, KV, G>(q, cache, out, part, tickets, tile_rows,
                               seqlens, batch, hkv, n_sub, sub, rows_total,
                               layer, sm_scale, blockIdx.x, gridDim.x,
                               dec_smem);
 }
 
-template <typename T, int G>
+template <typename T, typename KV, int G>
 int launch(const void* q, const void* cache, void* out, float* part,
            int* tickets, const int* tile_rows, const int* seqlens, int batch,
            int hkv, int n_sub, int sub, long long rows_total, int layer,
            float sm_scale, int nblocks, cudaStream_t stream) {
-  constexpr int smem = decode::kSmemBytes<T>;
+  constexpr int smem = decode::kSmemBytes<T, KV>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      decode_attention_kernel<T, G>,
+      decode_attention_kernel<T, KV, G>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  decode_attention_kernel<T, G><<<nblocks, decode::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(cache),
+  decode_attention_kernel<T, KV, G><<<nblocks, decode::kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), part, tickets, tile_rows, seqlens, batch, hkv,
       n_sub, sub, rows_total, layer, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename KV>
 int dispatch_group(int group, const void* q, const void* cache, void* out,
                    float* part, int* tickets, const int* tile_rows,
                    const int* seqlens, int batch, int hkv, int n_sub, int sub,
@@ -63,13 +65,13 @@ int dispatch_group(int group, const void* q, const void* cache, void* out,
                    int nblocks, cudaStream_t s) {
   switch (group) {
     case 1:
-      return launch<T, 1>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
+      return launch<T, KV, 1>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
     case 2:
-      return launch<T, 2>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
+      return launch<T, KV, 2>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
     case 4:
-      return launch<T, 4>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
+      return launch<T, KV, 4>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
     case 8:
-      return launch<T, 8>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
+      return launch<T, KV, 8>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -77,7 +79,8 @@ int dispatch_group(int group, const void* q, const void* cache, void* out,
 
 }  // namespace
 
-// q, out: [batch, Hkv*group, 128]; cache: [L, 2, Hkv, rows_total, 128];
+// q, out: [batch, Hkv*group, 128] of dtype; cache: [L, 2, Hkv, rows_total,
+// 128] of kv_dtype (dtype, e4m3 or int8);
 // tile_rows: [batch, n_sub] int32 (each slot's table as deep as its
 // seqlen); seqlens: [batch] int32; part: float32 scratch, 16-byte
 // aligned, of (nblocks + batch * Hkv) * decode::kPartFloats<group>
@@ -91,23 +94,36 @@ extern "C" int vattn_decode_attention(const void* q, const void* cache,
                                       int group, int n_sub, int sub,
                                       long long rows_total, int layer,
                                       float sm_scale, int nblocks, int dtype,
-                                      void* stream) {
+                                      int kv_dtype, void* stream) {
   if (batch <= 0) return 0;
   if (batch > decode::kMaxSlots || nblocks <= 0 ||
       nblocks > decode::kMaxGrid || sub <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
-  if (dtype == kFloat32)
-    return dispatch_group<float>(group, q, cache, out, p, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
-  if (dtype == kBFloat16)
-    return dispatch_group<__nv_bfloat16>(group, q, cache, out, p, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
+#define VATTN_DECODE(T, KV)                                                   \
+  dispatch_group<T, KV>(group, q, cache, out, p, tickets, tile_rows, seqlens, \
+                        batch, hkv, n_sub, sub, rows_total, layer, sm_scale,  \
+                        nblocks, s)
+  if (dtype != kFloat32 && dtype != kBFloat16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool f32 = dtype == kFloat32;
+  if (kv_dtype == dtype)
+    return f32 ? VATTN_DECODE(float, float) : VATTN_DECODE(__nv_bfloat16, __nv_bfloat16);
+  if (kv_dtype == kFloat8E4M3)
+    return f32 ? VATTN_DECODE(float, fp8) : VATTN_DECODE(__nv_bfloat16, fp8);
+  if (kv_dtype == kInt8)
+    return f32 ? VATTN_DECODE(float, int8_t) : VATTN_DECODE(__nv_bfloat16, int8_t);
+#undef VATTN_DECODE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dynamic shared memory per block of the body for `dtype` (chip_smoke's
-// ptxas report)
-extern "C" int vattn_decode_smem_bytes(int dtype) {
-  return dtype == kBFloat16 ? decode::kSmemBytes<__nv_bfloat16>
-                            : decode::kSmemBytes<float>;
+// dynamic shared memory per block of the body for `dtype` over `kv_dtype`
+// (chip_smoke's ptxas report)
+extern "C" int vattn_decode_smem_bytes(int dtype, int kv_dtype) {
+  const bool narrow = kv_dtype == kFloat8E4M3 || kv_dtype == kInt8;
+  if (dtype == kBFloat16)
+    return narrow ? decode::kSmemBytes<__nv_bfloat16, fp8>
+                  : decode::kSmemBytes<__nv_bfloat16, __nv_bfloat16>;
+  return narrow ? decode::kSmemBytes<float, fp8> : decode::kSmemBytes<float, float>;
 }

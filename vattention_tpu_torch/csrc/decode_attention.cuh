@@ -34,8 +34,8 @@
 // and no mbarrier or block barrier runs per tile.  Chosen over one
 // cp.async.bulk per contiguous span: a bulk copy cannot swizzle, and the
 // unswizzled 256-byte rows put ldmatrix's eight rows on the same banks; the
-// widening step of an fp8 ring (ROADMAP Queue 2 item 8) would sit between
-// the ring and the ldmatrix reads.
+// widening step of a 1-byte ring sits between the ring and the ldmatrix
+// reads (below).
 //   bfloat16: the G heads of the group are one tensor-core tile.  Per tile a
 //     warp computes S^T = K Q^T (positions on M, heads on N = 8, G < 8 padded
 //     with zero queries) with 8 mma.sync m16n8k16 whose A is K through
@@ -53,6 +53,14 @@
 //   float32: the same plan, ring (rows padded to 132 floats) and
 //     split arithmetic on the CUDA cores in exact float32 (expf), as TF32
 //     would change the f32 path's greedy tokens.
+// 1-byte K/V storage (e4m3 or int8, `KV`): the ring holds the arena's
+// 128-byte rows (cp.async cannot convert; 8 lanes read one row, so no
+// swizzle is needed), and once a stage has landed the warp widens it
+// exactly into one more stage laid out as the compute type's ring (the
+// swizzled 256-byte bf16 rows, or the padded f32 rows), then __syncwarp:
+// ldmatrix, movmatrix and the mma.sync chain read that stage unchanged.  A
+// ring of half the bytes plus one wide stage takes less shared memory than
+// the bf16 ring.
 // The 4 warps' states merge through shared memory into the range's
 // unnormalised (max, sum, output).  A slot-head with one split writes O / l
 // at once; otherwise each split writes its partial to `part` at its range
@@ -89,8 +97,17 @@ template <typename T>
 constexpr int kRowBytes = kBf16<T> ? kD * 2 : (kD + 4) * 4;
 template <typename T>
 constexpr int kStageBytes = 2 * kWarpPos * kRowBytes<T>;  // K rows, then V rows
-template <typename T>
-constexpr int kWarpRing = kStages * kStageBytes<T>;
+// the ring of storage KV (1-byte rows of 128 bytes, else the compute
+// layout's) and, for 1-byte storage, one stage widened to the compute layout
+template <typename KV>
+constexpr bool kNarrow = sizeof(KV) == 1;
+template <typename T, typename KV>
+constexpr int kRingRowBytes = kNarrow<KV> ? kD : kRowBytes<T>;
+template <typename T, typename KV>
+constexpr int kRingStageBytes = 2 * kWarpPos * kRingRowBytes<T, KV>;
+template <typename T, typename KV>
+constexpr int kWarpRing =
+    kStages * kRingStageBytes<T, KV> + (kNarrow<KV> ? kStageBytes<T> : 0);
 
 // one range's partial state: o[G][kD], then m[G], then l[G], padded to
 // 16 bytes
@@ -98,23 +115,18 @@ template <int G>
 constexpr int kPartFloats = (G * (kD + 2) + 3) / 4 * 4;
 // a warp's state after its range, written over its own ring
 constexpr int kStateFloats = kMaxGroup * (kD + 2);
-static_assert(kStateFloats * 4 <= kWarpRing<float> &&
-                  kStateFloats * 4 <= kWarpRing<__nv_bfloat16>,
-              "a warp's state fits in its ring");
-static_assert((2 * kMaxGrid + 1) * kMaxGroup * 4 <= kWarps * kWarpRing<__nv_bfloat16>,
-              "a merge's weights fit in the rings");
 
 // shared memory: the rings, the plan (cum[kMaxSlots + 1], red[kWarps],
 // a flag), and in f32 the queries and each warp's P and alpha
 constexpr int kPlanBytes = (kMaxSlots + 1 + kWarps + 3) * 4;
-template <typename T>
-constexpr int kPlanOffset = kWarps * kWarpRing<T>;
-template <typename T>
-constexpr int kQOffset = kPlanOffset<T> + kPlanBytes;
+template <typename T, typename KV>
+constexpr int kPlanOffset = kWarps * kWarpRing<T, KV>;
+template <typename T, typename KV>
+constexpr int kQOffset = kPlanOffset<T, KV> + kPlanBytes;
 constexpr int kPWarpFloats = kWarpPos * kMaxGroup + kMaxGroup;
-template <typename T>
+template <typename T, typename KV>
 constexpr int kSmemBytes =
-    kQOffset<T> + (kBf16<T> ? 0 : (kMaxGroup * kD + kWarps * kPWarpFloats) * 4);
+    kQOffset<T, KV> + (kBf16<T> ? 0 : (kMaxGroup * kD + kWarps * kPWarpFloats) * 4);
 
 // ---- small helpers ------------------------------------------------------ //
 __device__ __forceinline__ void sync() {  // the body's 4 warps only
@@ -289,9 +301,9 @@ __device__ __forceinline__ Range find_range(int r, const int* cum, int batch,
 // ---- one range: each warp's online softmax over its positions ---------- //
 // Writes the warp's state (o[kMaxGroup][kD], m[kMaxGroup], l[kMaxGroup], o
 // unnormalised) over the warp's own ring at `ring_ptr`.
-template <typename T, int G>
+template <typename T, typename KV, int G>
 __device__ __forceinline__ void warp_range(
-    const T* __restrict__ q, const T* __restrict__ cache,
+    const T* __restrict__ q, const KV* __restrict__ cache,
     const int* __restrict__ tile_rows, int hkv, int n_sub, int sub,
     long long rows_total, int layer, float sm_scale, const Range& rg, int n,
     unsigned char* ring_ptr, float* qs, float* pw) {
@@ -301,8 +313,8 @@ __device__ __forceinline__ void warp_range(
   const int hq = hkv * G;
   const uint32_t ring = sm90::smem_addr(ring_ptr);
   const long long head_stride = rows_total * kD;
-  const T* kbase = cache + (static_cast<long long>(layer * 2) * hkv + rg.h) * head_stride;
-  const T* vbase = cache + (static_cast<long long>(layer * 2 + 1) * hkv + rg.h) * head_stride;
+  const KV* kbase = cache + (static_cast<long long>(layer * 2) * hkv + rg.h) * head_stride;
+  const KV* vbase = cache + (static_cast<long long>(layer * 2 + 1) * hkv + rg.h) * head_stride;
   const int* trow = tile_rows + static_cast<long long>(rg.b) * n_sub;
   const int ntiles = rg.hi - rg.lo;
   const int pos0 = rg.lo * kTile + kWarpPos * warp;  // the warp's first position
@@ -317,9 +329,20 @@ __device__ __forceinline__ void warp_range(
   // tile j's 16 K and V rows into stage j % S (an empty group past the range)
   auto issue = [&](int j, long long mine) {
     if (j < ntiles) {
-      const uint32_t st = ring + (j % S) * kStageBytes<T>;
-      constexpr uint32_t vofs = kWarpPos * kRowBytes<T>;
-      if constexpr (kBf16<T>) {
+      const uint32_t st = ring + (j % S) * kRingStageBytes<T, KV>;
+      constexpr uint32_t vofs = kWarpPos * kRingRowBytes<T, KV>;
+      if constexpr (kNarrow<KV>) {
+        const int c = lane & 7;  // each 8 lanes one 128-byte row
+#pragma unroll
+        for (int i = 0; i < kWarpPos / 4; ++i) {
+          const int k = 4 * i + (lane >> 3);
+          const long long row = __shfl_sync(0xffffffffu, mine, k);
+          const long long src = (row < 0 ? 0 : row) * kD + c * 16;
+          const uint32_t off = k * kD + c * 16;
+          sm90::cp_async16(st + off, kbase + src, row >= 0);
+          sm90::cp_async16(st + vofs + off, vbase + src, row >= 0);
+        }
+      } else if constexpr (kBf16<T>) {
         const int c = lane & 15;  // each half-warp one 256-byte row
 #pragma unroll
         for (int i = 0; i < kWarpPos / 2; ++i) {
@@ -341,6 +364,48 @@ __device__ __forceinline__ void warp_range(
       }
     }
     cp_async_commit();
+  };
+
+  // The compute-layout stage that tile j is read from, after its copies
+  // have landed: the ring's stage, or for 1-byte storage the stage after
+  // the ring, into which the warp widens tile j's rows (one uint4 of 16
+  // values per lane and row) before a __syncwarp.
+  unsigned char* wide = ring_ptr + S * kRingStageBytes<T, KV>;
+  auto stage_of = [&](int j) -> unsigned char* {
+    if constexpr (kNarrow<KV>) {
+      const unsigned char* st = ring_ptr + (j % S) * kRingStageBytes<T, KV>;
+      const int c = lane & 7;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        unsigned char* dst = wide + kv * kWarpPos * kRowBytes<T>;
+#pragma unroll
+        for (int i = 0; i < kWarpPos / 4; ++i) {
+          const int k = 4 * i + (lane >> 3);
+          const uint4 x = *reinterpret_cast<const uint4*>(st + (kv * kWarpPos + k) * kD + c * 16);
+          if constexpr (kBf16<T>) {
+            // bf16 chunks 2c and 2c + 1 of row k, the odd one first on
+            // lanes c >= 4: a quarter-warp's stores fall on 8 distinct
+            // bank groups
+            uint4 lo, hi;
+            widen16_bf16<KV>(x, lo, hi);
+            const bool odd = (c >> 2) & 1;
+            const int first = 2 * c + odd;
+            *reinterpret_cast<uint4*>(dst + swz(k, first)) = odd ? hi : lo;
+            *reinterpret_cast<uint4*>(dst + swz(k, 4 * c + 1 - first)) = odd ? lo : hi;
+          } else {
+            float4* d = reinterpret_cast<float4*>(dst + k * kRowBytes<T> + c * 64);
+            d[0] = widen4_f32(x.x, KV{});
+            d[1] = widen4_f32(x.y, KV{});
+            d[2] = widen4_f32(x.z, KV{});
+            d[3] = widen4_f32(x.w, KV{});
+          }
+        }
+      }
+      __syncwarp();
+      return wide;
+    } else {
+      return ring_ptr + (j % S) * kStageBytes<T>;
+    }
   };
 
   float* state = reinterpret_cast<float*>(ring_ptr);
@@ -383,7 +448,7 @@ __device__ __forceinline__ void warp_range(
       }
       cp_async_wait<S - 1>();
       __syncwarp();
-      const uint32_t ks = ring + (j % S) * kStageBytes<T>;
+      const uint32_t ks = sm90::smem_addr(stage_of(j));
       const uint32_t vs = ks + kWarpPos * kRowBytes<T>;
       // S^T = K Q^T over 8 steps of 16 along D
       float sacc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -433,7 +498,8 @@ __device__ __forceinline__ void warp_range(
           mma_16816(o[mt], a, pb0, pb1);
         }
       }
-      __syncwarp();  // stage j is read: the next issue may refill it
+      __syncwarp();  // stage j (and the widened stage) is read: the next
+                     // issue may refill it
     }
     // the warp's state over its ring (every copy has landed and been read)
 #pragma unroll
@@ -493,8 +559,7 @@ __device__ __forceinline__ void warp_range(
       }
       cp_async_wait<S - 1>();
       __syncwarp();
-      const float* kst = reinterpret_cast<const float*>(
-          ring_ptr + (j % S) * kStageBytes<T>);
+      const float* kst = reinterpret_cast<const float*>(stage_of(j));
       const float* vst = kst + kWarpPos * (kRowBytes<T> / 4);
       const bool valid = pos0 + j * kTile + p < n;
 #pragma unroll
@@ -633,27 +698,31 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ src,
 
 // ---- the body: plan, idle zeros, ranges, merges ------------------------ //
 // Run by the kThreads threads 0..kThreads-1 of block `blk` of `nblocks`
-// over `smem` (kSmemBytes<T>, 128-byte aligned), nblocks <= kMaxGrid.
+// over `smem` (kSmemBytes<T, KV>, 128-byte aligned), nblocks <= kMaxGrid.
 // `part` (16-byte aligned) holds kPartFloats<G> floats for each of
 // nblocks + batch*hkv ranges; `tickets` batch*hkv counters, 0 before the
 // launch and 0 after it.
-template <typename T, int G>
+template <typename T, typename KV, int G>
 __device__ __forceinline__ void decode_blocks(
-    const T* __restrict__ q, const T* __restrict__ cache, T* __restrict__ out,
+    const T* __restrict__ q, const KV* __restrict__ cache, T* __restrict__ out,
     float* __restrict__ part, int* __restrict__ tickets,
     const int* __restrict__ tile_rows, const int* __restrict__ seqlens,
     int batch, int hkv, int n_sub, int sub, long long rows_total, int layer,
     float sm_scale, int blk, int nblocks, unsigned char* smem) {
   static_assert(G >= 1 && G <= kMaxGroup, "group");
+  static_assert(kStateFloats * 4 <= kWarpRing<T, KV>,
+                "a warp's state fits in its ring");
+  static_assert((2 * kMaxGrid + 1) * kMaxGroup * 4 <= kWarps * kWarpRing<T, KV>,
+                "a merge's weights fit in the rings");
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int hq = hkv * G;
-  int* cum = reinterpret_cast<int*>(smem + kPlanOffset<T>);
+  int* cum = reinterpret_cast<int*>(smem + kPlanOffset<T, KV>);
   int* red = cum + kMaxSlots + 1;
   int* flag = red + kWarps;
-  float* qs = reinterpret_cast<float*>(smem + kQOffset<T>);   // f32 only
+  float* qs = reinterpret_cast<float*>(smem + kQOffset<T, KV>);  // f32 only
   float* pw = qs + kMaxGroup * kD + warp * kPWarpFloats;      // f32 only
-  unsigned char* ring = smem + warp * kWarpRing<T>;
+  unsigned char* ring = smem + warp * kWarpRing<T, KV>;
 
   // idle slots: zeros, spread over the blocks
   for (int bh = blk; bh < batch * hkv; bh += nblocks) {
@@ -672,7 +741,7 @@ __device__ __forceinline__ void decode_blocks(
       for (int idx = tid; idx < G * kD; idx += kThreads) qs[idx] = qg[idx];
       sync();
     }
-    warp_range<T, G>(q, cache, tile_rows, hkv, n_sub, sub, rows_total, layer,
+    warp_range<T, KV, G>(q, cache, tile_rows, hkv, n_sub, sub, rows_total, layer,
                      sm_scale, rg, n, ring, qs, pw);
     sync();
     // merge the warps' states, in warp order; warps that saw no position
@@ -683,13 +752,13 @@ __device__ __forceinline__ void decode_blocks(
       float mx = -INFINITY;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
-        const float* st = reinterpret_cast<const float*>(smem + w * kWarpRing<T>);
+        const float* st = reinterpret_cast<const float*>(smem + w * kWarpRing<T, KV>);
         mx = fmaxf(mx, st[kMaxGroup * kD + g]);
       }
       float lsum = 0.f, osum = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
-        const float* st = reinterpret_cast<const float*>(smem + w * kWarpRing<T>);
+        const float* st = reinterpret_cast<const float*>(smem + w * kWarpRing<T, KV>);
         const float mw = st[kMaxGroup * kD + g];
         if (mw == -INFINITY) continue;
         const float c = softmax_exp<T>(mw - mx);

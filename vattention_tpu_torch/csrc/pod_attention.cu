@@ -27,12 +27,15 @@
 // weaves the two streams evenly on its one core (build_pod_schedule,
 // pod_fused.py:134-138) so that decode DMAs overlap prefill MXU work.  Here
 // a bf16 block holds a whole SM (the prefill body's 161 KB of shared
-// memory, 168 registers x 384 threads), so the roles never share one, and
-// a decode block woven ahead of a prefill block only delays it.  Blocks are
-// dispatched roughly in index order, so the prefill blocks (about one wave
-// at serving chunks) start at once and the decode blocks fill the SMs the
-// prefill leaves, then the whole card; a per-SM balancer is later work.
-// Both roles carve one dynamic shared buffer.
+// memory, 225 KB over a 1-byte arena, 168 registers x 384 threads), so the
+// roles never share one, and a decode block woven ahead of a prefill block
+// only delays it.  Blocks are dispatched roughly in index order, so the
+// prefill blocks (about one wave at serving chunks) start at once and the
+// decode blocks fill the SMs the prefill leaves, then the whole card; a
+// per-SM balancer is later work.
+// Both roles carve one dynamic shared buffer.  The arena is the compute
+// type's or 1-byte (e4m3 or int8): both bodies widen 1-byte tiles exactly,
+// so F equals B then C bit for bit on each arena type.
 #include <type_traits>
 
 #include "decode_attention.cuh"
@@ -51,24 +54,25 @@ static_assert(decode::kThreads <= prefill::kThreads &&
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, int G>
+template <typename T, typename KV>
 constexpr int smem_bytes() {
-  constexpr int pre = kTensorCores<T> ? prefill::kTcSmemBytes : prefill::kSmemBytes;
-  constexpr int dec = decode::kSmemBytes<T>;
+  constexpr int pre = kTensorCores<T> ? prefill::kTcSmemBytesFor<KV> : prefill::kSmemBytes;
+  constexpr int dec = decode::kSmemBytes<T, KV>;
   return pre > dec ? pre : dec;
 }
 
 // chip_smoke's ptxas report gives F's bf16 shared memory as the prefill body's
-static_assert(smem_bytes<__nv_bfloat16, 8>() == prefill::kTcSmemBytes,
+static_assert(smem_bytes<__nv_bfloat16, __nv_bfloat16>() == prefill::kTcSmemBytes &&
+                  smem_bytes<__nv_bfloat16, fp8>() == prefill::kTcSmemBytesFor<fp8>,
               "bf16 blocks carve the prefill body's buffer");
 
 template <typename T>
 constexpr int kBlockThreads = kTensorCores<T> ? prefill::kTcThreads : prefill::kThreads;
 
-template <typename T, int G>
+template <typename T, typename KV, int G>
 __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
     const T* __restrict__ qp, const T* __restrict__ qd,
-    const T* __restrict__ cache, T* __restrict__ op, T* __restrict__ od,
+    const KV* __restrict__ cache, T* __restrict__ op, T* __restrict__ od,
     float* __restrict__ part, int* __restrict__ tickets,
     const int* __restrict__ qt_run, const int* __restrict__ qinfo,
     const int* __restrict__ pre_rows, int pre_n_sub,
@@ -101,36 +105,36 @@ __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
 
   // decode: block t - n_pre of C's grid
   if (threadIdx.x >= decode::kThreads) return;
-  decode::decode_blocks<T, G>(qd, cache, od, part, tickets, dec_rows, seqlens,
+  decode::decode_blocks<T, KV, G>(qd, cache, od, part, tickets, dec_rows, seqlens,
                               batch, hkv, dec_n_sub, sub, rows_total, layer,
                               sm_scale, static_cast<int>(t - n_pre), n_dec,
                               pod_smem);
 }
 
-template <typename T, int G>
+template <typename T, typename KV, int G>
 int launch(const void* qp, const void* qd, const void* cache, void* op,
            void* od, float* part, int* tickets, const int* qt_run,
            const int* qinfo, const int* pre_rows, int pre_n_sub,
            const int* dec_rows, int dec_n_sub, const int* seqlens, int n_tiles,
            int batch, int hkv, int sub, int pad_tile, long long rows_total,
            int layer, float sm_scale, int n_dec, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<T, G>();
+  constexpr int smem = smem_bytes<T, KV>();
   const cudaError_t attr = cudaFuncSetAttribute(
-      pod_attention_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pod_attention_kernel<T, KV, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long blocks = static_cast<long long>(n_tiles) * hkv + n_dec;
   if (blocks == 0) return 0;
-  pod_attention_kernel<T, G><<<static_cast<unsigned>(blocks), kBlockThreads<T>, smem, stream>>>(
+  pod_attention_kernel<T, KV, G><<<static_cast<unsigned>(blocks), kBlockThreads<T>, smem, stream>>>(
       static_cast<const T*>(qp), static_cast<const T*>(qd),
-      static_cast<const T*>(cache), static_cast<T*>(op), static_cast<T*>(od),
+      static_cast<const KV*>(cache), static_cast<T*>(op), static_cast<T*>(od),
       part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub,
       seqlens, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_tiles, batch,
       n_dec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename KV>
 int dispatch_group(int group, const void* qp, const void* qd,
                    const void* cache, void* op, void* od, float* part,
                    int* tickets, const int* qt_run, const int* qinfo,
@@ -140,13 +144,13 @@ int dispatch_group(int group, const void* qp, const void* qd,
                    int layer, float sm_scale, int n_dec, cudaStream_t s) {
   switch (group) {
     case 1:
-      return launch<T, 1>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
+      return launch<T, KV, 1>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
     case 2:
-      return launch<T, 2>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
+      return launch<T, KV, 2>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
     case 4:
-      return launch<T, 4>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
+      return launch<T, KV, 4>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
     case 8:
-      return launch<T, 8>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
+      return launch<T, KV, 8>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -155,7 +159,8 @@ int dispatch_group(int group, const void* qp, const void* qd,
 }  // namespace
 
 // q_prefill, out_prefill: [num_tokens, hkv*group, 128]; q_decode,
-// out_decode: [batch, hkv*group, 128]; cache: [L, 2, hkv, rows_total, 128];
+// out_decode: [batch, hkv*group, 128], all of dtype; cache: [L, 2, hkv,
+// rows_total, 128] of kv_dtype (dtype, e4m3 or int8);
 // qt_run: [num_tokens / pad_tile, 2]; qinfo: [K, 2]; pre_tile_rows:
 // [K, pre_n_sub]; dec_tile_rows: [batch, dec_n_sub]; seqlens: [batch]
 // (all int32).  n_dec: the decode blocks (kernel C's grid; 0 when batch
@@ -171,7 +176,7 @@ extern "C" int vattn_pod_attention(
     int pre_n_sub, const int* dec_tile_rows, int dec_n_sub,
     const int* seqlens, int num_tokens, int batch, int hkv, int group,
     int sub, int pad_tile, long long rows_total, int layer, float sm_scale,
-    int n_dec, int dtype, void* stream) {
+    int n_dec, int dtype, int kv_dtype, void* stream) {
   const int rows = prefill::block_rows(dtype);
   if (group <= 0 || rows == 0 || rows % group != 0 || pad_tile <= 0 ||
       pad_tile % (rows / group) != 0 || num_tokens < 0 ||
@@ -181,9 +186,19 @@ extern "C" int vattn_pod_attention(
   const int n_tiles = num_tokens / (rows / group);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
-  if (dtype == kFloat32)
-    return dispatch_group<float>(group, q_prefill, q_decode, cache, out_prefill, out_decode, p, tickets, qt_run, qinfo, pre_tile_rows, pre_n_sub, dec_tile_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
-  if (dtype == kBFloat16)
-    return dispatch_group<__nv_bfloat16>(group, q_prefill, q_decode, cache, out_prefill, out_decode, p, tickets, qt_run, qinfo, pre_tile_rows, pre_n_sub, dec_tile_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
+#define VATTN_POD(T, KV)                                                     \
+  dispatch_group<T, KV>(group, q_prefill, q_decode, cache, out_prefill,      \
+                        out_decode, p, tickets, qt_run, qinfo, pre_tile_rows, \
+                        pre_n_sub, dec_tile_rows, dec_n_sub, seqlens, n_tiles, \
+                        batch, hkv, sub, pad_tile, rows_total, layer,        \
+                        sm_scale, n_dec, s)
+  const bool f32 = dtype == kFloat32;
+  if (kv_dtype == dtype)
+    return f32 ? VATTN_POD(float, float) : VATTN_POD(__nv_bfloat16, __nv_bfloat16);
+  if (kv_dtype == kFloat8E4M3)
+    return f32 ? VATTN_POD(float, fp8) : VATTN_POD(__nv_bfloat16, fp8);
+  if (kv_dtype == kInt8)
+    return f32 ? VATTN_POD(float, int8_t) : VATTN_POD(__nv_bfloat16, int8_t);
+#undef VATTN_POD
   return static_cast<int>(cudaErrorInvalidValue);
 }

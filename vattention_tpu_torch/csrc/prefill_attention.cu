@@ -14,7 +14,8 @@
 // prefill_attention.cuh, shared with kernels E, F and H.
 #include "prefill_attention.cuh"
 
-// q, out: [num_tokens, hq, 128]; cache: [L, 2, hkv, rows_total, 128];
+// q, out: [num_tokens, hq, 128]; cache: [L, 2, hkv, rows_total, 128] of
+// kv_dtype (dtype, e4m3 or int8);
 // qt_run: [num_tokens / pad_tile, 2]; qinfo: [K, 2]; tile_rows: [K, n_sub]
 // (all int32).  hq/hkv must divide R (128 in bf16, 64 in f32), and
 // R/(hq/hkv) must divide pad_tile, which must divide num_tokens.
@@ -24,24 +25,25 @@ extern "C" int vattn_prefill_attention(const void* q, const void* cache,
                                        int num_tokens, int hq, int hkv,
                                        int pad_tile, int n_sub, int sub,
                                        long long rows_total, int layer,
-                                       float sm_scale, int dtype,
+                                       float sm_scale, int dtype, int kv_dtype,
                                        void* stream) {
   return vattn::prefill::launch(
       q, cache, out, vattn::prefill::RunTiles{qt_run}, qinfo,
       vattn::prefill::TileRows{tile_rows, n_sub, sub}, num_tokens, hq, hkv,
-      pad_tile, rows_total, layer, sm_scale, dtype, stream);
+      pad_tile, rows_total, layer, sm_scale, dtype, kv_dtype, stream);
 }
 
 // q, out: [num_tokens, hq, 128] at positions qinfo[0] + [0, num_tokens);
-// cache: [L, 2, hkv, rows_total, 128]; seg_row: [S]; seg_cum: [S + 1];
-// qinfo: [2] = (q_start, kv_len) (all int32); 1 <= S <= 8.  hq/hkv must
+// cache: [L, 2, hkv, rows_total, 128] of kv_dtype (dtype, e4m3 or int8);
+// seg_row: [S]; seg_cum: [S + 1]; qinfo: [2] = (q_start, kv_len) (all
+// int32); 1 <= S <= 8.  hq/hkv must
 // divide R (128 in bf16, 64 in f32), and R/(hq/hkv) must divide
 // num_tokens.
 extern "C" int vattn_segment_prefill_attention(
     const void* q, const void* cache, void* out, const int* seg_row,
     const int* seg_cum, int num_segments, const int* qinfo, int num_tokens,
     int hq, int hkv, long long rows_total, int layer, float sm_scale,
-    int dtype, void* stream) {
+    int dtype, int kv_dtype, void* stream) {
   using namespace vattn::prefill;
   const int rows = block_rows(dtype);
   if (num_segments < 1 || num_segments > kMaxSegments || hkv <= 0 ||
@@ -50,12 +52,15 @@ extern "C" int vattn_segment_prefill_attention(
   return launch(q, cache, out, OneRun{}, qinfo,
                 Segments{seg_row, seg_cum, num_segments}, num_tokens, hq, hkv,
                 rows / (hq / hkv), rows_total, layer, sm_scale, dtype,
-                stream);
+                kv_dtype, stream);
 }
 
-// Dynamic shared memory per block of the prefill body for `dtype`, in
-// bytes (what the launchers above ask for).
-extern "C" int vattn_prefill_smem_bytes(int dtype) {
+// Dynamic shared memory per block of the prefill body for `dtype` over
+// `kv_dtype`, in bytes (what the launchers above ask for).
+extern "C" int vattn_prefill_smem_bytes(int dtype, int kv_dtype) {
   using namespace vattn::prefill;
-  return dtype == vattn::kBFloat16 ? kTcSmemBytes : kSmemBytes;
+  if (dtype != vattn::kBFloat16) return kSmemBytes;
+  return kv_dtype == vattn::kFloat8E4M3 || kv_dtype == vattn::kInt8
+             ? kTcSmemBytesFor<int8_t>
+             : kTcSmemBytes;
 }

@@ -49,10 +49,24 @@
 //     stays in registers and is written once, as O / l; no S, P or PV
 //     goes through shared memory.  Only tiles that cross a warpgroup's
 //     causal diagonal or kv_len test each key.  One block per SM
-//     (kTcSmemBytes of shared memory, 168 registers x 384 threads).
+//     (kTcSmemBytesFor<KV> of shared memory, 168 registers x 384 threads).
 //   float32: the same algorithm on the CUDA cores (32-key tiles, 4
 //     threads per row), exact float32 products for the f32 test path.
+// K/V storage (the arena's type `KV`): the compute type, or 1 byte (e4m3 or
+// int8), widened exactly to the compute type before the products, as the
+// JAX kernel's upcast_kv does (ops/utils.py).  bfloat16: cp.async cannot
+// convert, so for 1-byte arenas the producer warpgroup copies each tile
+// by cp.async into a second ring of 1-byte tiles, kTcStages - 1 tiles
+// ahead, then widens each thread's own 16-byte chunks (16 values) to two
+// 16-byte bf16 chunks, stores them at the same swizzled offsets a bf16
+// arena's copies fill and arrives on the stage's full mbarrier itself: the
+// consumers' wgmma loop, its descriptors and the bf16 ring do not change.
+// (Loads into registers, even one tile ahead, keep too few bytes in flight
+// to feed the consumers.)
+// float32: each element widens as it is staged (to_float).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -168,9 +182,9 @@ constexpr int kSmemBytes =
 
 // The float32 body: q tile `tile` (kRows/G tokens) of kv head `h`, run by
 // kThreads threads (local index `tid`) over `smem` (kSmemBytes).
-template <typename T, typename QMap, typename Rows>
+template <typename T, typename KV, typename QMap, typename Rows>
 __device__ __forceinline__ void prefill_tile(
-    const T* __restrict__ q, const T* __restrict__ cache, T* __restrict__ out,
+    const T* __restrict__ q, const KV* __restrict__ cache, T* __restrict__ out,
     QMap qmap, const int* __restrict__ qinfo, Rows rows,
     int hq, int hkv, int pad_tile, long long rows_total, int layer,
     float sm_scale, int tile, int h, int tid, float* smem) {
@@ -217,8 +231,8 @@ __device__ __forceinline__ void prefill_tile(
   const int q_pos = pos0 + t;
   const int n_keys = min(kv_len, pos0 + qtok);  // causal diagonal of the tile
   const long long head_stride = rows_total * kD;
-  const T* kbase = cache + (static_cast<long long>(layer * 2) * hkv + h) * head_stride;
-  const T* vbase = cache + (static_cast<long long>(layer * 2 + 1) * hkv + h) * head_stride;
+  const KV* kbase = cache + (static_cast<long long>(layer * 2) * hkv + h) * head_stride;
+  const KV* vbase = cache + (static_cast<long long>(layer * 2 + 1) * hkv + h) * head_stride;
   const auto row_of = rows.run(run, kv_len);
 
   float acc[kD / 4];
@@ -299,14 +313,14 @@ __device__ __forceinline__ void prefill_tile(
   for (int i = 0; i < kD / 4; ++i) orow[part + 4 * i] = from_float<T>(acc[i] / l);
 }
 
-template <typename T, typename QMap, typename Rows>
+template <typename T, typename KV, typename QMap, typename Rows>
 __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ cache, T* __restrict__ out,
+    const T* __restrict__ q, const KV* __restrict__ cache, T* __restrict__ out,
     QMap qmap, const int* __restrict__ qinfo, Rows rows,
     int hq, int hkv, int pad_tile, long long rows_total, int layer,
     float sm_scale) {
   extern __shared__ float smem[];
-  prefill_tile<T>(q, cache, out, qmap, qinfo, rows, hq, hkv, pad_tile,
+  prefill_tile(q, cache, out, qmap, qinfo, rows, hq, hkv, pad_tile,
                   rows_total, layer, sm_scale, blockIdx.x, blockIdx.y,
                   threadIdx.x, smem);
 }
@@ -324,6 +338,14 @@ constexpr int kTcKBytes = kTcKeys * kD * 2;          // K or V: [2 halves][64 ke
 constexpr int kTcStageBytes = 2 * kTcKBytes;         // K then V
 constexpr int kTcSmemBytes =  // + slack to align to 1024, + the mbarriers
     1024 + kTcQBytes + kTcStages * kTcStageBytes + 2 * 8 * kTcStages;
+// 1-byte K/V: a second ring of kTcStages 1-byte tiles (K then V, 128-byte
+// rows) after the mbarriers, which cp.async fills kTcStages - 1 tiles
+// ahead of the widening
+constexpr int kTcStage1Bytes = 2 * kTcKeys * kD;
+template <typename KV>
+constexpr int kTcSmemBytesFor =
+    kTcSmemBytes + (sizeof(KV) == 1 ? kTcStages * kTcStage1Bytes : 0);
+static_assert(kTcSmemBytesFor<int8_t> <= 232448, "fits an H100 block");
 
 // 2^x on the special-function unit, subnormal results flushed to zero (a
 // weight below 2^-126 of the row's largest)
@@ -390,12 +412,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // The bfloat16 body: q tile `tile` (kTcRows/G tokens) of kv head `h`, run
-// by all kTcThreads threads of the block over `smem` (kTcSmemBytes).
+// by all kTcThreads threads of the block over `smem` (kTcSmemBytesFor<KV>).
 // Threads 0..255 are the two consumer warpgroups, the last warpgroup the
 // producer; the roles meet only at the ring's mbarriers.
-template <typename QMap, typename Rows>
+template <typename KV, typename QMap, typename Rows>
 __device__ __forceinline__ void prefill_tile_tc(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ cache,
+    const __nv_bfloat16* __restrict__ q, const KV* __restrict__ cache,
     __nv_bfloat16* __restrict__ out, QMap qmap,
     const int* __restrict__ qinfo, Rows rows, int hq, int hkv, int pad_tile,
     long long rows_total, int layer, float sm_scale, int tile, int h,
@@ -455,8 +477,8 @@ __device__ __forceinline__ void prefill_tile_tc(
                  q + row_offset(rr) + c * 8, true);
     }
     const long long head_stride = rows_total * kD;
-    const __nv_bfloat16* kbase = cache + (static_cast<long long>(layer * 2) * hkv + h) * head_stride;
-    const __nv_bfloat16* vbase = cache + (static_cast<long long>(layer * 2 + 1) * hkv + h) * head_stride;
+    const KV* kbase = cache + (static_cast<long long>(layer * 2) * hkv + h) * head_stride;
+    const KV* vbase = cache + (static_cast<long long>(layer * 2 + 1) * hkv + h) * head_stride;
     const auto row_of = rows.run(run, kv_len);
     // warp w of the producer copies keys 16w .. 16w + 15 of each tile;
     // its lanes l and l + 16 resolve key 16w + l % 16, once per tile and
@@ -468,27 +490,95 @@ __device__ __forceinline__ void prefill_tile_tc(
       const int p = j * kTcKeys + key0 + (lane & 15);
       return p < n_keys ? row_of(p) : -1;
     };
-    long long next = key_row(0);
-    for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % kTcStages;
-      if (j >= kTcStages) mbar_wait(empty + 8 * s, ((j / kTcStages) - 1) & 1);
-      const long long mine = next;
-      next = key_row(j + 1);
-      const uint32_t ks = ring + s * kTcStageBytes;
-      // copy i moves 16-byte chunk lane % 16 of keys key0 + 2i and
-      // key0 + 2i + 1: each half-warp one contiguous 256-byte row
-      const int c = lane & 15;
-      const uint32_t half = (c >> 3) * (kTcKeys * kTcHalf);
+    if constexpr (sizeof(KV) == 2) {
+      long long next = key_row(0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kTcStages;
+        if (j >= kTcStages) mbar_wait(empty + 8 * s, ((j / kTcStages) - 1) & 1);
+        const long long mine = next;
+        next = key_row(j + 1);
+        const uint32_t ks = ring + s * kTcStageBytes;
+        // copy i moves 16-byte chunk lane % 16 of keys key0 + 2i and
+        // key0 + 2i + 1: each half-warp one contiguous 256-byte row
+        const int c = lane & 15;
+        const uint32_t half = (c >> 3) * (kTcKeys * kTcHalf);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = 2 * i + (lane >> 4);
-        const long long row = __shfl_sync(0xffffffffu, mine, k);
-        const long long src = (row < 0 ? 0 : row) * kD + c * 8;
-        const uint32_t off = half + swizzle128(key0 + k, c & 7);
-        cp_async16(ks + off, kbase + src, row >= 0);
-        cp_async16(ks + kTcKBytes + off, vbase + src, row >= 0);
+        for (int i = 0; i < 8; ++i) {
+          const int k = 2 * i + (lane >> 4);
+          const long long row = __shfl_sync(0xffffffffu, mine, k);
+          const long long src = (row < 0 ? 0 : row) * kD + c * 8;
+          const uint32_t off = half + swizzle128(key0 + k, c & 7);
+          cp_async16(ks + off, kbase + src, row >= 0);
+          cp_async16(ks + kTcKBytes + off, vbase + src, row >= 0);
+        }
+        cp_async_arrive(full + 8 * s);  // stage 0's first phase covers Q too
       }
-      cp_async_arrive(full + 8 * s);  // stage 0's first phase covers Q too
+    } else {
+      // 1-byte rows are 128 bytes: copy i moves 16-byte chunk lane % 8
+      // (values 16c .. 16c + 15) of key key0 + 4i + lane / 8, zeros past
+      // the keys the tile needs, into the 1-byte ring; a thread widens only
+      // the chunks it copied, so its own cp.async groups order the ring
+      // (the first group also holds Q's copies)
+      const int c = lane & 7;
+      const uint32_t ring1 = empty + 8 * kTcStages;
+      constexpr int kLead = kTcStages - 1;
+      auto issue = [&](int j) {
+        if (j < n_tiles) {
+          const long long rows_of_tile = key_row(j);
+          const uint32_t st = ring1 + (j % kTcStages) * kTcStage1Bytes;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int k = 4 * i + (lane >> 3);
+            const long long row = __shfl_sync(0xffffffffu, rows_of_tile, k);
+            const long long src = (row < 0 ? 0 : row) * kD + c * 16;
+            const uint32_t off = (key0 + k) * kD + c * 16;
+            cp_async16(st + off, kbase + src, row >= 0);
+            cp_async16(st + kTcKeys * kD + off, vbase + src, row >= 0);
+          }
+        }
+        cp_async_commit();
+      };
+      // bf16 chunks 2c and 2c + 1 of the key's 256-byte row, the odd one
+      // first on lanes c >= 4: a quarter-warp's 8 stores then fall on 8
+      // distinct 16-byte bank groups
+      const bool odd = (c >> 2) & 1;
+      const int first = 2 * c + odd;
+      const int second = 4 * c + 1 - first;
+      auto put = [&](int j) {
+        const int s = j % kTcStages;
+        if (j >= kTcStages) mbar_wait(empty + 8 * s, ((j / kTcStages) - 1) & 1);
+        const uint32_t ks = ring + s * kTcStageBytes;
+        const uint32_t st = ring1 + s * kTcStage1Bytes;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int k = key0 + 4 * (i & 3) + (lane >> 3);
+          uint4 x, lo, hi;
+          asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w)
+                       : "r"(st + (i >> 2) * (kTcKeys * kD) + k * kD + c * 16)
+                       : "memory");
+          widen16_bf16<KV>(x, lo, hi);
+          const uint32_t base = ks + (i >> 2) * kTcKBytes;
+          const uint4 a = odd ? hi : lo, b = odd ? lo : hi;
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                           base + (first >> 3) * (kTcKeys * kTcHalf) + swizzle128(k, first & 7)),
+                       "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w)
+                       : "memory");
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                           base + (second >> 3) * (kTcKeys * kTcHalf) + swizzle128(k, second & 7)),
+                       "r"(b.x), "r"(b.y), "r"(b.z), "r"(b.w)
+                       : "memory");
+        }
+        fence_async_shared();  // the stores, visible to the wgmma reads
+        mbar_arrive(full + 8 * s);
+      };
+#pragma unroll
+      for (int j = 0; j < kLead; ++j) issue(j);
+      for (int j = 0; j < n_tiles; ++j) {
+        issue(j + kLead);  // into the slot tile j - 1 was widened from
+        cp_async_wait_group<kLead>();  // this thread's copies of tile j
+        put(j);
+      }
     }
     cp_async_wait_all();
     return;
@@ -614,9 +704,9 @@ __device__ __forceinline__ void prefill_tile_tc(
   }
 }
 
-template <typename QMap, typename Rows>
+template <typename KV, typename QMap, typename Rows>
 __global__ void __launch_bounds__(kTcThreads, 1) prefill_attention_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ cache,
+    const __nv_bfloat16* __restrict__ q, const KV* __restrict__ cache,
     __nv_bfloat16* __restrict__ out, QMap qmap,
     const int* __restrict__ qinfo, Rows rows, int hq, int hkv, int pad_tile,
     long long rows_total, int layer, float sm_scale) {
@@ -630,7 +720,7 @@ inline int block_rows(int dtype) {
   return dtype == kBFloat16 ? kTcRows : dtype == kFloat32 ? kRows : 0;
 }
 
-template <typename Kernel, typename T, typename QMap, typename Rows>
+template <typename T, typename KV, typename Kernel, typename QMap, typename Rows>
 int launch_one(Kernel kernel, int threads, int smem_bytes, int qtok,
                const void* q, const void* cache, void* out, QMap qmap,
                const int* qinfo, Rows rows, int num_tokens, int hq, int hkv,
@@ -641,22 +731,42 @@ int launch_one(Kernel kernel, int threads, int smem_bytes, int qtok,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(num_tokens / qtok, hkv);
   kernel<<<grid, threads, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(cache),
+      static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), qmap, qinfo, rows, hq, hkv, pad_tile,
       rows_total, layer, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, out: [num_tokens, hq, 128]; cache: [L, 2, hkv, rows_total, 128];
-// qinfo: [K, 2] (int32); `qmap` maps each pad_tile-row tile to (run, local
-// tile) and `rows` each run's key positions to arena rows.  With R =
-// block_rows(dtype) (128 in bf16, 64 in f32), hq/hkv must divide R, and
-// R/(hq/hkv) must divide pad_tile, which must divide num_tokens.
+// The body of compute type T over storage KV: its kernel, threads and
+// shared memory.
+template <typename T, typename KV, typename QMap, typename Rows>
+int launch_body(int qtok, const void* q, const void* cache, void* out,
+                QMap qmap, const int* qinfo, Rows rows, int num_tokens,
+                int hq, int hkv, int pad_tile, long long rows_total,
+                int layer, float sm_scale, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch_one<T, KV>(prefill_attention_kernel<T, KV, QMap, Rows>,
+                             kThreads, kSmemBytes, qtok, q, cache, out, qmap,
+                             qinfo, rows, num_tokens, hq, hkv, pad_tile,
+                             rows_total, layer, sm_scale, s);
+  else
+    return launch_one<T, KV>(prefill_attention_tc_kernel<KV, QMap, Rows>,
+                             kTcThreads, kTcSmemBytesFor<KV>, qtok, q, cache, out,
+                             qmap, qinfo, rows, num_tokens, hq, hkv, pad_tile,
+                             rows_total, layer, sm_scale, s);
+}
+
+// q, out: [num_tokens, hq, 128] of `dtype`; cache: [L, 2, hkv, rows_total,
+// 128] of `kv_dtype` (dtype, e4m3 or int8); qinfo: [K, 2] (int32); `qmap`
+// maps each pad_tile-row tile to (run, local tile) and `rows` each run's
+// key positions to arena rows.  With R = block_rows(dtype) (128 in bf16, 64
+// in f32), hq/hkv must divide R, and R/(hq/hkv) must divide pad_tile, which
+// must divide num_tokens.
 template <typename QMap, typename Rows>
 int launch(const void* q, const void* cache, void* out, QMap qmap,
            const int* qinfo, Rows rows, int num_tokens, int hq, int hkv,
            int pad_tile, long long rows_total, int layer, float sm_scale,
-           int dtype, void* stream) {
+           int dtype, int kv_dtype, void* stream) {
   if (num_tokens <= 0) return 0;
   const int group = hkv > 0 ? hq / hkv : 0;
   const int rows_per_block = block_rows(dtype);
@@ -666,15 +776,21 @@ int launch(const void* q, const void* cache, void* out, QMap qmap,
     return static_cast<int>(cudaErrorInvalidValue);
   const int qtok = rows_per_block / group;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return launch_one<decltype(&prefill_attention_kernel<float, QMap, Rows>), float>(
-        prefill_attention_kernel<float, QMap, Rows>, kThreads, kSmemBytes, qtok,
-        q, cache, out, qmap, qinfo, rows, num_tokens, hq, hkv, pad_tile,
-        rows_total, layer, sm_scale, s);
-  return launch_one<decltype(&prefill_attention_tc_kernel<QMap, Rows>), __nv_bfloat16>(
-      prefill_attention_tc_kernel<QMap, Rows>, kTcThreads, kTcSmemBytes, qtok,
-      q, cache, out, qmap, qinfo, rows, num_tokens, hq, hkv, pad_tile,
-      rows_total, layer, sm_scale, s);
+#define VATTN_PREFILL_BODY(T, KV)                                            \
+  launch_body<T, KV>(qtok, q, cache, out, qmap, qinfo, rows, num_tokens, hq, \
+                     hkv, pad_tile, rows_total, layer, sm_scale, s)
+  const bool f32 = dtype == kFloat32;
+  if (kv_dtype == dtype)
+    return f32 ? VATTN_PREFILL_BODY(float, float)
+               : VATTN_PREFILL_BODY(__nv_bfloat16, __nv_bfloat16);
+  if (kv_dtype == kFloat8E4M3)
+    return f32 ? VATTN_PREFILL_BODY(float, fp8)
+               : VATTN_PREFILL_BODY(__nv_bfloat16, fp8);
+  if (kv_dtype == kInt8)
+    return f32 ? VATTN_PREFILL_BODY(float, int8_t)
+               : VATTN_PREFILL_BODY(__nv_bfloat16, int8_t);
+#undef VATTN_PREFILL_BODY
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace prefill

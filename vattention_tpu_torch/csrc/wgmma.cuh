@@ -33,6 +33,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// this thread's cp.async copies since the last commit form one group
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 // shared-memory writes this thread has seen (its own, or others' after a
 // barrier or an mbarrier wait) become visible to its wgmma operand reads
 // (the async proxy)

@@ -55,7 +55,8 @@ PROFILE = re.compile(r"^\(p (c|d|e)\) profiled .* wall ([0-9.]+) ms, "
 POD = re.compile(r"^\s*(serial|pod_fused):\s+([0-9.]+) us")
 PORT = re.compile(r"^\(p (c|d|e)\) port kernels: (.*)$")
 PORT_ITEM = re.compile(r"(\w+) ([0-9.]+) ms in (\d+)")
-SWEEP = re.compile(r"^\(f\) kernel_sweep --block-size (\d+)")
+# each sweep's rows are keyed by its block size (bf16) or arena dtype
+SWEEP = re.compile(r"^\(f\) kernel_sweep --(block-size|kv-dtype) (\w+)")
 SWEEP_DECODE = re.compile(r"^decode,(\w+),(\d+),([0-9.]+),")
 HOST = re.compile(r"^\(a\) host us per call [^:]*: (.*)$")
 HOST_ITEM = re.compile(r"([\w_]+(?: \(\w+\))?) ([0-9.]+)")
@@ -70,11 +71,12 @@ def parse(text: str) -> dict:
     for line in text.splitlines():
         m = SWEEP.match(line)
         if m:
-            sweep_bs = m.group(1)
+            sweep_bs = ("bs " if m.group(1) == "block-size" else "kv ") \
+                + m.group(2)
             continue
         m = SWEEP_DECODE.match(line)
         if m and sweep_bs:
-            out[f"(f) sweep bs {sweep_bs} C {m.group(1)} ctx {m.group(2)} "
+            out[f"(f) sweep {sweep_bs} C {m.group(1)} ctx {m.group(2)} "
                 "ms"] = float(m.group(3))
             continue
         m = PORT.match(line)

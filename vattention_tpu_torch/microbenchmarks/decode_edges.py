@@ -28,16 +28,20 @@ TABLE_DEPTH = 32768
 SUBS = (256, 16)
 
 
-def check_decode_edges(cache: torch.Tensor, layer: int, seed: int = 0):
+def check_decode_edges(cache: torch.Tensor, layer: int, seed: int = 0,
+                       sm_scale: float | None = None, out_scale: float = 1.0):
     """The cases above over ``cache`` ([L, 2, Hkv, R, D] on the card, R >=
-    TABLE_DEPTH).  Raises on the first failure; returns (max abs err
-    against the plain version, the worst slot's err as a fraction of its
-    largest output)."""
+    TABLE_DEPTH; a 1-byte arena is read by bf16 queries; an int8 arena's
+    step goes in ``sm_scale`` and ``out_scale``).  Raises on the
+    first failure; returns (max abs err against the plain version, the
+    worst slot's err as a fraction of its largest output)."""
     dev = cache.device
     Hkv, R, D = cache.shape[2], cache.shape[3], cache.shape[4]
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     seqlens = torch.tensor(EDGE_DEPTHS, dtype=torch.int32, device=dev)
+    qdt = torch.bfloat16 if cache.element_size() == 1 else cache.dtype
+    sm = D ** -0.5 if sm_scale is None else sm_scale
     err, rel = 0.0, 0.0
     for sub in SUBS:
         width = TABLE_DEPTH // sub
@@ -46,9 +50,9 @@ def check_decode_edges(cache: torch.Tensor, layer: int, seed: int = 0):
         tile_rows = torch.from_numpy(rows).to(dev)
         for g in KERNEL_GROUPS:
             q = torch.randn((len(EDGE_DEPTHS), g * Hkv, D), generator=gen,
-                            device=dev).to(cache.dtype)
+                            device=dev).to(qdt)
             args = (q, cache, tile_rows, seqlens, layer)
-            kw = dict(sub=sub, sm_scale=D ** -0.5)
+            kw = dict(sub=sub, sm_scale=sm)
             got = decode_attention(*args, **kw)
             ref = decode_attention_plain(*args, **kw)
             torch.cuda.synchronize()
@@ -64,6 +68,6 @@ def check_decode_edges(cache: torch.Tensor, layer: int, seed: int = 0):
                     continue
                 e, r = check_attention(
                     f"decode edges sub {sub} G {g}, slot {b} at depth {n}",
-                    got[b:b + 1], ref[b:b + 1])
+                    got[b:b + 1], ref[b:b + 1], scale=out_scale)
                 err, rel = max(err, e), max(rel, r)
     return err, rel

@@ -28,9 +28,13 @@ rtol = 2e-2, each row within 2^-6 of its largest output), and a line
 ``# check <kernel> ctx <ctx>: max abs err <e> (row worst <r>)`` follows
 the CSV rows of that ctx; a failure raises.
 
+``--kv-dtype fp8`` or ``int8`` runs every kernel over a 1-byte arena (the
+seeded values quantized as kernel A writes them, int8 in steps of 0.04
+with the step folded into ``sm_scale``), with bf16 queries.
+
 ``latency_ms`` is the mean of ``--iters`` calls, each after an L2 flush
 (``timing.Timer``); ``gbps`` is the K/V bytes the call must read once over
-that time.  Data is random, from one seeded ``torch.Generator``.  The TPU
+that time (at the arena's element size).  Data is random, from one seeded ``torch.Generator``.  The TPU
 knobs of the JAX twin (``kv_tile``, ``kv_fetch``, ``seq_tile``,
 ``max_kv_tiles``) have no counterpart: every kernel resolves each key's row
 and loops to the live depth.
@@ -55,6 +59,8 @@ from vattention_tpu_torch.microbenchmarks.timing import (
     Timer, cap_for_cpu, check_attention, harness_device, seeded)
 
 HEADER = "phase,kernel,ctx,latency_ms,gbps"
+KV_DTYPES = {"bf16": None, "fp8": torch.float8_e4m3fn, "int8": torch.int8}
+INT8_STEP = 0.04
 CPU_MAX = dict(ctx=512, batch=2, iters=2)
 
 
@@ -68,6 +74,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--q-heads", type=int, default=32)
     p.add_argument("--head-dim", type=int, default=128)
     p.add_argument("--block-size", type=int, default=256)
+    p.add_argument("--kv-dtype", choices=sorted(KV_DTYPES), default="bf16",
+                   help="the arena's dtype")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--csv", default=None)
     p.add_argument("--check", action="store_true",
@@ -89,7 +97,7 @@ def sweep(args) -> list:
     from vattention_tpu_torch.ops.paged_attention import (
         paged_prefill_attention_single, paged_prefill_attention_single_plain,
         paged_tile_rows)
-    from vattention_tpu_torch.ops.utils import (cdiv, round_up,
+    from vattention_tpu_torch.ops.utils import (cdiv, quantize_kv, round_up,
                                                 tile_rows_from_segments)
 
     dev = harness_device(args.cpu)
@@ -107,11 +115,18 @@ def sweep(args) -> list:
     def check(kernel, ctx, got, plain):
         if args.check:
             err, rel = check_attention(f"kernel_sweep {kernel} ctx {ctx}",
-                                       got, plain())
+                                       got, plain(), scale=out_scale)
             checks.append(f"# check {kernel} ctx {ctx}: max abs err {err} "
                           f"(row worst {rel:.5f})")
 
     kv = randn(1, 2, Hkv, R, D)
+    arena = KV_DTYPES[args.kv_dtype]
+    out_scale = 1.0           # an int8 arena's outputs count in its steps
+    if arena is not None:
+        kv = quantize_kv(kv, arena, INT8_STEP)
+        if arena == torch.int8:
+            sm *= INT8_STEP
+            out_scale = INT8_STEP
     es = kv.element_size()
     timer = Timer(dev)
     rows = []
@@ -178,7 +193,8 @@ def sweep(args) -> list:
         got_v, got_p = c_vattn(), c_paged()
         if sub != BT:
             check_attention(f"kernel_sweep: decode at sub {sub} against "
-                            f"sub {BT}, ctx {ctx}", got_v, got_p)
+                            f"sub {BT}, ctx {ctx}", got_v, got_p,
+                            scale=out_scale)
         elif not torch.equal(got_v, got_p):
             raise AssertionError(f"kernel_sweep: vattn and paged decode "
                                  f"differ at ctx {ctx} on the same rows")

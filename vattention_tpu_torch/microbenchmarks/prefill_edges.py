@@ -72,16 +72,20 @@ def _tables(rng_perm, depths, width: int) -> np.ndarray:
 
 
 def check_prefill_edges(cache: torch.Tensor, hq: int, layer: int,
-                        seed: int = 0):
+                        seed: int = 0, sm_scale: float | None = None,
+                        out_scale: float = 1.0):
     """The cases above over ``cache`` ([L, 2, Hkv, R, D] on the card, R >=
-    8192) with ``hq`` query heads drawn from ``seed``.  Raises on the
-    first failure; returns (max abs err against the plain versions, the
-    worst row's err as a fraction of its largest output)."""
+    8192; a 1-byte arena is read by bf16 queries; an int8 arena's step
+    goes in ``sm_scale`` and ``out_scale``) with ``hq`` query heads drawn
+    from ``seed``.  Raises on the first failure; returns (max abs err
+    against the plain versions, the worst row's err as a fraction of its
+    largest output)."""
     dev = cache.device
     R, D = cache.shape[3], cache.shape[4]
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    sm = D ** -0.5
+    sm = D ** -0.5 if sm_scale is None else sm_scale
+    qdt = torch.bfloat16 if cache.element_size() == 1 else cache.dtype
     K = len(EDGE_RUNS)
     chunks = [n - q0 for q0, n in EDGE_RUNS]
     pads = [cdiv(max(c, 1), PAD) * PAD for c in chunks]
@@ -90,10 +94,9 @@ def check_prefill_edges(cache: torch.Tensor, hq: int, layer: int,
                            for i in range(pads[r] // PAD)],
                           dtype=torch.int32, device=dev)
     qinfo = torch.tensor(EDGE_RUNS, dtype=torch.int32, device=dev)
-    q = torch.randn((sum(pads), hq, D), generator=gen, device=dev).to(
-        cache.dtype)
+    q = torch.randn((sum(pads), hq, D), generator=gen, device=dev).to(qdt)
     qd = torch.randn((len(DECODE_DEPTHS), hq, D), generator=gen,
-                     device=dev).to(cache.dtype)
+                     device=dev).to(qdt)
 
     depths = [n for _, n in EDGE_RUNS]
     width = cdiv(max(depths), BLOCK) + 2
@@ -142,7 +145,7 @@ def check_prefill_edges(cache: torch.Tensor, hq: int, layer: int,
                                ("G's rows", b_g, ref_g)):
             e_, r_ = check_attention(
                 f"edge case q_start {q0} kv_len {n}, B on {what}", got[sl],
-                ref[sl])
+                ref[sl], scale=out_scale)
             err, rel = max(err, e_), max(rel, r_)
     for what, a, b in (("E", e, b_e), ("F's prefill", f_p, b_e),
                        ("F's decode", f_d, c)):

@@ -74,11 +74,14 @@ def seeded(device, seed: int = 0):
     return randn, i32
 
 
-def check_attention(what, got, ref, tol: float = ATTN_TOL):
+def check_attention(what, got, ref, tol: float = ATTN_TOL,
+                    scale: float = 1.0):
     """Hold ``got`` against ``ref`` ([rows, Hq, D]) within atol = rtol =
     ``tol`` and each row within REL_TOL of its largest |ref|; returns the
-    max abs err and the largest row's err / max |ref|."""
-    got, ref = got.float(), ref.float()
+    max abs err and the largest row's err / max |ref|.  Both are first
+    multiplied by ``scale``: an int8 arena's outputs count in its steps
+    until the backend's one multiply by the step."""
+    got, ref = got.float() * scale, ref.float() * scale
     torch.testing.assert_close(got, ref, atol=tol, rtol=tol,
                                msg=lambda m: f"{what}: {m}")
     err = (got - ref).abs().flatten(1).amax(1)

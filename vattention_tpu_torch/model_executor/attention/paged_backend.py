@@ -5,7 +5,8 @@ K/V are appended first through kernel A (a per-row scatter, so blocks
 narrower than the TPU's 32-row windows need no ``serialize``); then the
 prefill region attends through kernel E over the per-run block tables and
 the decode slots through kernel C over the runner's clamped row table at
-``sub = block_size``.
+``sub = block_size``.  The pool's dtype and an int8 step fold in as in the
+vattn backend.
 """
 
 from __future__ import annotations
@@ -21,12 +22,16 @@ from vattention_tpu_torch.ops.paged_attention import paged_prefill_attention
 
 
 class PagedAttentionBackend:
-    def __init__(self, *, block_size: int, q_tile: int = PREFILL_TOKEN_PAD):
+    def __init__(self, *, block_size: int, q_tile: int = PREFILL_TOKEN_PAD,
+                 kv_scale: float | None = None):
         self.block_size = block_size
         self.q_tile = q_tile
+        self.kv_scale = kv_scale
 
     append_kv = VattnAttentionBackend.append_kv
     _pad_heads = staticmethod(VattnAttentionBackend._pad_heads)
+    _eff_sm_scale = VattnAttentionBackend._eff_sm_scale
+    _descale_out = VattnAttentionBackend._descale_out
 
     def attend(self, q: torch.Tensor, kv_cache: torch.Tensor,
                inputs: StepInputs, layer: int, n_prefill_tokens: int, *,
@@ -34,6 +39,7 @@ class PagedAttentionBackend:
         """q: [T, Hq, D] -> [T, Hq, D]."""
         D = q.shape[-1]
         q = self._pad_heads(q, kv_cache.shape[-1])
+        sm_scale = self._eff_sm_scale(sm_scale)
         outs = []
         if n_prefill_tokens > 0:
             outs.append(paged_prefill_attention(
@@ -47,4 +53,4 @@ class PagedAttentionBackend:
                 inputs.dec_tile_rows, inputs.dec_seqlens, layer,
                 sub=self.block_size, sm_scale=sm_scale))
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
-        return out[..., :D]
+        return self._descale_out(out[..., :D])

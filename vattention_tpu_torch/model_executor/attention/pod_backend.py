@@ -41,5 +41,5 @@ class PodAttentionBackend(VattnAttentionBackend):
             q[n_prefill_tokens:].contiguous(), kv_cache, inputs.qt_run,
             inputs.pre_qinfo, inputs.pre_tile_rows, inputs.dec_tile_rows,
             inputs.dec_seqlens, layer, sub=self.sub, pad_tile=self.q_tile,
-            sm_scale=sm_scale)
-        return torch.cat([out_p, out_d], dim=0)[..., :D]
+            sm_scale=self._eff_sm_scale(sm_scale))
+        return self._descale_out(torch.cat([out_p, out_d], dim=0)[..., :D])

@@ -1,10 +1,15 @@
 """vATTN attention backend: the port's kernels over the contiguous arena.
 
 Counterpart of ``vattention_tpu/model_executor/attention/vattn_backend.py``
-(``append_kv`` and ``attend``), for float32 and bfloat16 arenas.  K/V are
-appended first (kernel A), then the prefill region attends through kernel
-B and the decode slots through kernel C; all three read the arena through
-host-resolved row tables at ``sub``-row granularity.
+(``append_kv`` and ``attend``), for arenas of the model's dtype and for
+e4m3 and int8 arenas.  K/V are appended first (kernel A, which quantizes
+into a 1-byte arena), then the prefill region attends through kernel B
+and the decode slots through kernel C; all three read the arena through
+host-resolved row tables at ``sub``-row granularity.  An int8 arena's step
+``kv_scale`` costs the kernels nothing: it folds into ``sm_scale`` (scores
+= q . K_int * sm_scale * kv_scale) and multiplies the attention output
+once, in the output's dtype (softmax is invariant to V's scale), as the
+JAX backend does.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ class VattnAttentionBackend:
     """Holds the row-table geometry for a model/cache config."""
 
     def __init__(self, *, block_tokens: int, max_context_len: int,
-                 arena_rows: int, q_tile: int = PREFILL_TOKEN_PAD):
+                 arena_rows: int, q_tile: int = PREFILL_TOKEN_PAD,
+                 kv_scale: float | None = None):
+        self.kv_scale = kv_scale
         self.q_tile = q_tile
         self.sub = select_kv_tile(block_tokens, TABLE_SUB)
         self.n_sub = cdiv(min(max_context_len, arena_rows), self.sub)
@@ -40,13 +47,25 @@ class VattnAttentionBackend:
         D = x.shape[-1]
         return x if D == Dp else F.pad(x, (0, Dp - D))
 
+    def _eff_sm_scale(self, sm_scale: float) -> float:
+        return sm_scale if self.kv_scale is None else sm_scale * self.kv_scale
+
+    def _descale_out(self, out: torch.Tensor) -> torch.Tensor:
+        """out * kv_scale with kv_scale rounded to out's dtype first, as
+        the JAX backend's ``out * jnp.asarray(kv_scale, out.dtype)``."""
+        if self.kv_scale is None:
+            return out
+        return out * float(torch.tensor(self.kv_scale, dtype=out.dtype))
+
     def append_kv(self, kv_cache: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, inputs: StepInputs, layer: int) -> None:
-        """Write this step's K/V ([T, Hkv, D]) for one layer, in place."""
+        """Write this step's K/V ([T, Hkv, D], the model's dtype) for one
+        layer, in place, converted to the arena's dtype by kernel A."""
         Dp = kv_cache.shape[-1]
-        k = self._pad_heads(k, Dp).to(kv_cache.dtype).contiguous()
-        v = self._pad_heads(v, Dp).to(kv_cache.dtype).contiguous()
-        kv_append(kv_cache, k, v, inputs.append_rows, layer)
+        k = self._pad_heads(k, Dp).contiguous()
+        v = self._pad_heads(v, Dp).contiguous()
+        kv_append(kv_cache, k, v, inputs.append_rows, layer,
+                  kv_scale=self.kv_scale)
 
     def attend(self, q: torch.Tensor, kv_cache: torch.Tensor,
                inputs: StepInputs, layer: int, n_prefill_tokens: int, *,
@@ -54,6 +73,7 @@ class VattnAttentionBackend:
         """q: [T, Hq, D] -> [T, Hq, D]."""
         D = q.shape[-1]
         q = self._pad_heads(q, kv_cache.shape[-1])
+        sm_scale = self._eff_sm_scale(sm_scale)
         outs = []
         if n_prefill_tokens > 0:
             outs.append(prefill_attention(
@@ -66,4 +86,4 @@ class VattnAttentionBackend:
                 inputs.dec_tile_rows, inputs.dec_seqlens, layer,
                 sub=self.sub, sm_scale=sm_scale))
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
-        return out[..., :D]
+        return self._descale_out(out[..., :D])

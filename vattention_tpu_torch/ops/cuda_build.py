@@ -33,8 +33,14 @@ SOURCES = ("kv_append", "prefill_attention", "decode_attention",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# dtype codes of csrc/common.cuh
+# dtype codes of csrc/common.cuh: the compute dtype (q, outputs, the
+# model's K/V) and the arena's storage dtype
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KV_DTYPE_CODES = {**DTYPE_CODES, torch.float8_e4m3fn: 2, torch.int8: 3}
+# the arena dtypes each compute dtype's kernels are built for
+KV_DTYPES = {torch.float32: (torch.float32, torch.float8_e4m3fn, torch.int8),
+             torch.bfloat16: (torch.bfloat16, torch.float8_e4m3fn,
+                              torch.int8)}
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
@@ -152,6 +158,17 @@ class CudaKernel:
                 f"{self.symbol}: launch failed with CUDA error {err} "
                 f"({self._error_string(err).decode()})")
         self.launches += 1
+
+
+def check_kv_cache(kv_cache: torch.Tensor, dtype: torch.dtype,
+                   device) -> None:
+    """Raise unless ``kv_cache`` is an arena the kernels of compute dtype
+    ``dtype`` read: its own dtype, or 1-byte e4m3 or int8."""
+    check_cuda_tensor("kv_cache", kv_cache, None, device)
+    if kv_cache.dtype not in KV_DTYPES.get(dtype, ()):
+        raise ValueError(
+            f"kv_cache has dtype {kv_cache.dtype}; {dtype} kernels read "
+            f"{KV_DTYPES.get(dtype, ())}")
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype=None,

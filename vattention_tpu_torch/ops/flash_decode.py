@@ -20,7 +20,9 @@ cp.async rings into tensor-core products (bf16; float32 on the CUDA
 cores), and the last split of each (slot, head) merges the splits inside
 the launch.  The wrapper reads nothing back from the device, so a call
 can be captured in a CUDA graph.  One call of the wrapper is one launch
-of kernel C.
+of kernel C.  A 1-byte arena (e4m3 or int8) streams through the rings at
+one byte per element and is widened exactly in the kernel; the plain
+version widens the gathered rows with ``.float()``.
 """
 
 from __future__ import annotations
@@ -30,14 +32,16 @@ from typing import Dict, Tuple
 
 import torch
 
-from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, CudaKernel,
+from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, KV_DTYPE_CODES,
+                                                 CudaKernel,
                                                  check_cuda_tensor,
+                                                 check_kv_cache,
                                                  current_stream)
 
 P, I = ctypes.c_void_p, ctypes.c_int
 DECODE_ATTENTION = CudaKernel("decode_attention", "vattn_decode_attention", [
     P, P, P, P, P, P, P, I, I, I, I, I, ctypes.c_longlong, I,
-    ctypes.c_float, I, I, P])
+    ctypes.c_float, I, I, I, P])
 
 KERNEL_HEAD_DIM = 128
 KERNEL_GROUPS = (1, 2, 4, 8)
@@ -91,7 +95,7 @@ def check_decode_args(name, q, kv_cache, tile_rows, seqlens, layer: int,
     L, two, Hkv, R, Dc = kv_cache.shape
     dev = q.device
     check_cuda_tensor("q", q)
-    check_cuda_tensor("kv_cache", kv_cache, q.dtype, dev)
+    check_kv_cache(kv_cache, q.dtype, dev)
     check_cuda_tensor("tile_rows", tile_rows, torch.int32, dev)
     check_cuda_tensor("seqlens", seqlens, torch.int32, dev)
     if (q.dtype not in DTYPE_CODES or D != KERNEL_HEAD_DIM or Dc != D
@@ -157,5 +161,6 @@ def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
                      part.data_ptr(), tickets.data_ptr(),
                      tile_rows.data_ptr(), seqlens.data_ptr(), B, Hkv, G,
                      tile_rows.shape[1], sub, R, layer, float(sm_scale),
-                     grid, DTYPE_CODES[q.dtype], current_stream())
+                     grid, DTYPE_CODES[q.dtype],
+                     KV_DTYPE_CODES[kv_cache.dtype], current_stream())
     return out

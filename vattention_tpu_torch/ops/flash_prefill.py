@@ -35,9 +35,16 @@ table (``seg_row [S]``, ``seg_cum [S+1]``, S <= 8) as ``seg_row_lookup``
 does, for each key position -- so, unlike the TPU kernel, whose index map
 resolves one row per sub-row tile, G takes extents that align to no tile.
 G is B's body with that row map and a one-run q map (no ``qt_run``), so
-it equals B bit for bit on the same rows.  The TPU options ``window`` and
-``fp8_packed`` raise (ROADMAP Queue 1 items 12 and 10); ``q_tile``,
-``kv_tile``, ``kv_fetch`` and ``max_kv_tiles`` have no counterpart.
+it equals B bit for bit on the same rows.  The TPU option ``window``
+raises (ROADMAP Queue 1 item 12); ``q_tile``, ``kv_tile``, ``kv_fetch``
+and ``max_kv_tiles`` have no counterpart.
+
+Arenas: the compute dtype's, or 1-byte e4m3 or int8 (kernel A quantized
+them).  Every kernel of the body widens 1-byte K/V tiles exactly to the
+compute dtype before its products, as the TPU kernel's ``upcast_kv``
+does; the plain versions widen the gathered rows with ``.float()``, which
+gives the same values.  The TPU kernel's ``fp8_packed`` widening (a row
+permutation of its vector lanes) has no counterpart.
 """
 
 from __future__ import annotations
@@ -46,8 +53,10 @@ import ctypes
 
 import torch
 
-from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, CudaKernel,
+from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, KV_DTYPE_CODES,
+                                                 CudaKernel,
                                                  check_cuda_tensor,
+                                                 check_kv_cache,
                                                  current_stream)
 from vattention_tpu_torch.ops.flash_decode import gather_rows
 
@@ -57,14 +66,14 @@ PREFILL_ATTENTION = CudaKernel(
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_void_p])
 
 SEGMENT_PREFILL_ATTENTION = CudaKernel(
     "prefill_attention", "vattn_segment_prefill_attention", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 KERNEL_HEAD_DIM = 128
 # query rows (token, head) per block of the CUDA body, by dtype
@@ -114,7 +123,7 @@ def check_prefill_shapes(name, q, kv_cache, layer: int, q_tile, fits: bool,
     Tq, Hq, D = q.shape
     L, _, Hkv, _, Dc = kv_cache.shape
     check_cuda_tensor("q", q)
-    check_cuda_tensor("kv_cache", kv_cache, q.dtype, q.device)
+    check_kv_cache(kv_cache, q.dtype, q.device)
     for arg, t in tables.items():
         check_cuda_tensor(arg, t, torch.int32, q.device)
     G = Hq // Hkv if Hkv and Hq % Hkv == 0 else 0
@@ -180,21 +189,18 @@ def prefill_attention(q, kv_cache, qt_run, qinfo, tile_rows, layer: int, *,
                       qt_run.data_ptr(), qinfo.data_ptr(),
                       tile_rows.data_ptr(), Tq, Hq, Hkv, pad_tile,
                       tile_rows.shape[1], sub, R, layer, float(sm_scale),
-                      DTYPE_CODES[q.dtype], current_stream())
+                      DTYPE_CODES[q.dtype], KV_DTYPE_CODES[kv_cache.dtype],
+                      current_stream())
     return out
 
 
-def reject_unported(name, kv_cache, window) -> None:
-    """Raise NotImplementedError for the TPU kernels' options that the
+def reject_unported(name, window) -> None:
+    """Raise NotImplementedError for the TPU kernels' option that the
     single-run prefill kernels (G, H) do not take yet."""
     if window is not None:
         raise NotImplementedError(
             f"{name}: sliding windows are not ported yet (ROADMAP Queue 1 "
             "item 12)")
-    if kv_cache.element_size() == 1:
-        raise NotImplementedError(
-            f"{name}: {kv_cache.dtype} KV is not ported yet (ROADMAP Queue 1 "
-            "item 10)")
 
 
 def single_run_plain(q, kv_cache, qinfo, rows_of, layer: int, *,
@@ -248,7 +254,7 @@ def segment_prefill_attention(q, kv_cache, seg_row, seg_cum, qinfo,
     kv_cache: [L, 2, Hkv, R, D]; seg_row: [S], seg_cum: [S+1] (S <= 8),
     qinfo: [2] = (q_start, kv_len) (int32) -> [Tq, Hq, D] in q's dtype.
     CPU tensors take the plain version; CUDA tensors launch kernel G."""
-    reject_unported("segment_prefill_attention", kv_cache, window)
+    reject_unported("segment_prefill_attention", window)
     if not q.is_cuda:
         return segment_prefill_attention_plain(
             q, kv_cache, seg_row, seg_cum, qinfo, layer, sm_scale=sm_scale)
@@ -266,5 +272,6 @@ def segment_prefill_attention(q, kv_cache, seg_row, seg_cum, qinfo,
     SEGMENT_PREFILL_ATTENTION(
         q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(), seg_row.data_ptr(),
         seg_cum.data_ptr(), S, qinfo.data_ptr(), Tq, Hq, Hkv, R, layer,
-        float(sm_scale), DTYPE_CODES[q.dtype], current_stream())
+        float(sm_scale), DTYPE_CODES[q.dtype], KV_DTYPE_CODES[kv_cache.dtype],
+        current_stream())
     return out

@@ -24,6 +24,8 @@ Decode: a block table is a row table at ``sub = block_size``, so
 clamped to the slot's last valid block (``paged_tile_rows``, JAX
 ``paged_attention.py:235-247``) and calls kernel C.
 
+The pool may be 1-byte (e4m3 or int8), as the arena (``ops/flash_prefill.py``).
+
 Dropped TPU devices: ``kv_fetch`` and ``PAGED_WIDE_TILE`` (E's key tile
 does not depend on the block size), ``max_kv_tiles`` and its buckets (the
 kernels loop to each run's or slot's live depth).
@@ -35,8 +37,8 @@ import ctypes
 
 import torch
 
-from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, CudaKernel,
-                                                 current_stream)
+from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, KV_DTYPE_CODES,
+                                                 CudaKernel, current_stream)
 from vattention_tpu_torch.ops.flash_decode import decode_attention
 from vattention_tpu_torch.ops.flash_prefill import (
     causal_prefill_plain, check_prefill_args, check_prefill_shapes,
@@ -48,14 +50,14 @@ PAGED_PREFILL_ATTENTION = CudaKernel(
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_void_p])
 
 PAGED_PREFILL_SINGLE = CudaKernel(
     "paged_prefill_attention", "vattn_paged_prefill_single", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def block_rows(table: torch.Tensor, n: int, block_size: int) -> torch.Tensor:
@@ -97,7 +99,8 @@ def paged_prefill_attention(q, kv_cache, qt_run, qinfo, block_tables,
         q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(), qt_run.data_ptr(),
         qinfo.data_ptr(), block_tables.data_ptr(), Tq, Hq, Hkv, pad_tile,
         block_tables.shape[1], block_size, R, layer, float(sm_scale),
-        DTYPE_CODES[q.dtype], current_stream())
+        DTYPE_CODES[q.dtype], KV_DTYPE_CODES[kv_cache.dtype],
+        current_stream())
     return out
 
 
@@ -119,7 +122,7 @@ def paged_prefill_attention_single(q, kv_cache, block_table, qinfo,
     kv_cache: [L, 2, Hkv, R, D]; block_table: [NB] block ids, qinfo: [2] =
     (q_start, kv_len) (int32) -> [Tq, Hq, D] in q's dtype.  CPU tensors
     take the plain version; CUDA tensors launch kernel H."""
-    reject_unported("paged_prefill_attention_single", kv_cache, window)
+    reject_unported("paged_prefill_attention_single", window)
     if not q.is_cuda:
         return paged_prefill_attention_single_plain(
             q, kv_cache, block_table, qinfo, layer, block_size=block_size,
@@ -138,7 +141,8 @@ def paged_prefill_attention_single(q, kv_cache, block_table, qinfo,
         q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(),
         block_table.data_ptr(), block_table.shape[0], block_size,
         qinfo.data_ptr(), Tq, Hq, Hkv, R, layer, float(sm_scale),
-        DTYPE_CODES[q.dtype], current_stream())
+        DTYPE_CODES[q.dtype], KV_DTYPE_CODES[kv_cache.dtype],
+        current_stream())
     return out
 
 

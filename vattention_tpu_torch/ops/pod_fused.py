@@ -33,8 +33,8 @@ from typing import Tuple
 
 import torch
 
-from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, CudaKernel,
-                                                 current_stream)
+from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, KV_DTYPE_CODES,
+                                                 CudaKernel, current_stream)
 from vattention_tpu_torch.ops.flash_decode import (check_decode_args,
                                                    decode_attention_plain,
                                                    decode_grid,
@@ -45,7 +45,7 @@ from vattention_tpu_torch.ops.flash_prefill import (check_prefill_args,
 P, I = ctypes.c_void_p, ctypes.c_int
 POD_ATTENTION = CudaKernel("pod_attention", "vattn_pod_attention", [
     P, P, P, P, P, P, P, P, P, P, I, P, I, P, I, I, I, I, I, I,
-    ctypes.c_longlong, I, ctypes.c_float, I, I, P])
+    ctypes.c_longlong, I, ctypes.c_float, I, I, I, P])
 
 
 def pod_attention_plain(q_prefill, q_decode, kv_cache, qt_run, qinfo,
@@ -107,5 +107,5 @@ def pod_attention(q_prefill, q_decode, kv_cache, qt_run, qinfo,
         dec_tile_rows.data_ptr(), dec_tile_rows.shape[1],
         dec_seqlens.data_ptr(), Tq, B, Hkv, G, sub, pad_tile, R, layer,
         float(sm_scale), n_dec, DTYPE_CODES[q_prefill.dtype],
-        current_stream())
+        KV_DTYPE_CODES[kv_cache.dtype], current_stream())
     return out_p, out_d

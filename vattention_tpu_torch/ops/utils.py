@@ -2,16 +2,63 @@
 
 The PyTorch port's counterparts of ``vattention_tpu/ops/utils.py``'s host
 helpers (``cdiv``, ``round_up``, ``select_kv_tile``,
-``tile_rows_from_segments``) and its finite mask value.  The TPU-only
-pieces of that module (VMEM limits, grid buckets, fp8 widening, in-kernel
-segment walks) have no counterpart here.
+``tile_rows_from_segments``) and its finite mask value, and the plain
+versions of the KV quantization that kernel A folds into its stores
+(``flush_fp8_subnormals`` and ``quantize_int8``, the JAX backend's
+``_flush_fp8_subnormals`` and ``_quantize_int8``) and of the widening the
+attention kernels apply to 1-byte K/V tiles (``widen_kv``).  The TPU-only
+pieces of that module (VMEM limits, grid buckets, the packed fp8 widening
+and its row permutation, in-kernel segment walks) have no counterpart
+here: every 1-byte widening in the port is exact.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+
+# |x| below this would store as an e4m3 denormal (largest denormal 7*2^-9;
+# the midpoint to the least normal 2^-6 is 15*2^-10): flushed to zero
+FP8_SUBNORMAL_CUTOFF = 15.0 * 2.0 ** -10
+FP8_MAX = 448.0
+INT8_CLIP = 127
+
+
+def flush_fp8_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32 or bfloat16) as e4m3: zero where |x| < the cutoff,
+    then rounded to nearest even, saturating at +-448 (where the JAX
+    package's ``astype`` gives NaN past 464).  The clamp makes the
+    saturation explicit: PyTorch's own cast of an overflow gives NaN in
+    some releases and 448 in others."""
+    x = torch.where(x.float().abs() < FP8_SUBNORMAL_CUTOFF,
+                    torch.zeros((), dtype=x.dtype), x)
+    return x.clamp(-FP8_MAX, FP8_MAX).to(torch.float8_e4m3fn)
+
+
+def quantize_int8(x: torch.Tensor, kv_scale: float) -> torch.Tensor:
+    """``clip(round(x / kv_scale), -127, 127)`` as int8: a true float32
+    division and round half to even, as ``jnp.round``."""
+    q = torch.round(x.float() / torch.tensor(kv_scale, dtype=torch.float32))
+    return torch.clamp(q, -INT8_CLIP, INT8_CLIP).to(torch.int8)
+
+
+def quantize_kv(x: torch.Tensor, dtype: torch.dtype,
+                kv_scale: float | None = None) -> torch.Tensor:
+    """``x`` as the arena stores it: e4m3 flushed and saturated, int8
+    scaled by ``kv_scale``, float32 and bfloat16 cast."""
+    if dtype == torch.float8_e4m3fn:
+        return flush_fp8_subnormals(x)
+    if dtype == torch.int8:
+        return quantize_int8(x, kv_scale)
+    return x.to(dtype)
+
+
+def widen_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """1-byte K/V to the compute dtype (exact for every finite e4m3
+    pattern and every int8 value)."""
+    return x.to(dtype)
 
 
 def cdiv(a: int, b: int) -> int:

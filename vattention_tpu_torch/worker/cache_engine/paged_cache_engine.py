@@ -4,9 +4,10 @@ Counterpart of ``vattention_tpu/worker/cache_engine/paged_cache_engine.py``.
 A pool of small blocks (16-256 tokens) on the device with per-sequence
 block tables, stored like the vattn arena: ``[L, 2, Hkv, num_blocks *
 block_size + block_size, Dp]`` (the extra block is the scratch block; Dp is
-the head dim rounded up to 128).  Block ``b`` holds rows ``[b*bs,
-(b+1)*bs)``; the paged kernels address it through the tables.  The free
-list, tables, slot map and OOM message are the JAX engine's.
+the head dim rounded up to 128), of the vattn arena's dtype.  Block ``b``
+holds rows ``[b*bs, (b+1)*bs)``; the paged kernels address it through the
+tables.  The free list, tables, slot map and OOM message are the JAX
+engine's.
 """
 
 from __future__ import annotations
@@ -21,12 +22,9 @@ from vattention_tpu_torch.core.datatypes.sequence import SequenceMetadata
 from vattention_tpu_torch.logger import init_logger
 from vattention_tpu_torch.ops.utils import cdiv
 from vattention_tpu_torch.worker.cache_engine.base_cache_engine import (
-    BaseCacheEngine,
-)
+    BaseCacheEngine, arena_dtype)
 
 logger = init_logger(__name__)
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class PagedCacheEngine(BaseCacheEngine):
@@ -37,12 +35,9 @@ class PagedCacheEngine(BaseCacheEngine):
         model_config = config.model_config
         cache_config = config.cache_config
         parallel_config = config.parallel_config
-        if cache_config.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={cache_config.kv_quant!r} is not ported yet "
-                "(ROADMAP Queue 1 item 10)")
         self.device = device
-        self.dtype = DTYPES[model_config.dtype]
+        # the arena's dtype, as the vattn arena's (A/B runs quantize both)
+        self.dtype, self.kv_scale = arena_dtype(config)
         self.num_layers = model_config.get_num_layers(parallel_config)
         self.num_kv_heads = model_config.get_num_kv_heads(parallel_config)
         self.head_size = model_config.get_head_size()

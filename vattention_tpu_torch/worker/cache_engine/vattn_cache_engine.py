@@ -2,7 +2,9 @@
 
 Counterpart of ``vattention_tpu/worker/cache_engine/vattn_cache_engine.py``.
 Owns the arena tensor ``[L, 2, Hkv, R + block_tokens, Dp]`` on the device
-(row R is the scratch row; Dp is the head dim rounded up to 128), maps
+(row R is the scratch row; Dp is the head dim rounded up to 128) in the
+model's dtype, or e4m3 or int8 under ``kv_quant`` (``arena_dtype``: 1-byte
+elements, so a page holds twice the tokens of a bf16 arena), maps
 sequences to batch slots through the Python allocator, calls
 ``step_async`` once per iteration, and applies any relocation plan in
 place through kernel D (``ops/arena_copy.arena_relocate``) before the
@@ -23,12 +25,9 @@ from vattention_tpu_torch.memory.allocator import VAttentionAllocator
 from vattention_tpu_torch.model_executor.attention import AttentionBackend
 from vattention_tpu_torch.ops.arena_copy import arena_relocate
 from vattention_tpu_torch.worker.cache_engine.base_cache_engine import (
-    BaseCacheEngine,
-)
+    BaseCacheEngine, arena_dtype)
 
 logger = init_logger(__name__)
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class VAttnCacheEngine(BaseCacheEngine):
@@ -39,16 +38,12 @@ class VAttnCacheEngine(BaseCacheEngine):
         model_config = config.model_config
         cache_config = config.cache_config
         parallel_config = config.parallel_config
-        if cache_config.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={cache_config.kv_quant!r} is not ported yet "
-                "(ROADMAP Queue 1 item 10)")
         if cache_config.use_native_allocator:
             raise NotImplementedError(
                 "the native allocator binding is not ported yet "
                 "(ROADMAP Queue 1 item 2)")
         self.device = device
-        self.dtype = DTYPES[model_config.dtype]
+        self.dtype, self.kv_scale = arena_dtype(config)
         self.num_layers = model_config.get_num_layers(parallel_config)
         self.num_kv_heads = model_config.get_num_kv_heads(parallel_config)
         self.head_size = model_config.get_head_size()
