@@ -118,8 +118,45 @@ printing a result.
     bound) and on an int8 arena (ctx 1024, 4096); G's and H's launches
     on 1-byte arenas are read there.
 
+(a w), (a w e4m3), (a w int8) The sliding window at mistral-7b's
+    attention geometry (Hq 32, Hkv 8, D 128, bf16 queries, window 4096) on
+    each arena: B at chunk 512 to kv_len 16384 and C at B = 8 to depth
+    16384 held against their windowed plain versions with (a)'s
+    tolerances; E (256-token blocks), G (8 extents), H and F on the same
+    rows, expected to equal B, B, E and B then C bit for bit; B and C
+    under a window past every depth equal to their unwindowed bits; the
+    edge cases of both bodies under windows 1, 63, 64, 65 and 4096.  Each
+    timed beside its plain version, its bound over the attended pairs
+    (4*Hq*D FLOPs each) and rows (2*Hkv*D elements each) and one SDPA call
+    on the gathered K/V (a boolean window mask for prefill, the last 4096
+    rows for decode; F none); B's and C's windowed times are logged beside
+    their unwindowed times at 4096 and 16384.
+(b w) (b)'s parity through tiny-mistral-debug (tiny-llama-debug with a
+    window of 96, which the 200-token prompt passes) on fa_vattn,
+    fa_paged_16 and fa_pod, f32, then on e4m3 and int8 arenas, against a
+    windowed dense reference; the windowed 1-byte instances' launches are
+    read here.
+(g) The slice's path at full width: mistral-7b (32 layers, its published
+    widths and window 4096, bf16, random weights from seed 0) through
+    LLMEngine with fa_vattn_2mb, sarathi chunk 512, max_model_len 16384:
+    8 requests of seeded prompt lengths in [5000, 12000] (all past the
+    window) and 32 greedy tokens, the launch counts zeroed just before and
+    read just after (A, B and C must launch; E, F, G and H not).  Each
+    request's first token is held within 0.25 logits of a windowed dense
+    reference in the model's bf16 arithmetic (attention in float32 by
+    blocks of 1024 queries), and the largest |windowed - unwindowed|
+    reference logit must exceed that gap; processed tok/s, the wall and
+    (p g), a profile of 2 requests of 6144 tokens, are printed.
+(g') The same requests through fa_paged_256 (E, A, C must launch) and
+    fa_pod (F, A, B, C; F's launches plus B's must equal B's in (g), and
+    F's plus C's C's), each held to (g)'s windowed reference; how many
+    tokens agree with (g)'s is printed.
+(f w) kernel_sweep --window 4096 --check at Hkv 8 on the bf16, e4m3 and
+    int8 arenas (ctx 4096, 16384; bf16 also 32768); G's and H's windowed
+    launches are read there.
+
 Kernels G (single-run arena prefill, rows from the extent table) and H
-(single-run paged prefill) run only in (a) and (f).  In (a) each is held
+(single-run paged prefill) run only in (a), (a w), (f) and (f w).  In (a) each is held
 against its plain version at B's shape (chunk 512 at kv_len 4096): G over
 8 extents of 512 tokens at 2048-token block starts, and against B on the
 same rows; H over a seeded permutation of 16- and 256-token blocks with
@@ -127,9 +164,11 @@ its tail poisoned to 2**30, and against E on one run (both expected bit for
 bit).
 
 Prints the phase results, then ``{"kernels": [...]}`` (A-H, then their
-e4m3 and int8 instances, ``<name>[e4m3]``; G's and H's launches from
-(f)), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+e4m3 and int8 instances, ``<name>[e4m3]``, then the windowed instances,
+``<name>[w4096]`` and ``<name>[e4m3 w4096]``, with launches from (g) and
+(g') for bf16 B, C, E, F, (b w) for the 1-byte ones and (f w) for G and
+H), the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -147,7 +186,7 @@ import torch
 
 try:
     from vattention_tpu_torch.microbenchmarks.decode_edges import (
-        EDGE_DEPTHS, check_decode_edges)
+        EDGE_DEPTHS, check_decode_edges, edge_depths)
     from vattention_tpu_torch.microbenchmarks.prefill_edges import (
         check_prefill_edges)
     from vattention_tpu_torch.microbenchmarks.timing import (
@@ -156,6 +195,9 @@ except ImportError as e:  # chip_smoke.py without the port beside it
     sys.exit(f"chip_smoke: the port is not importable here ({e})")
 
 PREFILL_TOL = DECODE_TOL = ATTN_TOL
+MISTRAL = dict(HQ=32, HKV=8, D=128)   # mistral-7b's attention geometry
+WINDOW = 4096                 # mistral-7b's sliding window
+EDGE_WINDOWS = (1, 63, 64, 65, WINDOW)
 LOGIT_GAP_TOL = 0.25          # engine token's logit vs the reference top
 YI = dict(L=32, HQ=32, HKV=4, D=128)
 INT8_STEP = 0.04              # KV_INT8_SCALE's default
@@ -1079,6 +1121,270 @@ def long_context(dev, cache, pool_rows, bt, timer, randn, layer):
             f"{b_ms:.4f} ({b_by})")
 
 
+# --------------------------------------------------------------------- #
+# (a w) the sliding window at Mistral-7B's attention geometry
+# --------------------------------------------------------------------- #
+def window_phase(dev, arena=torch.bfloat16):
+    """(a w) over an arena of dtype ``arena`` (bf16, or 1-byte as in (a)):
+    B at chunk 512 to kv_len 16384 and C at B = 8 to depth 16384, under
+    mistral-7b's window, each held against its windowed plain version; E
+    (256-token blocks), G (8 extents), H and F on the same rows, expected
+    to equal B, B, E and B then C bit for bit; B and C under a window past
+    every depth, expected to equal their unwindowed bits; the windowed
+    edge cases of both bodies.  Each kernel is timed beside its plain
+    version, one SDPA call on the gathered K/V (a boolean window mask for
+    prefill, the last ``window`` rows for decode) and its bound over the
+    attended pairs and rows; B and C also beside their unwindowed times at
+    4096 and 16384.  Returns the kernels' results."""
+    from vattention_tpu_torch.ops import (flash_decode, flash_prefill,
+                                          paged_attention, pod_fused)
+    from vattention_tpu_torch.ops.utils import quantize_kv
+
+    HQ, HKV, D = MISTRAL["HQ"], MISTRAL["HKV"], MISTRAL["D"]
+    W, N, chunk, bs = WINDOW, 16384, 512, 256
+    dt = torch.bfloat16
+    es = 2
+    main = arena == dt
+    kv_tag = "" if main else QUANT[arena][1]
+    suffix = f"[{kv_tag + ' ' if kv_tag else ''}w{W}]"
+    lbl = f"(a w{' ' + kv_tag if kv_tag else ''})"
+    step = INT8_STEP if arena == torch.int8 else None
+    sm = D ** -0.5 * (step or 1.0)
+    out_scale = step or 1.0
+    check = functools.partial(check_attention, scale=out_scale)
+    layer = 0
+    R = 36 * 2048
+    randn, i32 = seeded(dev, 8)
+    cache = randn(1, 2, HKV, R, D)
+    if not main:
+        cache = quantize_kv(cache, arena, step)
+    kv_es = cache.element_size()
+    timer = Timer(dev)
+    rng = np.random.default_rng(8)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    # the prefill run: 8 extents of 2048 tokens in no order
+    starts = rng.permutation(R // 2048)[:8]
+    pos = torch.arange(N, device=dev)
+    prow = torch.from_numpy(starts).to(dev).long()[pos // 2048] * 2048 \
+        + pos % 2048
+    q = randn(chunk, HQ, D)
+    qt_run = i32([[0, i] for i in range(chunk // 128)])
+
+    def run(q_start, kv_len):
+        return i32([[q_start, kv_len]])
+
+    trows = prow[::bs].to(torch.int32)[None].contiguous()
+    qinfo = run(N - chunk, N)
+    b_args = (q, cache, qt_run, qinfo, trows, layer)
+    bkw = dict(sub=bs, pad_tile=128, sm_scale=sm)
+    # the decode batch: each slot over a seeded permutation of 256-row blocks
+    depths = [0, 1, 17, 2048, W - 1, W + 1, 8192, N]
+    seqlens = i32(depths)
+    drows = i32(np.stack([rng.permutation(R // bs)[:N // bs] * bs
+                          for _ in depths]))
+    qd = randn(len(depths), HQ, D)
+    c_args = (qd, cache, drows, seqlens, layer)
+    ckw = dict(sub=bs, sm_scale=sm)
+
+    b = flash_prefill.prefill_attention(*b_args, **bkw, window=W)
+    c = flash_decode.decode_attention(*c_args, **ckw, window=W)
+    b_ref = flash_prefill.prefill_attention_plain(*b_args, **bkw, window=W)
+    c_ref = flash_decode.decode_attention_plain(*c_args, **ckw, window=W)
+    torch.cuda.synchronize()
+    err_b, rel_b = check(f"{lbl} B", b, b_ref, PREFILL_TOL)
+    if not torch.isfinite(c).all() or c[0].abs().max().item() != 0.0:
+        raise AssertionError(f"{lbl} decode: the seqlen-0 slot is not zero")
+    err_c, rel_c = 0.0, 0.0
+    for i, n in enumerate(depths):
+        if n:
+            e, r = check(f"{lbl} C slot {i} at depth {n}", c[i:i + 1],
+                         c_ref[i:i + 1], DECODE_TOL)
+            err_c, rel_c = max(err_c, e), max(rel_c, r)
+    # a window past every depth: the unwindowed bits
+    b_none = flash_prefill.prefill_attention(*b_args, **bkw)
+    c_none = flash_decode.decode_attention(*c_args, **ckw)
+    b_past = flash_prefill.prefill_attention(*b_args, **bkw, window=N)
+    c_past = flash_decode.decode_attention(*c_args, **ckw, window=N)
+    torch.cuda.synchronize()
+    if not (torch.equal(b_past, b_none) and torch.equal(c_past, c_none)):
+        raise AssertionError(f"{lbl} a window past every depth changes B's "
+                             "or C's bits")
+    log(f"{lbl} B (chunk {chunk} at kv_len {N}, window {W}): max abs err "
+        f"{err_b} (row worst {rel_b:.5f}); C (B=8, depths {depths}): max "
+        f"abs err {err_c} (row worst {rel_c:.5f}); window {N} equals no "
+        "window bit for bit in B and C")
+
+    # E, G, H and F on the same rows
+    table = (prow[::bs] // bs).to(torch.int32)[None].contiguous()
+    ekw = dict(block_size=bs, pad_tile=128, sm_scale=sm, window=W)
+    e = paged_attention.paged_prefill_attention(q, cache, qt_run, qinfo,
+                                                table, layer, **ekw)
+    seg_row = i32(starts * 2048)
+    seg_cum = i32(np.arange(9) * 2048)
+    qinfo1 = qinfo[0].clone()
+    g_args = (q, cache, seg_row, seg_cum, qinfo1, layer)
+    h_args = (q, cache, table[0].clone(), qinfo1, layer)
+    hkw = dict(block_size=bs, sm_scale=sm, window=W)
+    g = flash_prefill.segment_prefill_attention(*g_args, sm_scale=sm,
+                                                window=W)
+    h = paged_attention.paged_prefill_attention_single(*h_args, **hkw)
+    f_args = (q, qd, cache, qt_run, qinfo, trows, drows, seqlens, layer)
+    fkw = dict(sub=bs, pad_tile=128, sm_scale=sm, window=W)
+    f_p, f_d = pod_fused.pod_attention(*f_args, **fkw)
+    torch.cuda.synchronize()
+    for what, got, want in (("E = B", e, b), ("G = B", g, b), ("H = E", h, e),
+                            ("F = B", f_p, b), ("F = C", f_d, c)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{lbl} {what} fails: "
+                                 f"{(got.float() - want.float()).abs().max()}")
+    errs = {}
+    for name, got, ref in (
+            ("E", e, paged_attention.paged_prefill_attention_plain(
+                q, cache, qt_run, qinfo, table, layer, **ekw)),
+            ("G", g, flash_prefill.segment_prefill_attention_plain(
+                *g_args, sm_scale=sm, window=W)),
+            ("H", h, paged_attention.paged_prefill_attention_single_plain(
+                *h_args, **hkw))):
+        errs[name] = check(f"{lbl} {name}", got, ref, PREFILL_TOL)[0]
+    log(f"{lbl} E, G, H and F on B's rows and C's slots: E = B, G = B, "
+        f"H = E, F = B then C bit for bit; max abs err against the plain "
+        f"versions E {errs['E']}, G {errs['G']}, H {errs['H']}")
+
+    # yardsticks and bounds over the attended work
+    q_pos = N - chunk + torch.arange(chunk, device=dev)
+    lo = N - chunk - W + 1
+    kpos = torch.arange(lo, N, device=dev)
+    mask = (kpos[None, :] <= q_pos[:, None]) & (kpos[None, :]
+                                                > q_pos[:, None] - W)
+    pairs = int(mask.sum().item())
+    kg = cache[layer, 0][:, prow[lo:]][None].to(dt)
+    vg = cache[layer, 1][:, prow[lo:]][None].to(dt)
+    qg = q.transpose(0, 1)[None]
+    pre_bytes = 2 * chunk * HQ * D * es + (N - lo) * 2 * HKV * D * kv_es
+    b_ms, b_by = bound(pre_bytes, 4 * HQ * D * pairs)
+    rows_att = sum(min(n, W) for n in depths)
+    dec_bytes = rows_att * 2 * HKV * D * kv_es + 2 * 8 * HQ * D * es + 8 * 4
+    c_ms, c_by = bound(dec_bytes, 4 * HQ * D * rows_att)
+    f_ms, f_by = bound(pre_bytes + dec_bytes,
+                       4 * HQ * D * (pairs + rows_att))
+    kpad = torch.zeros((8, HKV, W, D), dtype=dt, device=dev)
+    vpad = torch.zeros_like(kpad)
+    for i, n in enumerate(depths):
+        if n:
+            p_ = torch.arange(max(0, n - W), n, device=dev)
+            r_ = drows[i].long()[p_ // bs] + p_ % bs
+            kpad[i, :, :len(p_)] = cache[layer, 0][:, r_]
+            vpad[i, :, :len(p_)] = cache[layer, 1][:, r_]
+    dmask = (torch.arange(W, device=dev)[None, :]
+             < torch.tensor([min(n, W) for n in depths],
+                            device=dev)[:, None])[:, None, None, :]
+
+    def pre_lib():
+        return sdpa(qg, kg, vg, attn_mask=mask, enable_gqa=True)
+
+    def dec_lib():
+        return sdpa(qd[:, :, None], kpad, vpad, attn_mask=dmask,
+                    enable_gqa=True)
+
+    shape_b = (f"chunk {chunk} at kv_len {N}, window {W}, Hq={HQ} Hkv={HKV} "
+               f"D={D} bf16, {cache.dtype} K/V")
+    results = []
+
+    def add(name, source, replaces, err, fn, plain, lib, bms, bby, shape):
+        res = dict(name=name + suffix, route="cuda", source=source,
+                   replaces=replaces, max_abs_err=err, ms=timer(fn),
+                   plain_ms=timer(plain, iters=3),
+                   library_ms=None if lib is None else timer(lib),
+                   bound_ms=bms, bound_by=bby, shape=shape)
+        results.append(res)
+        lib_s = "-" if lib is None else f"{res['library_ms']:.4f}"
+        log(f"{lbl} {res['name']}: {shape}: ms {res['ms']:.4f} plain "
+            f"{res['plain_ms']:.4f} library {lib_s} bound {bms:.4f} ({bby}, "
+            f"{100 * bms / res['ms']:.1f}%)")
+
+    add("prefill_attention", "vattention_tpu_torch/csrc/prefill_attention.cu",
+        "vattention_tpu/ops/flash_prefill.py:273", err_b,
+        lambda: flash_prefill.prefill_attention(*b_args, **bkw, window=W),
+        lambda: flash_prefill.prefill_attention_plain(*b_args, **bkw,
+                                                      window=W),
+        pre_lib, b_ms, b_by, shape_b)
+    add("decode_attention", "vattention_tpu_torch/csrc/decode_attention.cu",
+        "vattention_tpu/ops/flash_decode.py:157", err_c,
+        lambda: flash_decode.decode_attention(*c_args, **ckw, window=W),
+        lambda: flash_decode.decode_attention_plain(*c_args, **ckw,
+                                                    window=W),
+        dec_lib, c_ms, c_by,
+        f"B=8 depths {depths}, window {W}, sub {bs}, Hq={HQ} Hkv={HKV} "
+        f"D={D} bf16, {cache.dtype} K/V")
+    add("paged_prefill_attention",
+        "vattention_tpu_torch/csrc/paged_prefill_attention.cu",
+        "vattention_tpu/ops/paged_attention.py:107", errs["E"],
+        lambda: paged_attention.paged_prefill_attention(
+            q, cache, qt_run, qinfo, table, layer, **ekw),
+        lambda: paged_attention.paged_prefill_attention_plain(
+            q, cache, qt_run, qinfo, table, layer, **ekw),
+        pre_lib, b_ms, b_by, shape_b + f", {bs}-token blocks")
+    add("pod_attention", "vattention_tpu_torch/csrc/pod_attention.cu",
+        "vattention_tpu/ops/pod_fused.py:341", max(err_b, err_c),
+        lambda: pod_fused.pod_attention(*f_args, **fkw),
+        lambda: pod_fused.pod_attention_plain(*f_args, **fkw), None,
+        f_ms, f_by, shape_b + f" + B=8 depths {depths}")
+    add("segment_prefill_attention",
+        "vattention_tpu_torch/csrc/prefill_attention.cu",
+        "vattention_tpu/ops/flash_prefill.py:178", errs["G"],
+        lambda: flash_prefill.segment_prefill_attention(*g_args, sm_scale=sm,
+                                                        window=W),
+        lambda: flash_prefill.segment_prefill_attention_plain(
+            *g_args, sm_scale=sm, window=W),
+        pre_lib, b_ms, b_by, shape_b + ", 8 extents")
+    add("paged_prefill_attention_single",
+        "vattention_tpu_torch/csrc/paged_prefill_attention.cu",
+        "vattention_tpu/ops/paged_attention.py:32", errs["H"],
+        lambda: paged_attention.paged_prefill_attention_single(*h_args,
+                                                               **hkw),
+        lambda: paged_attention.paged_prefill_attention_single_plain(
+            *h_args, **hkw),
+        pre_lib, b_ms, b_by, shape_b + f", {bs}-token blocks")
+    del kg, vg, kpad, vpad
+
+    # the windowed walk against the unwindowed one at 4096 and 16384
+    b4 = (q, cache, qt_run, run(4096 - chunk, 4096), trows, layer)
+    clip = i32([min(n, W) for n in depths])
+    t = {"B w": results[0]["ms"],
+         "B 4096": timer(lambda: flash_prefill.prefill_attention(*b4, **bkw)),
+         "B 16384": timer(lambda: flash_prefill.prefill_attention(*b_args,
+                                                                  **bkw)),
+         "C w": results[1]["ms"],
+         "C 4096": timer(lambda: flash_decode.decode_attention(
+             qd, cache, drows, clip, layer, **ckw)),
+         "C 16384": timer(lambda: flash_decode.decode_attention(*c_args,
+                                                                **ckw))}
+    for k_ in ("B", "C"):
+        w_, a_, z_ = t[f"{k_} w"], t[f"{k_} 4096"], t[f"{k_} 16384"]
+        verdict = ("near the 4096 time: the tiles before the window are "
+                   "skipped" if abs(w_ - a_) < abs(w_ - z_) else
+                   "nearer the 16384 time: the tiles before the window "
+                   "are NOT skipped")
+        what = (f"chunk {chunk}" if k_ == "B" else
+                "B=8, depths clipped to the window for 4096")
+        log(f"{lbl} {k_} ({what}): window {W} at 16384 {w_:.4f} ms; no "
+            f"window at 4096 {a_:.4f} ms, at 16384 {z_:.4f} ms: {verdict}")
+
+    for w in EDGE_WINDOWS:
+        e1, r1 = check_prefill_edges(cache, HQ, layer, sm_scale=sm,
+                                     out_scale=out_scale, window=w)
+        e2, r2 = check_decode_edges(cache, layer, sm_scale=sm,
+                                    out_scale=out_scale, window=w)
+        log(f"{lbl} edge cases under window {w}: prefill body max abs err "
+            f"{e1} (row worst {r1:.5f}), E = B, F = B and C, G = B, H = E "
+            f"bit for bit; decode body (depths {edge_depths(w)}) max abs err "
+            f"{e2} (row worst {r2:.5f}), idle slots exactly zero")
+    del cache
+    torch.cuda.empty_cache()
+    return results
+
+
 def strict_relocation_plan(L, HKV, D, es, seed=0, blocks=14):
     """A relocation plan with chained moves from the allocator in strict
     contiguity (max_segments=1) on a seeded dynamic workload, plus the
@@ -1137,19 +1443,35 @@ def strict_relocation_plan(L, HKV, D, es, seed=0, blocks=14):
 # --------------------------------------------------------------------- #
 # dense references (plain PyTorch, float32)
 # --------------------------------------------------------------------- #
-def dense_logits(model, params, ids, dev, arena=None, dtype=torch.float32):
+def attend_blocked(q, k, v, sm_scale, window, block=1024):
+    """Causal attention of ``mha_reference`` (float32) by blocks of
+    ``block`` queries, each over the keys it can see (from ``q - window +
+    1`` under a window), so an 8K x 8K score tensor is never formed."""
+    from vattention_tpu_torch.ops.attention_ref import mha_reference
+
+    outs = []
+    for a in range(0, q.shape[0], block):
+        lo = max(0, a - window + 1) if window else 0
+        outs.append(mha_reference(q[a:a + block], k[lo:a + block],
+                                  v[lo:a + block], causal=True, q_start=a - lo,
+                                  sm_scale=sm_scale, window=window))
+    return torch.cat(outs)
+
+
+def dense_logits(model, params, ids, dev, arena=None, dtype=torch.float32,
+                 unwindowed=False):
     """Last-position logits of a full-recompute forward in ``dtype``
-    (float32, or the model's bfloat16 arithmetic), attention in float32;
-    with a 1-byte ``arena`` dtype, K and V go through the arena's round
-    trip (quantized as kernel A stores them, widened, times the int8
-    step)."""
+    (float32, or the model's bfloat16 arithmetic), attention in float32
+    under the model's sliding window (none with ``unwindowed``); with a
+    1-byte ``arena`` dtype, K and V go through the arena's round trip
+    (quantized as kernel A stores them, widened, times the int8 step)."""
     from vattention_tpu_torch.model_executor.layers.activation import (
         silu_and_mul)
     from vattention_tpu_torch.model_executor.layers.layernorm import rms_norm
-    from vattention_tpu_torch.ops.attention_ref import mha_reference
     from vattention_tpu_torch.ops.utils import quantize_kv
 
     step = INT8_STEP if arena == torch.int8 else None
+    window = None if unwindowed else model.arch.sliding_window
 
     def round_trip(x):
         if arena is None:
@@ -1170,8 +1492,7 @@ def dense_logits(model, params, ids, dev, arena=None, dtype=torch.float32):
         v = qkv[:, (model.hq + model.hkv) * D:].reshape(T, model.hkv, D)
         q, k = model.rope(positions, q, k)
         k, v = round_trip(k), round_trip(v)
-        attn = mha_reference(q, k, v, causal=True,
-                             sm_scale=model.sm_scale).to(dtype)
+        attn = attend_blocked(q, k, v, model.sm_scale, window).to(dtype)
         x = x + attn.reshape(T, model.hq * D) @ lp["o_w"][l].to(dtype)
         h2 = rms_norm(x, lp["post_norm"][l].to(dtype), a.rms_norm_eps)
         x = x + silu_and_mul(h2 @ lp["gate_up_w"][l].to(dtype)) \
@@ -1214,16 +1535,18 @@ def fresh_metrics():
 # --------------------------------------------------------------------- #
 # (b) f32 parity
 # --------------------------------------------------------------------- #
-def parity_phase(dev, backend, tag, arena=None, kernels=()):
-    """(b): greedy tokens of the f32 tiny model on ``backend`` against the
-    dense reference's; with a 1-byte ``arena`` (b8) the engine serves
+def parity_phase(dev, backend, tag, arena=None, kernels=(),
+                 model="tiny-llama-debug"):
+    """(b): greedy tokens of the f32 tiny ``model`` on ``backend`` against
+    the dense reference's (under the model's window, if any: (b w) serves
+    tiny-mistral-debug); with a 1-byte ``arena`` (b8) the engine serves
     ``kv_quant`` and the reference takes the arena's round trip.  Returns
     the launches of ``kernels``, zeroed just before serving."""
     from vattention_tpu_torch import LLMEngine
 
     fresh_metrics()
     engine = LLMEngine.from_engine_args(
-        model="tiny-llama-debug", dtype="float32", attention_backend=backend,
+        model=model, dtype="float32", attention_backend=backend,
         scheduler_type="sarathi", max_model_len=512, max_batch_size=4,
         max_num_seqs=4, chunk_size=128, gpu_memory_utilization=0.9,
         kv_quant=QUANT[arena][0] if arena is not None else "none")
@@ -1247,8 +1570,8 @@ def parity_phase(dev, backend, tag, arena=None, kernels=()):
         if got[seq_id] != expect:
             raise AssertionError(
                 f"({tag}) {seq_id}: engine {got[seq_id]} != dense {expect}")
-        log(f"({tag}) f32 parity, {backend}, {kv} arena, {seq_id}: engine "
-            f"== dense {expect}")
+        log(f"({tag}) f32 parity, {model}, {backend}, {kv} arena, "
+            f"{seq_id}: engine == dense {expect}")
     pod_steps = getattr(runner.backend, "pod_steps", None)
     if pod_steps is not None:
         log(f"({tag}) steps through kernel F: {pod_steps}")
@@ -1368,15 +1691,16 @@ def serving_phase(dev, kernels, backend, tag, required, idle,
     return counts, out
 
 
-def profile_serving(engine, rng, tag):
-    """Where the serving time goes: 4 requests of 2048 prompt tokens and 16
-    greedy tokens under torch.profiler; device time by kernel family and
+def profile_serving(engine, rng, tag, n=4, prompt=2048):
+    """Where the serving time goes: ``n`` requests of ``prompt`` tokens and
+    16 greedy tokens under torch.profiler; device time by kernel family and
     the device's busy share of the wall time (one stream, no overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = [(f"t{i}", rng.integers(1, 64000, 2048).tolist(), 16)
-            for i in range(4)]
+    vocab = engine.worker.model_runner.model.arch.vocab_size
+    reqs = [(f"t{i}", rng.integers(1, vocab, prompt).tolist(), 16)
+            for i in range(n)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1407,7 +1731,7 @@ def profile_serving(engine, rng, tag):
             families["matmul"] += ms
         else:
             families["other"] += ms
-    log(f"(p {tag}) profiled 4 x (2048 + 16) tokens: wall "
+    log(f"(p {tag}) profiled {n} x ({prompt} + 16) tokens: wall "
         f"{wall * 1e3:.1f} ms, "
         f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), "
         f"idle {100 - 100 * busy / (wall * 1e3):.1f}%; "
@@ -1502,6 +1826,146 @@ def harness_phase(kernels):
 
 
 # --------------------------------------------------------------------- #
+# (g) mistral-7b past its window
+# --------------------------------------------------------------------- #
+def mistral_phase(dev, kernels, backend, tag, required, idle,
+                  reference=None):
+    """Serve 8 requests of 5000-12000 prompt tokens (all past the 4096
+    window) and 32 greedy tokens through a fresh full-width mistral-7b
+    engine on ``backend``; the kernels named in ``required`` must launch
+    and those in ``idle`` not.  Each request's first token is held within
+    LOGIT_GAP_TOL of a windowed dense reference in the model's bf16
+    arithmetic, and the unwindowed reference's logits must differ from the
+    windowed one's by more than that gap.  ``reference`` is (g)'s (tokens,
+    windowed logits, max |windowed - unwindowed| per request): (g') holds
+    its first tokens to those logits and prints how many tokens agree
+    with (g)'s.  Returns (launch counts, reference)."""
+    from vattention_tpu_torch import LLMEngine
+    from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
+
+    fresh_metrics()
+    engine = LLMEngine.from_engine_args(
+        model="mistral-7b", dtype="bfloat16", attention_backend=backend,
+        scheduler_type="sarathi", chunk_size=512, max_model_len=16384,
+        max_batch_size=8, max_num_seqs=8, seed=0)
+    rng = np.random.default_rng(8)
+    lens = rng.integers(5000, 12001, 8)
+    vocab = engine.worker.model_runner.model.arch.vocab_size
+    requests = [(f"m{i}", rng.integers(1, vocab, int(n)).tolist(), 32)
+                for i, n in enumerate(lens)]
+    cache_engine = engine.worker.cache_engine
+    stats = {}
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = serve(engine, requests, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.symbol: k.launches for k in kernels}
+    moves = getattr(cache_engine, "pending_moves", 0)
+    n_gen = sum(len(v) for v in out.values())
+    n_prompt = int(lens.sum())
+    if len(out) != 8 or n_gen != 8 * 32:
+        raise AssertionError(f"({tag}) served {len(out)} requests, "
+                             f"{n_gen} tokens")
+    log(f"({tag}) mistral-7b (window "
+        f"{engine.worker.model_runner.model.arch.sliding_window}), {backend}: served "
+        f"{len(out)} requests in {stats['steps']} steps: prompt tokens "
+        f"{n_prompt} (lengths {lens.tolist()}), generated tokens {n_gen}, "
+        f"wall {wall:.3f} s, {n_gen / wall:.2f} generated tok/s, "
+        f"{(n_prompt + n_gen) / wall:.2f} processed tok/s; arena "
+        f"{cache_engine.kv_cache.dtype}, {cache_engine.block_tokens} tokens "
+        "per block")
+    log(f"({tag}) launches in the 8-request run: "
+        + ", ".join(f"{s_} {n}" for s_, n in counts.items())
+        + f"; the allocator planned {moves} block moves")
+    if any(counts[k.symbol] <= 0 for k in required):
+        raise AssertionError(f"({tag}) a kernel never launched: {counts}")
+    if any(counts[k.symbol] > 0 for k in idle):
+        raise AssertionError(f"({tag}) a kernel of another path launched: "
+                             f"{counts}")
+    relocate = ARENA_RELOCATE.symbol
+    if (counts[relocate] > 0) != (moves > 0):
+        raise AssertionError(f"({tag}) {moves} block moves but {relocate} "
+                             f"launched {counts[relocate]} times")
+
+    runner = engine.worker.model_runner
+    first = reference is None   # (g): the reference is computed here
+    if first:
+        windowed, delta = {}, {}
+        with torch.no_grad():
+            for seq_id, ids, _ in requests:
+                w = dense_logits(runner.model, runner.params, ids, dev,
+                                 dtype=torch.bfloat16)
+                u = dense_logits(runner.model, runner.params, ids, dev,
+                                 dtype=torch.bfloat16, unwindowed=True)
+                windowed[seq_id] = w
+                delta[seq_id] = float((w - u).abs().max())
+        reference = (out, windowed, delta)
+    else:
+        same = sum(a == b for s_ in out for a, b in zip(out[s_],
+                                                        reference[0][s_]))
+        log(f"({tag}) {same} of {n_gen} generated tokens equal (g)'s "
+            f"({same / n_gen:.3f}; information only)")
+    _, windowed, delta = reference
+    top = 0
+    for seq_id, ids, _ in requests:
+        tok = out[seq_id][0]
+        w = windowed[seq_id]
+        gap = float(w.max() - w[tok])
+        top += tok == int(w.argmax())
+        log(f"({tag}) {seq_id} ({len(ids)} tokens): engine token {tok}, "
+            f"windowed dense bf16 top {int(w.argmax())}, logit gap "
+            f"{gap:.5f} (tolerance {LOGIT_GAP_TOL}); max |windowed - "
+            f"unwindowed| reference logit {delta[seq_id]:.5f}")
+        if not gap <= LOGIT_GAP_TOL:
+            raise AssertionError(f"({tag}) {seq_id}: logit gap {gap}")
+        if not delta[seq_id] > gap:
+            raise AssertionError(f"({tag}) {seq_id}: the window moves the "
+                                 f"reference by {delta[seq_id]}, not more "
+                                 f"than the engine's gap {gap}")
+    log(f"({tag}) first tokens equal to the windowed reference's argmax: "
+        f"{top} of 8")
+    if first:
+        profile_serving(engine, rng, tag, n=2, prompt=6144)
+    engine.cleanup()
+    return counts, reference
+
+
+def window_sweeps(kernels):
+    """(f w) kernel_sweep --window 4096 --check at mistral-7b's attention
+    geometry (Hkv 8) on the bf16, e4m3 and int8 arenas, ctx 4096 and 16384
+    (bf16 also 32768): G and H under the window, and C over each
+    sequence's last 4096 positions, held against their plain versions.
+    Returns the launches of ``kernels`` (G, H) in each sweep, by arena
+    tag ("" for bf16), zeroed just before it."""
+    from vattention_tpu_torch.microbenchmarks import kernel_sweep
+
+    out = {}
+    for kv in ("bf16", "fp8", "int8"):
+        ctx = ["4096", "16384"] + (["32768"] if kv == "bf16" else [])
+        argv = ["--window", str(WINDOW), "--kv-heads", "8", "--kv-dtype", kv,
+                "--check", "--ctx", *ctx]
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        log(f"(f w) kernel_sweep {' '.join(argv)}")
+        kernel_sweep.main(argv)
+        torch.cuda.synchronize()
+        counts = {k.symbol: k.launches for k in kernels}
+        out["" if kv == "bf16" else QUANT[kernel_sweep.KV_DTYPES[kv]][1]] = \
+            counts
+        log(f"(f w) launches in the {kv} sweep: " + ", ".join(
+            f"{s_} {n}" for s_, n in counts.items()))
+        if any(n <= 0 for n in counts.values()):
+            raise AssertionError(f"(f w) a kernel never launched: {counts}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1537,6 +2001,8 @@ def main() -> int:
     results = kernel_phase(dev)
     for arena in QUANT:
         results += kernel_phase(dev, arena)
+    for arena in (torch.bfloat16, *QUANT):
+        results += window_phase(dev, arena)
     parity_phase(dev, "fa_vattn", "b")
     parity_phase(dev, "fa_paged_16", "b'")
     parity_phase(dev, "fa_pod", "b''")
@@ -1554,6 +2020,24 @@ def main() -> int:
                 counts_b8[tag][kernel.symbol] = counts[kernel.symbol]
                 if counts[kernel.symbol] <= 0:
                     raise AssertionError(f"(b8 {tag}) {kernel.symbol} never "
+                                         f"launched on {backend}")
+    # (b w): the windowed tiny model (window 96) on the three backends, f32
+    # and 1-byte arenas; the windowed 1-byte instances' launches come from
+    # here (fa_vattn: B and C; fa_paged_16: E; fa_pod: F)
+    counts_bw = {}
+    for arena in (None, *QUANT):
+        tag = "" if arena is None else QUANT[arena][1]
+        counts_bw[tag] = {}
+        for backend, used in (
+                ("fa_vattn", (PREFILL_ATTENTION, DECODE_ATTENTION)),
+                ("fa_paged_16", (PAGED_PREFILL_ATTENTION,)),
+                ("fa_pod", (POD_ATTENTION,))):
+            counts = parity_phase(dev, backend, f"b w {tag}".strip(), arena,
+                                  kernels, model="tiny-mistral-debug")
+            for k in used:
+                counts_bw[tag][k.symbol] = counts[k.symbol]
+                if counts[k.symbol] <= 0:
+                    raise AssertionError(f"(b w {tag}) {k.symbol} never "
                                          f"launched on {backend}")
     counts_c, tokens_c = serving_phase(
         dev, kernels, "fa_vattn_2mb", "c",
@@ -1594,8 +2078,39 @@ def main() -> int:
         raise AssertionError("(e) the fused launches do not add up to (c)'s")
     gc.collect()
     torch.cuda.empty_cache()
+    # (g): mistral-7b past its window, the slice's path at full width;
+    # (g') the same requests on the paged and POD backends
+    counts_g, ref_g = mistral_phase(
+        dev, kernels, "fa_vattn_2mb", "g",
+        required=[KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_gp, _ = mistral_phase(
+        dev, kernels, "fa_paged_256", "g' paged",
+        required=[KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION, *single],
+        reference=ref_g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_gf, _ = mistral_phase(
+        dev, kernels, "fa_pod", "g' pod",
+        required=[POD_ATTENTION, KV_APPEND, PREFILL_ATTENTION,
+                  DECODE_ATTENTION],
+        idle=[PAGED_PREFILL_ATTENTION, *single], reference=ref_g)
+    del ref_g
+    log(f"(g' pod) F + B = {counts_gf[f]} + {counts_gf[b]} against B in (g) "
+        f"{counts_g[b]}; F + C = {counts_gf[f]} + {counts_gf[c]} against C "
+        f"in (g) {counts_g[c]}")
+    if (counts_gf[f] + counts_gf[b] != counts_g[b]
+            or counts_gf[f] + counts_gf[c] != counts_g[c]):
+        raise AssertionError("(g' pod) the fused launches do not add up to "
+                             "(g)'s")
+    gc.collect()
+    torch.cuda.empty_cache()
     counts_f = harness_phase(single)
     counts_f8 = quant_sweeps(single)
+    counts_fw = window_sweeps(single)
 
     # launches: E's from the paged run (d), F's from the POD run (e), G's
     # and H's from the harnesses (f), A-D's from the vattn run (c); on
@@ -1619,6 +2134,22 @@ def main() -> int:
                       else counts_f8[tag] if k in single
                       else counts_c8[tag])
             launches[f"{name}[{tag}]"] = (k, source)
+    # the windowed instances: bf16 from (g) (B, C), (g') (E, F) and the
+    # windowed sweeps (G, H); 1-byte from (b w) and the windowed sweeps
+    for tag in ("", *(t_ for _, t_ in QUANT.values())):
+        by_kernel = {
+            PREFILL_ATTENTION: counts_g, DECODE_ATTENTION: counts_g,
+            PAGED_PREFILL_ATTENTION: counts_gp, POD_ATTENTION: counts_gf,
+        } if not tag else {k: counts_bw[tag] for k in (
+            PREFILL_ATTENTION, DECODE_ATTENTION, PAGED_PREFILL_ATTENTION,
+            POD_ATTENTION)}
+        for k in single:
+            by_kernel[k] = counts_fw[tag]
+        for k, counts in by_kernel.items():
+            name = next(n for n, (k_, _) in launches.items()
+                        if k_ is k and "[" not in n)
+            launches[f"{name}[{tag + ' ' if tag else ''}w{WINDOW}]"] = (
+                k, counts)
     for r in results:
         k, counts = launches[r["name"]]
         r["launches"] = counts[k.symbol]

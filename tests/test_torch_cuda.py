@@ -29,6 +29,12 @@ V row widened); C (every group, 16- and 256-row entries), B, E, G, H and F
 on 1-byte arenas are held against their plain versions as above, with
 G = B, H = E and F = B then C bit for bit; D moves 1-byte rows.  An int8
 arena's scores take sm_scale * 0.04, as the backends fold its step.
+
+Sliding windows: every kernel of both bodies against its windowed plain
+version at windows 1-300 (the edge cases at 1, 63, 64, 65 and 300, also
+on 1-byte arenas), with the same bit-for-bit identities, C captured in a
+CUDA graph under a window, and a window past every depth giving the
+unwindowed bits (B on the runs' real rows, C on every slot).
 """
 
 import numpy as np
@@ -197,14 +203,16 @@ def test_decode_attention_ignores_table_depth(dev):
     assert torch.equal(a, b)
 
 
-def test_decode_attention_captures_in_a_cuda_graph(dev):
+@pytest.mark.parametrize("window", [None, 100])
+def test_decode_attention_captures_in_a_cuda_graph(dev, window):
     """Kernel C's wrapper reads nothing back from the device: its call
     captures in a CUDA graph, one launch, and a replay after new depths
-    are written to ``seqlens`` plans over those depths on the device."""
+    are written to ``seqlens`` plans over those depths on the device (under
+    a sliding window too: the plan's first tiles come from the depths)."""
     q, cache, tile_rows, seqlens = _decode_case("edges", torch.bfloat16, 8,
                                                 16, dev)
     args = [q.to(dev), cache, tile_rows.to(dev), seqlens.to(dev), 0]
-    kw = dict(sub=16, sm_scale=D ** -0.5)
+    kw = dict(sub=16, sm_scale=D ** -0.5, window=window)
     decode_attention(*args, **kw)   # builds the kernel and its scratch
     torch.cuda.synchronize()
     before = DECODE_ATTENTION.launches
@@ -719,3 +727,121 @@ def test_quantized_body_edge_cases(dev, arena):
     check_prefill_edges(cache, 16, 0, sm_scale=_sm(arena),
                         out_scale=_step(arena))
     check_decode_edges(cache, 0, sm_scale=_sm(arena), out_scale=_step(arena))
+
+
+# ---------------------------------------------------------------------- #
+# sliding windows
+# ---------------------------------------------------------------------- #
+WINDOWS = [1, 63, 64, 65, 300]
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_windowed_body_edge_cases(dev, window):
+    """The bf16 prefill and decode bodies' edge cases under a sliding
+    window (G = 4): B against its plain version, E = B, F = B then C,
+    G = B and H = E bit for bit; C at depths around the window and the
+    64-position tiles, every group, 16- and 256-row entries, idle slots
+    exactly zero."""
+    rng = np.random.default_rng(15)
+    cache = torch.from_numpy(
+        rng.standard_normal((1, 2, HKV, 32768, D)).astype(np.float32)
+    ).to(device=dev, dtype=torch.bfloat16)
+    check_prefill_edges(cache, 8, 0, window=window)
+    check_decode_edges(cache, 0, window=window)
+
+
+@pytest.mark.parametrize("window", [1, 65, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_kernels_match_plain(dev, dtype, window):
+    """B, C, E, G, H and F under a sliding window against their windowed
+    plain versions (float32 1e-4, bfloat16 2e-2 on the runs' real rows),
+    with G = B, H = E and F = B then C bit for bit; and with a window past
+    every depth B and C give their unwindowed bits."""
+    rng = np.random.default_rng(16)
+    cache = _cache(rng, dtype, dev)
+    pad, bs = 128, 16
+    extents = [[(256, 256), (1024, 512)], [(2048, 256)], []]
+    qinfo = torch.tensor([[500, 700], [0, 60], [0, 0]], dtype=torch.int32)
+    qt_run = torch.tensor([[0, 0], [0, 1], [1, 0], [2, 0]],
+                          dtype=torch.int32)
+    rows = torch.from_numpy(_tables(extents, R // SUB))
+    dec_extents = [[(0, 512)], [(512, 256), (1280, 768)], [(2048, 256)],
+                   [(3072, 512)]]
+    seqlens = torch.tensor([500, 1000, 0, window + 1], dtype=torch.int32)
+    dec_rows = torch.from_numpy(_tables(dec_extents, R // SUB))
+    qp = torch.from_numpy(
+        rng.standard_normal((4 * pad, HQ, D)).astype(np.float32)).to(dtype)
+    qd = torch.from_numpy(
+        rng.standard_normal((4, HQ, D)).astype(np.float32)).to(dtype)
+    # block tables naming each run's rows, for E and H
+    tables = torch.zeros((3, 700 // bs + 1), dtype=torch.int32)
+    for r, n in enumerate(qinfo[:, 1].tolist()):
+        pos = torch.arange(0, n, bs)
+        tables[r, :len(pos)] = (rows[r].long()[pos // SUB] + pos % SUB) // bs
+    kw = dict(pad_tile=pad, sm_scale=D ** -0.5, window=window)
+    on = [x.to(dev) for x in (qp, qd, qt_run, qinfo, rows, dec_rows,
+                              seqlens, tables)]
+    dqp, dqd, dqt, dqi, drows, ddec, dseq, dtab = on
+    b = prefill_attention(dqp, cache, dqt, dqi, drows, 1, sub=SUB, **kw)
+    c = decode_attention(dqd, cache, ddec, dseq, 1, sub=SUB,
+                         sm_scale=D ** -0.5, window=window)
+    e = paged_prefill_attention(dqp, cache, dqt, dqi, dtab, 1,
+                                block_size=bs, **kw)
+    f_p, f_d = pod_attention(dqp, dqd, cache, dqt, dqi, drows, ddec, dseq,
+                             1, sub=SUB, **kw)
+    seg_row = torch.tensor([256, 1024], dtype=torch.int32, device=dev)
+    seg_cum = torch.tensor([0, 256, 768], dtype=torch.int32, device=dev)
+    one = dqi[0].clone()
+    g = segment_prefill_attention(dqp[:2 * pad], cache, seg_row, seg_cum,
+                                  one, 1, sm_scale=D ** -0.5, window=window)
+    h = paged_prefill_attention_single(dqp[:2 * pad], cache,
+                                       dtab[0].clone(), one, 1,
+                                       block_size=bs, sm_scale=D ** -0.5,
+                                       window=window)
+    wide = 4096   # past every depth here
+    b_wide = prefill_attention(dqp, cache, dqt, dqi, drows, 1, sub=SUB,
+                               **{**kw, "window": wide})
+    b_none = prefill_attention(dqp, cache, dqt, dqi, drows, 1, sub=SUB,
+                               **{**kw, "window": None})
+    c_wide = decode_attention(dqd, cache, ddec, dseq, 1, sub=SUB,
+                              sm_scale=D ** -0.5, window=wide)
+    c_none = decode_attention(dqd, cache, ddec, dseq, 1, sub=SUB,
+                              sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(e, b) and torch.equal(f_p, b) and torch.equal(f_d, c)
+    assert torch.equal(g, b[:2 * pad]) and torch.equal(h, e[:2 * pad])
+    assert torch.equal(c_wide, c_none)
+    real = [(0, 200), (2 * pad, 2 * pad + 60)]
+    for lo, hi in real:
+        assert torch.equal(b_wide[lo:hi], b_none[lo:hi])
+    exp_b = prefill_attention_plain(qp, cache.cpu(), qt_run, qinfo, rows, 1,
+                                    sub=SUB, **kw)
+    exp_c = decode_attention_plain(qd, cache.cpu(), dec_rows, seqlens, 1,
+                                   sub=SUB, sm_scale=D ** -0.5,
+                                   window=window)
+    exp_e = paged_prefill_attention_plain(qp, cache.cpu(), qt_run, qinfo,
+                                          tables, 1, block_size=bs, **kw)
+    b, c, e = b.cpu(), c.cpu(), e.cpu()
+    assert torch.equal(b[3 * pad:], torch.zeros_like(b[3 * pad:]))
+    assert torch.equal(c[2], torch.zeros_like(c[2]))
+    tol = TOL[dtype]
+    for lo, hi in real:
+        torch.testing.assert_close(b[lo:hi].float(), exp_b[lo:hi].float(),
+                                   atol=tol, rtol=tol)
+    torch.testing.assert_close(e[:200].float(), exp_e[:200].float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(c.float(), exp_c.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arena", QUANT)
+def test_quantized_windowed_edge_cases(dev, arena):
+    """The windowed edge cases of both bodies on a 1-byte arena (G = 8,
+    window 65)."""
+    rng = np.random.default_rng(17)
+    cache = _quant(torch.from_numpy(
+        rng.standard_normal((1, 2, HKV, 32768, D)).astype(np.float32)
+    ).to(dev), arena)
+    check_prefill_edges(cache, 16, 0, sm_scale=_sm(arena),
+                        out_scale=_step(arena), window=65)
+    check_decode_edges(cache, 0, sm_scale=_sm(arena), out_scale=_step(arena),
+                       window=65)

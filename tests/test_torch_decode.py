@@ -42,10 +42,20 @@ def cdiv(a, b):
     return -(-a // b)
 
 
-def split_plan(seqlens, hkv, grid):
+def first_tile(n, window):
+    """Twin of ``first_tile``: the first tile a slot at depth n walks."""
+    return (n - window) // DECODE_TILE if window and n > window else 0
+
+
+def live_tiles(n, window):
+    """Twin of ``live_tiles``: the tiles a slot at depth n walks."""
+    return cdiv(n, DECODE_TILE) - first_tile(n, window) if n > 0 else 0
+
+
+def split_plan(seqlens, hkv, grid, window=None):
     """Twin of ``make_plan``: every range (b, h, i, n, first tile, end
     tile) in range order, and c, a split's least tiles."""
-    tiles = [cdiv(n, DECODE_TILE) if n > 0 else 0 for n in seqlens]
+    tiles = [live_tiles(n, window) for n in seqlens]
     work = hkv * sum(tiles)
     live = hkv * sum(t > 0 for t in tiles)
     share = max(grid - live, grid // 2, 1)
@@ -53,18 +63,19 @@ def split_plan(seqlens, hkv, grid):
     ranges = []
     for b, t in enumerate(tiles):
         n = cdiv(t, per)
+        f = first_tile(seqlens[b], window)
         for h in range(hkv):
-            ranges += [(b, h, i, n, i * t // n, (i + 1) * t // n)
+            ranges += [(b, h, i, n, f + i * t // n, f + (i + 1) * t // n)
                        for i in range(n)]
     return ranges, per
 
 
-def find_range(r, seqlens, hkv, grid):
+def find_range(r, seqlens, hkv, grid, window=None):
     """Twin of ``find_range``: range r from the plan's prefix ``cum`` by
     the kernel's binary search."""
-    ranges, per = split_plan(seqlens, hkv, grid)
-    cum = np.cumsum([0] + [cdiv(cdiv(n, DECODE_TILE) if n > 0 else 0, per)
-                           * hkv for n in seqlens]).tolist()
+    ranges, per = split_plan(seqlens, hkv, grid, window)
+    cum = np.cumsum([0] + [cdiv(live_tiles(n, window), per) * hkv
+                           for n in seqlens]).tolist()
     lo, hi = 0, len(seqlens) - 1
     while lo < hi:
         mid = (lo + hi + 1) // 2
@@ -74,8 +85,9 @@ def find_range(r, seqlens, hkv, grid):
             hi = mid - 1
     n = (cum[lo + 1] - cum[lo]) // hkv
     h, i = divmod(r - cum[lo], n)
-    t = cdiv(seqlens[lo], DECODE_TILE)
-    return (lo, h, i, n, i * t // n, (i + 1) * t // n)
+    t = live_tiles(seqlens[lo], window)
+    f = first_tile(seqlens[lo], window)
+    return (lo, h, i, n, f + i * t // n, f + (i + 1) * t // n)
 
 
 def random_batches():
@@ -215,3 +227,70 @@ def test_split_partials_merge_to_the_plain_version(grid):
         sm_scale=sm).numpy()
     np.testing.assert_allclose(out, expect, atol=1e-5, rtol=1e-5)
     assert not out[0].any() and not out[5].any()
+
+
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 4096])
+@pytest.mark.parametrize("grid", [264, 3])
+@pytest.mark.parametrize("batch", range(len(random_batches())))
+def test_windowed_split_plan_covers_the_window_once(batch, grid, window):
+    """Under a sliding window each live (slot, head)'s ranges cover the
+    tiles from the one holding ``depth - window`` to the slot's last, once
+    and in order, so every attended position lies in exactly one range
+    and only the first tile holds positions below the window (masked in
+    the kernel); the plan is sized by the window: no more tiles than
+    cdiv(window, 64) + 1 per slot; the kernel's lookup finds every
+    range."""
+    seqlens = random_batches()[batch]
+    hkv = 4
+    ranges, per = split_plan(seqlens, hkv, grid, window)
+    assert per >= MIN_SPLIT_TILES
+    for b, n in enumerate(seqlens):
+        mine = [r for r in ranges if r[:2] == (b, 0)]
+        if n <= 0:
+            assert mine == []
+            continue
+        lo = max(0, n - window)
+        assert mine[0][4] == lo // DECODE_TILE
+        assert mine[-1][5] == cdiv(n, DECODE_TILE)
+        assert mine[-1][5] - mine[0][4] <= cdiv(window, DECODE_TILE) + 1
+        for prev, nxt in zip(mine, mine[1:]):
+            assert prev[5] == nxt[4]
+        assert all(lo_t < hi_t for *_, lo_t, hi_t in mine)
+    assert len(ranges) <= grid + len(seqlens) * hkv
+    for r in range(len(ranges)):
+        assert find_range(r, seqlens, hkv, grid, window) == ranges[r]
+
+
+@pytest.mark.parametrize("window", [1, 65, 300])
+def test_windowed_split_partials_merge_to_the_plain_version(window):
+    """The windowed plan's per-range partials over the positions in [max(0,
+    depth - window), depth) merge, in split order, to the windowed plain
+    version within 1e-5."""
+    rng = np.random.default_rng(4)
+    depths = [0, 1, 200, 700, 65, 1900]
+    q, cache, tile_rows, seqlens = make_inputs(rng, depths, R // SUB)
+    G = HQ // HKV
+    sm = D ** -0.5
+    out = np.zeros_like(q, dtype=np.float64)
+    parts = {}
+    for b, h, i, n, lo, hi in split_plan(depths, HKV, 3, window)[0]:
+        pos = np.arange(max(lo * DECODE_TILE, depths[b] - window),
+                        min(hi * DECODE_TILE, depths[b]))
+        rows = tile_rows[b][pos // SUB] + pos % SUB
+        k = cache[1, 0, h, rows].astype(np.float64)
+        v = cache[1, 1, h, rows].astype(np.float64)
+        s = q[b, h * G:(h + 1) * G].astype(np.float64) @ k.T * sm
+        m = s.max(1)
+        p = np.exp(s - m[:, None])
+        parts.setdefault((b, h), []).append((m, p.sum(1), p @ v))
+    for (b, h), ps in parts.items():
+        mx = np.max([m for m, _, _ in ps], 0)
+        lsum = sum(l * np.exp(m - mx) for m, l, _ in ps)
+        osum = sum(o * np.exp(m - mx)[:, None] for m, _, o in ps)
+        out[b, h * G:(h + 1) * G] = osum / lsum[:, None]
+    expect = decode_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(cache),
+        torch.from_numpy(tile_rows), torch.from_numpy(seqlens), 1, sub=SUB,
+        sm_scale=sm, window=window).numpy()
+    np.testing.assert_allclose(out, expect, atol=1e-5, rtol=1e-5)
+    assert not out[0].any()

@@ -122,7 +122,7 @@ def test_engine_defaults_to_cuda():
     dict(use_native_allocator=True),
     dict(model="falcon-7b-32k-l8"),
     dict(tensor_parallel_size=2),
-    dict(model="mistral-7b"),
+    dict(model="falcon-7b"),
 ])
 def test_unported_options_raise(kwargs):
     fresh_metrics()

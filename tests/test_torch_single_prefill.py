@@ -35,7 +35,7 @@ from vattention_tpu_torch.microbenchmarks import (bench_pagesize, bench_pod,
                                                   kernel_sweep,
                                                   probe_pod_depth)
 from vattention_tpu_torch.ops.flash_prefill import (
-    prefill_attention, segment_prefill_attention)
+    prefill_attention, segment_prefill_attention, segment_rows)
 from vattention_tpu_torch.ops.paged_attention import (
     paged_prefill_attention, paged_prefill_attention_single)
 from vattention_tpu_torch.ops.utils import tile_rows_from_segments
@@ -185,22 +185,35 @@ def test_paged_single_equals_e_on_one_run(bs):
 
 @pytest.mark.parametrize("kernel", ["G", "H"])
 def test_single_prefill_options_of_later_items_raise(kernel):
-    """Sliding windows come with ROADMAP Queue 1 item 12 (1-byte arenas
-    are served: tests/test_torch_quant.py)."""
-    _, _, (q, cache) = inputs(5, "float32", Tq=8)
-    seg_row, seg_cum = seg_tables([(0, 64)])
-
-    def call(kv, **kw):
+    """The sliding window, which G and H once refused (ROADMAP Queue 1 item
+    12), now ported: G's and H's windowed plain versions against
+    ``flash_prefill`` with the same ``window`` (the JAX paged kernel takes
+    none), on three tile-aligned extents -- H through a block table naming
+    the same rows -- at windows 1, 65 and 300, float32 within 1e-4, on the
+    chunk's real rows (a padding row at least ``window`` past kv_len sees
+    no key, which the JAX kernel leaves undefined)."""
+    extents, q_start, kv_len = SEGMENT_CASES["three_extents"]
+    _, (jq, jcache), (q, cache) = inputs(5, "float32")
+    seg_row, seg_cum = seg_tables(extents)
+    bs = 16
+    rows = segment_rows(t32(seg_row), t32(seg_cum), kv_len).numpy()
+    table = np.full(R // bs, POISON, np.int32)
+    table[:-(-kv_len // bs)] = rows[::bs] // bs
+    real = kv_len - q_start
+    for window in (1, 65, 300):
+        expect = flash_prefill(
+            jq, jcache, jnp.asarray(seg_row), jnp.asarray(seg_cum),
+            jnp.asarray([q_start, kv_len, 1], jnp.int32), q_tile=128,
+            kv_tile=KV_TILE, num_segments=S, window=window)
         if kernel == "G":
-            return segment_prefill_attention(q, kv, t32(seg_row),
-                                             t32(seg_cum), t32([56, 64]), 0,
-                                             sm_scale=SM, **kw)
-        return paged_prefill_attention_single(q, kv, t32([0]), t32([56, 64]),
-                                              0, block_size=64, sm_scale=SM,
-                                              **kw)
-
-    with pytest.raises(NotImplementedError, match="item 12"):
-        call(cache, window=32)
+            got = segment_prefill_attention(
+                q, cache, t32(seg_row), t32(seg_cum), t32([q_start, kv_len]),
+                1, sm_scale=SM, window=window)
+        else:
+            got = paged_prefill_attention_single(
+                q, cache, t32(table), t32([q_start, kv_len]), 1,
+                block_size=bs, sm_scale=SM, window=window)
+        close(got[:real], np.asarray(expect)[:real], "float32")
 
 
 # ---------------------------------------------------------------------- #

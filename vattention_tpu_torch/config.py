@@ -75,6 +75,12 @@ _ARCH_REGISTRY: Dict[str, ModelArch] = {
         "llama", num_layers=2, num_q_heads=4, num_kv_heads=2, head_dim=128,
         hidden_size=256, intermediate_size=688, vocab_size=2048,
         max_position_embeddings=8192),
+    # tiny-llama-debug with mistral's sliding window, cut to 96 positions
+    # so that short prompts reach past it (the port's chip_smoke)
+    "tiny-mistral-debug": ModelArch(
+        "mistral", num_layers=2, num_q_heads=4, num_kv_heads=2, head_dim=128,
+        hidden_size=256, intermediate_size=688, vocab_size=2048,
+        max_position_embeddings=8192, sliding_window=96),
     # head_dim 64: exercises the arena's 128-lane head padding path
     # (the opt-125m / falcon-7b geometry)
     "tiny-d64-debug": ModelArch(

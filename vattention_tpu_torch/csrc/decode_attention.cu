@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel flash_decode (_decode_kernel) of
 // vattention_tpu/ops/flash_decode.py.  Slot b's single query token (Hq
-// heads) attends arena rows of positions [0, seqlens[b]); position p lives
+// heads) attends arena rows of positions [0, seqlens[b]), or under a
+// sliding window [max(0, seqlens[b] - window), seqlens[b]); position p lives
 // at arena row tile_rows[b, p / sub] + p % sub (the host-resolved extent
 // table, ops/utils.tile_rows_from_segments).  Slots with seqlens[b] == 0
 // write zeros.  Queries and outputs float32 or bfloat16; the arena that
@@ -32,11 +33,11 @@ __global__ void __launch_bounds__(decode::kThreads) decode_attention_kernel(
     float* __restrict__ part, int* __restrict__ tickets,
     const int* __restrict__ tile_rows, const int* __restrict__ seqlens,
     int batch, int hkv, int n_sub, int sub, long long rows_total, int layer,
-    float sm_scale) {
+    float sm_scale, int window) {
   extern __shared__ __align__(128) unsigned char dec_smem[];
   decode::decode_blocks<T, KV, G>(q, cache, out, part, tickets, tile_rows,
                               seqlens, batch, hkv, n_sub, sub, rows_total,
-                              layer, sm_scale, blockIdx.x, gridDim.x,
+                              layer, sm_scale, window, blockIdx.x, gridDim.x,
                               dec_smem);
 }
 
@@ -44,7 +45,7 @@ template <typename T, typename KV, int G>
 int launch(const void* q, const void* cache, void* out, float* part,
            int* tickets, const int* tile_rows, const int* seqlens, int batch,
            int hkv, int n_sub, int sub, long long rows_total, int layer,
-           float sm_scale, int nblocks, cudaStream_t stream) {
+           float sm_scale, int window, int nblocks, cudaStream_t stream) {
   constexpr int smem = decode::kSmemBytes<T, KV>;
   const cudaError_t attr = cudaFuncSetAttribute(
       decode_attention_kernel<T, KV, G>,
@@ -53,7 +54,7 @@ int launch(const void* q, const void* cache, void* out, float* part,
   decode_attention_kernel<T, KV, G><<<nblocks, decode::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), part, tickets, tile_rows, seqlens, batch, hkv,
-      n_sub, sub, rows_total, layer, sm_scale);
+      n_sub, sub, rows_total, layer, sm_scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -62,16 +63,16 @@ int dispatch_group(int group, const void* q, const void* cache, void* out,
                    float* part, int* tickets, const int* tile_rows,
                    const int* seqlens, int batch, int hkv, int n_sub, int sub,
                    long long rows_total, int layer, float sm_scale,
-                   int nblocks, cudaStream_t s) {
+                   int window, int nblocks, cudaStream_t s) {
   switch (group) {
     case 1:
-      return launch<T, KV, 1>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
+      return launch<T, KV, 1>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, window, nblocks, s);
     case 2:
-      return launch<T, KV, 2>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
+      return launch<T, KV, 2>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, window, nblocks, s);
     case 4:
-      return launch<T, KV, 4>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
+      return launch<T, KV, 4>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, window, nblocks, s);
     case 8:
-      return launch<T, KV, 8>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, nblocks, s);
+      return launch<T, KV, 8>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, window, nblocks, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -85,26 +86,27 @@ int dispatch_group(int group, const void* q, const void* cache, void* out,
 // seqlen); seqlens: [batch] int32; part: float32 scratch, 16-byte
 // aligned, of (nblocks + batch * Hkv) * decode::kPartFloats<group>
 // (group * 130, rounded up to a multiple of 4) elements; tickets: batch *
-// Hkv int32 counters, 0 before the launch and 0 after it.  group (Hq/Hkv)
-// must be 1, 2, 4 or 8, batch at most 1024 and nblocks at most 1024.
+// Hkv int32 counters, 0 before the launch and 0 after it; window: the
+// sliding window (0: none).  group (Hq/Hkv) must be 1, 2, 4 or 8, batch at
+// most 1024 and nblocks at most 1024.
 extern "C" int vattn_decode_attention(const void* q, const void* cache,
                                       void* out, void* part, int* tickets,
                                       const int* tile_rows,
                                       const int* seqlens, int batch, int hkv,
                                       int group, int n_sub, int sub,
                                       long long rows_total, int layer,
-                                      float sm_scale, int nblocks, int dtype,
-                                      int kv_dtype, void* stream) {
+                                      float sm_scale, int window, int nblocks,
+                                      int dtype, int kv_dtype, void* stream) {
   if (batch <= 0) return 0;
   if (batch > decode::kMaxSlots || nblocks <= 0 ||
-      nblocks > decode::kMaxGrid || sub <= 0)
+      nblocks > decode::kMaxGrid || sub <= 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
 #define VATTN_DECODE(T, KV)                                                   \
   dispatch_group<T, KV>(group, q, cache, out, p, tickets, tile_rows, seqlens, \
                         batch, hkv, n_sub, sub, rows_total, layer, sm_scale,  \
-                        nblocks, s)
+                        window, nblocks, s)
   if (dtype != kFloat32 && dtype != kBFloat16)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool f32 = dtype == kFloat32;

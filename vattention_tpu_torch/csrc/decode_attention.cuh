@@ -5,20 +5,27 @@
 // Both replace the TPU's _decode_kernel of vattention_tpu/ops/flash_decode.py
 // (F its decode stream inside _pod_kernel of ops/pod_fused.py).  Slot b's
 // single query token (Hq heads) attends arena rows of positions
-// [0, seqlens[b]); position p lives at arena row tile_rows[b, p / sub] +
-// p % sub.  Slots with seqlens[b] <= 0 write zeros, never NaN.
+// [lo_b, seqlens[b]), lo_b = max(0, seqlens[b] - window) under a sliding
+// window (window > 0; the JAX kernel's kv_pos >= kv_len - window,
+// flash_decode.py:120-121), else 0; position p lives at arena row
+// tile_rows[b, p / sub] + p % sub.  Slots with seqlens[b] <= 0 write zeros,
+// never NaN.
 //
 // Bound: bytes.  Every live K and V row is read once (2*Hkv*D elements per
 // position) for G = Hq/Hkv heads: ~2G FLOPs per byte, far below the ridge.
 //
 // Split plan (`make_plan`, the same in every block; tests/test_torch_decode.py
 // has a plain Python twin).  Work is counted in tiles of kTile = 64
-// positions: slot b has t_b = cdiv(seqlens[b], 64) tiles per kv head, W =
+// positions: slot b walks tiles [f_b, cdiv(seqlens[b], 64)), f_b =
+// floor(lo_b / 64) (`first_tile`), so t_b = cdiv(seqlens[b], 64) - f_b
+// tiles per kv head (`live_tiles`: a window sizes the plan, not the depth;
+// only a slot's first tile holds positions below lo_b, masked there), W =
 // Hkv * sum t_b in all, and SH = Hkv * #{b : t_b > 0} live (slot, head)
 // pairs.  With P blocks (the wrapper gives a fixed multiple of the SM count,
 // whatever the table's depth), a split takes at least c = max(kMinTiles,
 // cdiv(W, max(P - SH, P / 2, 1))) tiles, so (slot, head) (b, h) has n_b =
-// cdiv(t_b, c) splits, split i covering tiles [i*t_b/n_b, (i+1)*t_b/n_b).
+// cdiv(t_b, c) splits, split i covering tiles f_b + [i*t_b/n_b,
+// (i+1)*t_b/n_b).
 // Ranges are numbered slot-major, then head, then split; at most P + B*Hkv
 // exist (at most P when SH <= P/2), and block j runs ranges j, j + P, ...
 // No range crosses a slot, idle slots get none.  Each block reads seqlens
@@ -203,6 +210,14 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 __device__ __forceinline__ int tiles_of(int n) {
   return n > 0 ? (n + kTile - 1) / kTile : 0;
 }
+// the first tile a slot at depth n walks under `window` (0: none), and the
+// number of tiles it walks
+__device__ __forceinline__ int first_tile(int n, int window) {
+  return window > 0 && n > window ? (n - window) / kTile : 0;
+}
+__device__ __forceinline__ int live_tiles(int n, int window) {
+  return n > 0 ? tiles_of(n) - first_tile(n, window) : 0;
+}
 
 // exclusive prefix of v over the body's threads; `total` gets the sum
 __device__ __forceinline__ int block_scan(int v, int* red, int& total) {
@@ -232,14 +247,14 @@ __device__ __forceinline__ int block_scan(int v, int* red, int& total) {
 // the number of ranges, which it returns.  Every thread of the body calls
 // it.
 __device__ __forceinline__ int make_plan(const int* __restrict__ seqlens,
-                                          int batch, int hkv, int nblocks,
-                                          int* cum, int* red) {
+                                          int batch, int hkv, int window,
+                                          int nblocks, int* cum, int* red) {
   const int per_thread = (batch + kThreads - 1) / kThreads;
   const int b0 = min(batch, static_cast<int>(threadIdx.x) * per_thread);
   const int b1 = min(batch, b0 + per_thread);
   int w = 0, live = 0;
   for (int b = b0; b < b1; ++b) {
-    const int t = tiles_of(seqlens[b]);
+    const int t = live_tiles(seqlens[b], window);
     w += t;
     live += t > 0;
   }
@@ -253,12 +268,12 @@ __device__ __forceinline__ int make_plan(const int* __restrict__ seqlens,
                                        (W + share - 1) / share));
   int mine = 0;
   for (int b = b0; b < b1; ++b)
-    mine += (tiles_of(seqlens[b]) + per - 1) / per * hkv;
+    mine += (live_tiles(seqlens[b], window) + per - 1) / per * hkv;
   int ranges;
   int at = block_scan(mine, red, ranges);
   for (int b = b0; b < b1; ++b) {
     cum[b] = at;
-    at += (tiles_of(seqlens[b]) + per - 1) / per * hkv;
+    at += (live_tiles(seqlens[b], window) + per - 1) / per * hkv;
   }
   if (threadIdx.x == 0) cum[batch] = ranges;
   sync();
@@ -268,12 +283,12 @@ __device__ __forceinline__ int make_plan(const int* __restrict__ seqlens,
 struct Range {
   int b, h;    // slot, kv head
   int i, n;    // split i of the slot-head's n
-  int lo, hi;  // its tiles
+  int lo, hi;  // its tiles (absolute: first_tile is already added)
   int first;   // range index of split 0 of (b, h)
 };
 
 __device__ __forceinline__ Range find_range(int r, const int* cum, int batch,
-                                            int hkv,
+                                            int hkv, int window,
                                             const int* __restrict__ seqlens) {
   // the last slot whose first range is at or before r (idle slots own no
   // range, so ties resolve to the live slot after them)
@@ -292,9 +307,10 @@ __device__ __forceinline__ Range find_range(int r, const int* cum, int batch,
   g.h = within / g.n;
   g.i = within - g.h * g.n;
   g.first = r - g.i;
-  const long long t = tiles_of(seqlens[lo]);
-  g.lo = static_cast<int>(g.i * t / g.n);
-  g.hi = static_cast<int>((g.i + 1) * t / g.n);
+  const long long t = live_tiles(seqlens[lo], window);
+  const int f = first_tile(seqlens[lo], window);
+  g.lo = f + static_cast<int>(g.i * t / g.n);
+  g.hi = f + static_cast<int>((g.i + 1) * t / g.n);
   return g;
 }
 
@@ -305,8 +321,8 @@ template <typename T, typename KV, int G>
 __device__ __forceinline__ void warp_range(
     const T* __restrict__ q, const KV* __restrict__ cache,
     const int* __restrict__ tile_rows, int hkv, int n_sub, int sub,
-    long long rows_total, int layer, float sm_scale, const Range& rg, int n,
-    unsigned char* ring_ptr, float* qs, float* pw) {
+    long long rows_total, int layer, float sm_scale, const Range& rg, int lo,
+    int n, unsigned char* ring_ptr, float* qs, float* pw) {
   constexpr int S = kStages;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -320,11 +336,13 @@ __device__ __forceinline__ void warp_range(
   const int pos0 = rg.lo * kTile + kWarpPos * warp;  // the warp's first position
   const float scale = score_scale<T>(sm_scale);
 
-  // arena row of the warp's position lane % 16 of tile j (-1 past the depth)
+  // arena row of the warp's position lane % 16 of tile j (-1 outside the
+  // slot's positions [lo, n))
   auto row_at = [&](int j) -> long long {
     const int p = pos0 + j * kTile + (lane & 15);
-    return (j < ntiles && p < n) ? static_cast<long long>(trow[p / sub]) + p % sub
-                                 : -1;
+    return (j < ntiles && p < n && p >= lo)
+               ? static_cast<long long>(trow[p / sub]) + p % sub
+               : -1;
   };
   // tile j's 16 K and V rows into stage j % S (an empty group past the range)
   auto issue = [&](int j, long long mine) {
@@ -463,7 +481,7 @@ __device__ __forceinline__ void warp_range(
       }
       // the online softmax, once per tile per head
       const int pa = pos0 + j * kTile + (lane >> 2);
-      const bool va = pa < n, vb = pa + 8 < n;
+      const bool va = pa >= lo && pa < n, vb = pa + 8 >= lo && pa + 8 < n;
       float alpha[2], p_a[2], p_b[2];
 #pragma unroll
       for (int gi = 0; gi < 2; ++gi) {
@@ -561,7 +579,8 @@ __device__ __forceinline__ void warp_range(
       __syncwarp();
       const float* kst = reinterpret_cast<const float*>(stage_of(j));
       const float* vst = kst + kWarpPos * (kRowBytes<T> / 4);
-      const bool valid = pos0 + j * kTile + p < n;
+      const int pj = pos0 + j * kTile + p;
+      const bool valid = pj >= lo && pj < n;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int g = gs + 2 * u;
@@ -701,14 +720,14 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ src,
 // over `smem` (kSmemBytes<T, KV>, 128-byte aligned), nblocks <= kMaxGrid.
 // `part` (16-byte aligned) holds kPartFloats<G> floats for each of
 // nblocks + batch*hkv ranges; `tickets` batch*hkv counters, 0 before the
-// launch and 0 after it.
+// launch and 0 after it; `window` the sliding window (0: none).
 template <typename T, typename KV, int G>
 __device__ __forceinline__ void decode_blocks(
     const T* __restrict__ q, const KV* __restrict__ cache, T* __restrict__ out,
     float* __restrict__ part, int* __restrict__ tickets,
     const int* __restrict__ tile_rows, const int* __restrict__ seqlens,
     int batch, int hkv, int n_sub, int sub, long long rows_total, int layer,
-    float sm_scale, int blk, int nblocks, unsigned char* smem) {
+    float sm_scale, int window, int blk, int nblocks, unsigned char* smem) {
   static_assert(G >= 1 && G <= kMaxGroup, "group");
   static_assert(kStateFloats * 4 <= kWarpRing<T, KV>,
                 "a warp's state fits in its ring");
@@ -730,11 +749,12 @@ __device__ __forceinline__ void decode_blocks(
     T* o = out + static_cast<long long>(bh) * G * kD;
     for (int idx = tid; idx < G * kD; idx += kThreads) o[idx] = from_float<T>(0.f);
   }
-  const int ranges = make_plan(seqlens, batch, hkv, nblocks, cum, red);
+  const int ranges = make_plan(seqlens, batch, hkv, window, nblocks, cum, red);
 
   for (int r = blk; r < ranges; r += nblocks) {
-    const Range rg = find_range(r, cum, batch, hkv, seqlens);
+    const Range rg = find_range(r, cum, batch, hkv, window, seqlens);
     const int n = seqlens[rg.b];
+    const int lo = window > 0 ? max(0, n - window) : 0;
     T* o = out + (static_cast<long long>(rg.b) * hq + rg.h * G) * kD;
     if constexpr (!kBf16<T>) {
       const T* qg = q + (static_cast<long long>(rg.b) * hq + rg.h * G) * kD;
@@ -742,10 +762,11 @@ __device__ __forceinline__ void decode_blocks(
       sync();
     }
     warp_range<T, KV, G>(q, cache, tile_rows, hkv, n_sub, sub, rows_total, layer,
-                     sm_scale, rg, n, ring, qs, pw);
+                     sm_scale, rg, lo, n, ring, qs, pw);
     sync();
     // merge the warps' states, in warp order; warps that saw no position
-    // (max -inf) add nothing; warp 0 always saw the range's first position
+    // (max -inf) add nothing; some warp saw one (every range holds a
+    // position in [lo, n): split 0 starts at lo's tile)
     float* dst = part + static_cast<long long>(r) * kPartFloats<G>;
     for (int idx = tid; idx < G * kD; idx += kThreads) {
       const int g = idx / kD;

@@ -20,31 +20,34 @@
 // q, out: [num_tokens, hq, 128]; cache: [L, 2, hkv, rows_total, 128] of
 // kv_dtype (dtype, e4m3 or int8);
 // qt_run: [num_tokens / pad_tile, 2]; qinfo: [K, 2]; block_tables: [K, nb]
-// block ids (all int32).  hq/hkv must divide R (128 in bf16, 64 in f32),
-// and R/(hq/hkv) must divide pad_tile, which must divide num_tokens.
+// block ids (all int32); window: the sliding window (0: none).  hq/hkv
+// must divide R (128 in bf16, 64 in f32), and R/(hq/hkv) must divide
+// pad_tile, which must divide num_tokens.
 extern "C" int vattn_paged_prefill_attention(
     const void* q, const void* cache, void* out, const int* qt_run,
     const int* qinfo, const int* block_tables, int num_tokens, int hq,
     int hkv, int pad_tile, int nb, int block_size, long long rows_total,
-    int layer, float sm_scale, int dtype, int kv_dtype, void* stream) {
+    int layer, float sm_scale, int window, int dtype, int kv_dtype,
+    void* stream) {
   if (nb <= 0 || block_size <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return vattn::prefill::launch(
       q, cache, out, vattn::prefill::RunTiles{qt_run}, qinfo,
       vattn::prefill::BlockTables{block_tables, nb, block_size}, num_tokens,
-      hq, hkv, pad_tile, rows_total, layer, sm_scale, dtype, kv_dtype, stream);
+      hq, hkv, pad_tile, rows_total, layer, sm_scale, window, dtype, kv_dtype,
+      stream);
 }
 
 // q, out: [num_tokens, hq, 128] at positions qinfo[0] + [0, num_tokens);
 // cache: [L, 2, hkv, rows_total, 128] of kv_dtype (dtype, e4m3 or int8);
-// block_table: [nb] block ids; qinfo: [2] = (q_start, kv_len) (all int32).
-// hq/hkv must divide R (128 in bf16, 64 in f32), and R/(hq/hkv) must divide
-// num_tokens.
+// block_table: [nb] block ids; qinfo: [2] = (q_start, kv_len) (all int32);
+// window: the sliding window (0: none).  hq/hkv must divide R (128 in bf16,
+// 64 in f32), and R/(hq/hkv) must divide num_tokens.
 extern "C" int vattn_paged_prefill_single(
     const void* q, const void* cache, void* out, const int* block_table,
     int nb, int block_size, const int* qinfo, int num_tokens, int hq,
-    int hkv, long long rows_total, int layer, float sm_scale, int dtype,
-    int kv_dtype, void* stream) {
+    int hkv, long long rows_total, int layer, float sm_scale, int window,
+    int dtype, int kv_dtype, void* stream) {
   using namespace vattn::prefill;
   const int rows = block_rows(dtype);
   if (nb <= 0 || block_size <= 0 || hkv <= 0 || hq % hkv != 0 || hq < hkv ||
@@ -52,6 +55,6 @@ extern "C" int vattn_paged_prefill_single(
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, cache, out, OneRun{}, qinfo,
                 BlockTables{block_table, nb, block_size}, num_tokens, hq, hkv,
-                rows / (hq / hkv), rows_total, layer, sm_scale, dtype,
+                rows / (hq / hkv), rows_total, layer, sm_scale, window, dtype,
                 kv_dtype, stream);
 }

@@ -6,9 +6,10 @@
 // (prefill_attention.cuh: K runs, qt_run/qinfo, rows through the arena's
 // row table, the empty run giving zeros); the decode part is kernel C's
 // (decode_attention.cuh: slot b attends positions [0, seqlens[b]), idle
-// slots give zeros).  The bodies are shared unchanged, so F's prefill
-// output equals B's and its decode output C's, bit for bit, on the same
-// inputs.
+// slots give zeros).  One sliding window, if any, goes to both parts (the
+// TPU kernel takes none).  The bodies are shared unchanged, so F's
+// prefill output equals B's and its decode output C's, bit for bit, on
+// the same inputs.
 //
 // Bound: operations at serving depths.  Both phases together move the
 // prefill queries and outputs, every live K/V row of the prefill runs and
@@ -78,8 +79,8 @@ __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
     const int* __restrict__ pre_rows, int pre_n_sub,
     const int* __restrict__ dec_rows, int dec_n_sub,
     const int* __restrict__ seqlens, int hkv, int sub, int pad_tile,
-    long long rows_total, int layer, float sm_scale, int n_tiles, int batch,
-    int n_dec) {
+    long long rows_total, int layer, float sm_scale, int window, int n_tiles,
+    int batch, int n_dec) {
   extern __shared__ __align__(128) unsigned char pod_smem[];
   const int hq = hkv * G;
   const long long n_pre = static_cast<long long>(n_tiles) * hkv;
@@ -94,11 +95,11 @@ __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
     if constexpr (kTensorCores<T>)
       prefill::prefill_tile_tc(qp, cache, op, prefill::RunTiles{qt_run},
                                qinfo, rows, hq, hkv, pad_tile, rows_total,
-                               layer, sm_scale, tile, h, pod_smem);
+                               layer, sm_scale, window, tile, h, pod_smem);
     else
       prefill::prefill_tile<T>(qp, cache, op, prefill::RunTiles{qt_run},
                                qinfo, rows, hq, hkv, pad_tile, rows_total,
-                               layer, sm_scale, tile, h, threadIdx.x,
+                               layer, sm_scale, window, tile, h, threadIdx.x,
                                reinterpret_cast<float*>(pod_smem));
     return;
   }
@@ -107,8 +108,8 @@ __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
   if (threadIdx.x >= decode::kThreads) return;
   decode::decode_blocks<T, KV, G>(qd, cache, od, part, tickets, dec_rows, seqlens,
                               batch, hkv, dec_n_sub, sub, rows_total, layer,
-                              sm_scale, static_cast<int>(t - n_pre), n_dec,
-                              pod_smem);
+                              sm_scale, window, static_cast<int>(t - n_pre),
+                              n_dec, pod_smem);
 }
 
 template <typename T, typename KV, int G>
@@ -117,7 +118,8 @@ int launch(const void* qp, const void* qd, const void* cache, void* op,
            const int* qinfo, const int* pre_rows, int pre_n_sub,
            const int* dec_rows, int dec_n_sub, const int* seqlens, int n_tiles,
            int batch, int hkv, int sub, int pad_tile, long long rows_total,
-           int layer, float sm_scale, int n_dec, cudaStream_t stream) {
+           int layer, float sm_scale, int window, int n_dec,
+           cudaStream_t stream) {
   constexpr int smem = smem_bytes<T, KV>();
   const cudaError_t attr = cudaFuncSetAttribute(
       pod_attention_kernel<T, KV, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -129,8 +131,8 @@ int launch(const void* qp, const void* qd, const void* cache, void* op,
       static_cast<const T*>(qp), static_cast<const T*>(qd),
       static_cast<const KV*>(cache), static_cast<T*>(op), static_cast<T*>(od),
       part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub,
-      seqlens, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_tiles, batch,
-      n_dec);
+      seqlens, hkv, sub, pad_tile, rows_total, layer, sm_scale, window, n_tiles,
+      batch, n_dec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -141,16 +143,17 @@ int dispatch_group(int group, const void* qp, const void* qd,
                    const int* pre_rows, int pre_n_sub, const int* dec_rows,
                    int dec_n_sub, const int* seqlens, int n_tiles, int batch,
                    int hkv, int sub, int pad_tile, long long rows_total,
-                   int layer, float sm_scale, int n_dec, cudaStream_t s) {
+                   int layer, float sm_scale, int window, int n_dec,
+                   cudaStream_t s) {
   switch (group) {
     case 1:
-      return launch<T, KV, 1>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
+      return launch<T, KV, 1>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, window, n_dec, s);
     case 2:
-      return launch<T, KV, 2>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
+      return launch<T, KV, 2>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, window, n_dec, s);
     case 4:
-      return launch<T, KV, 4>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
+      return launch<T, KV, 4>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, window, n_dec, s);
     case 8:
-      return launch<T, KV, 8>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, n_dec, s);
+      return launch<T, KV, 8>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, window, n_dec, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -166,9 +169,9 @@ int dispatch_group(int group, const void* qp, const void* qd,
 // (all int32).  n_dec: the decode blocks (kernel C's grid; 0 when batch
 // is 0; at most 1024).  part: float32 scratch as kernel C's, of (n_dec +
 // batch * hkv) partials; tickets: batch * hkv int32 counters, 0 before the launch and 0
-// after it.  group must be 1, 2, 4 or 8 and batch at most 1024; R/group (R
-// = 128 in bf16, 64 in f32) must divide pad_tile, which must divide
-// num_tokens.
+// after it; window: the sliding window of both roles (0: none).  group
+// must be 1, 2, 4 or 8 and batch at most 1024; R/group (R = 128 in bf16, 64
+// in f32) must divide pad_tile, which must divide num_tokens.
 extern "C" int vattn_pod_attention(
     const void* q_prefill, const void* q_decode, const void* cache,
     void* out_prefill, void* out_decode, void* part, int* tickets,
@@ -176,12 +179,13 @@ extern "C" int vattn_pod_attention(
     int pre_n_sub, const int* dec_tile_rows, int dec_n_sub,
     const int* seqlens, int num_tokens, int batch, int hkv, int group,
     int sub, int pad_tile, long long rows_total, int layer, float sm_scale,
-    int n_dec, int dtype, int kv_dtype, void* stream) {
+    int window, int n_dec, int dtype, int kv_dtype, void* stream) {
   const int rows = prefill::block_rows(dtype);
   if (group <= 0 || rows == 0 || rows % group != 0 || pad_tile <= 0 ||
       pad_tile % (rows / group) != 0 || num_tokens < 0 ||
       num_tokens % pad_tile != 0 || batch < 0 || batch > decode::kMaxSlots ||
-      n_dec < 0 || n_dec > decode::kMaxGrid || (batch > 0 && n_dec == 0))
+      n_dec < 0 || n_dec > decode::kMaxGrid || (batch > 0 && n_dec == 0) ||
+      window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = num_tokens / (rows / group);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -191,7 +195,7 @@ extern "C" int vattn_pod_attention(
                         out_decode, p, tickets, qt_run, qinfo, pre_tile_rows, \
                         pre_n_sub, dec_tile_rows, dec_n_sub, seqlens, n_tiles, \
                         batch, hkv, sub, pad_tile, rows_total, layer,        \
-                        sm_scale, n_dec, s)
+                        sm_scale, window, n_dec, s)
   const bool f32 = dtype == kFloat32;
   if (kv_dtype == dtype)
     return f32 ? VATTN_POD(float, float) : VATTN_POD(__nv_bfloat16, __nv_bfloat16);

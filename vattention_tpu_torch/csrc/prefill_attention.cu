@@ -17,33 +17,34 @@
 // q, out: [num_tokens, hq, 128]; cache: [L, 2, hkv, rows_total, 128] of
 // kv_dtype (dtype, e4m3 or int8);
 // qt_run: [num_tokens / pad_tile, 2]; qinfo: [K, 2]; tile_rows: [K, n_sub]
-// (all int32).  hq/hkv must divide R (128 in bf16, 64 in f32), and
-// R/(hq/hkv) must divide pad_tile, which must divide num_tokens.
+// (all int32); window: the sliding window (0: none).  hq/hkv must divide R
+// (128 in bf16, 64 in f32), and R/(hq/hkv) must divide pad_tile, which must
+// divide num_tokens.
 extern "C" int vattn_prefill_attention(const void* q, const void* cache,
                                        void* out, const int* qt_run,
                                        const int* qinfo, const int* tile_rows,
                                        int num_tokens, int hq, int hkv,
                                        int pad_tile, int n_sub, int sub,
                                        long long rows_total, int layer,
-                                       float sm_scale, int dtype, int kv_dtype,
-                                       void* stream) {
+                                       float sm_scale, int window, int dtype,
+                                       int kv_dtype, void* stream) {
   return vattn::prefill::launch(
       q, cache, out, vattn::prefill::RunTiles{qt_run}, qinfo,
       vattn::prefill::TileRows{tile_rows, n_sub, sub}, num_tokens, hq, hkv,
-      pad_tile, rows_total, layer, sm_scale, dtype, kv_dtype, stream);
+      pad_tile, rows_total, layer, sm_scale, window, dtype, kv_dtype, stream);
 }
 
 // q, out: [num_tokens, hq, 128] at positions qinfo[0] + [0, num_tokens);
 // cache: [L, 2, hkv, rows_total, 128] of kv_dtype (dtype, e4m3 or int8);
 // seg_row: [S]; seg_cum: [S + 1]; qinfo: [2] = (q_start, kv_len) (all
-// int32); 1 <= S <= 8.  hq/hkv must
+// int32); 1 <= S <= 8; window: the sliding window (0: none).  hq/hkv must
 // divide R (128 in bf16, 64 in f32), and R/(hq/hkv) must divide
 // num_tokens.
 extern "C" int vattn_segment_prefill_attention(
     const void* q, const void* cache, void* out, const int* seg_row,
     const int* seg_cum, int num_segments, const int* qinfo, int num_tokens,
     int hq, int hkv, long long rows_total, int layer, float sm_scale,
-    int dtype, int kv_dtype, void* stream) {
+    int window, int dtype, int kv_dtype, void* stream) {
   using namespace vattn::prefill;
   const int rows = block_rows(dtype);
   if (num_segments < 1 || num_segments > kMaxSegments || hkv <= 0 ||
@@ -51,7 +52,7 @@ extern "C" int vattn_segment_prefill_attention(
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, cache, out, OneRun{}, qinfo,
                 Segments{seg_row, seg_cum, num_segments}, num_tokens, hq, hkv,
-                rows / (hq / hkv), rows_total, layer, sm_scale, dtype,
+                rows / (hq / hkv), rows_total, layer, sm_scale, window, dtype,
                 kv_dtype, stream);
 }
 

@@ -13,12 +13,15 @@
 // single-run G and H; qinfo[run] = (q_start, kv_len).  Token j of local
 // tile lt sits at absolute position q_start + lt*pad_tile + j -- not at
 // positions[], which is 0 on padding rows.  It attends positions p <= its
-// own position with p < kv_len; position p lives at the arena row that the
-// row map gives (`Rows::run(run, kv_len)(p)`).  The chunk's own K/V is
+// own position q with p < kv_len and, under a sliding window (window > 0),
+// p > q - window (the JAX kernel's window mask, flash_prefill.py:83-90,
+// 132-133); position p lives at the arena row that the row map gives
+// (`Rows::run(run, kv_len)(p)`).  The chunk's own K/V is
 // already in the arena (kernel A runs first).  Tiles of runs with
 // kv_len == 0 (the empty run that fixed-width padding maps tail tiles to)
-// write zeros.  Every K/V load is bounded by n_keys = min(kv_len, the
-// tile's causal diagonal), so a row map is only asked for p < kv_len.
+// write zeros, and so does a row that sees no key (a padding row at least
+// `window` past kv_len).  Every K/V load is bounded by n_keys = min(kv_len,
+// the tile's causal diagonal), so a row map is only asked for p < kv_len.
 //
 // Bound: operations at serving depths (4*Hq*D FLOPs per attended (q, k)
 // pair against 2*Hkv*D K/V elements per key row read): a 512-token chunk
@@ -27,7 +30,11 @@
 // Design: one block per (q tile, kv head): its query rows are the G heads
 // of one GQA group for each token of the tile, so every K/V row staged in
 // shared memory serves G heads.  The block walks 64-key tiles only up to
-// its causal diagonal and keeps an online softmax per row in float32.
+// its causal diagonal, and under a window only from the first tile that
+// its first row sees (floor(max(0, pos0 - window + 1) / 64)): tiles wholly
+// before the window are neither copied nor multiplied, so at depth a
+// block's work scales with the window, not with kv_len.  It keeps an online
+// softmax per row in float32.
 // Each key position resolves its own row, so a key tile may span several
 // table entries (blocks of 16 tokens under a 64-key tile).
 //   bfloat16 (prefill_tile_tc, 384 threads, 128 query rows = 128/G
@@ -48,7 +55,10 @@
 //     softmax under the latter (FA3's overlap inside a warpgroup).  O
 //     stays in registers and is written once, as O / l; no S, P or PV
 //     goes through shared memory.  Only tiles that cross a warpgroup's
-//     causal diagonal or kv_len test each key.  One block per SM
+//     causal diagonal, kv_len or the window's leading edge test each key.
+//     The ring counts tiles from the block's first tile, so the producer
+//     and the consumers agree on stages and mbarrier phases whatever tile
+//     the walk starts at.  One block per SM
 //     (kTcSmemBytesFor<KV> of shared memory, 168 registers x 384 threads).
 //   float32: the same algorithm on the CUDA cores (32-key tiles, 4
 //     threads per row), exact float32 products for the f32 test path.
@@ -187,7 +197,7 @@ __device__ __forceinline__ void prefill_tile(
     const T* __restrict__ q, const KV* __restrict__ cache, T* __restrict__ out,
     QMap qmap, const int* __restrict__ qinfo, Rows rows,
     int hq, int hkv, int pad_tile, long long rows_total, int layer,
-    float sm_scale, int tile, int h, int tid, float* smem) {
+    float sm_scale, int window, int tile, int h, int tid, float* smem) {
   float* qs = smem;                       // [kRows][kQStride]
   float* ks = qs + kRows * kQStride;      // [kKeys][kKStride]
   float* vs = ks + kKeys * kKStride;      // [kKeys][kD]
@@ -229,7 +239,10 @@ __device__ __forceinline__ void prefill_tile(
   }
 
   const int q_pos = pos0 + t;
+  const int q_low = window > 0 ? q_pos - window + 1 : 0;  // the row's first key
   const int n_keys = min(kv_len, pos0 + qtok);  // causal diagonal of the tile
+  // the first key tile that the block's first row sees
+  const int k_first = window > 0 ? max(0, pos0 - window + 1) / kKeys * kKeys : 0;
   const long long head_stride = rows_total * kD;
   const KV* kbase = cache + (static_cast<long long>(layer * 2) * hkv + h) * head_stride;
   const KV* vbase = cache + (static_cast<long long>(layer * 2 + 1) * hkv + h) * head_stride;
@@ -241,7 +254,7 @@ __device__ __forceinline__ void prefill_tile(
   float m = -INFINITY;
   float l = 0.f;
 
-  for (int k0 = 0; k0 < n_keys; k0 += kKeys) {
+  for (int k0 = k_first; k0 < n_keys; k0 += kKeys) {
     __syncthreads();  // the previous tile's K/V are no longer read
     for (int i = tid; i < kKeys * kD; i += kThreads) {
       const int c = i / kD;
@@ -276,7 +289,7 @@ __device__ __forceinline__ void prefill_tile(
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int p = k0 + part * 8 + j;
-      valid[j] = p < n_keys && p <= q_pos;
+      valid[j] = p < n_keys && p <= q_pos && p >= q_low;
       s[j] = valid[j] ? s[j] * sm_scale : kMaskValue;
       mt = fmaxf(mt, s[j]);
     }
@@ -309,8 +322,10 @@ __device__ __forceinline__ void prefill_tile(
     }
   }
 
+  // l == 0: the row saw no key
 #pragma unroll
-  for (int i = 0; i < kD / 4; ++i) orow[part + 4 * i] = from_float<T>(acc[i] / l);
+  for (int i = 0; i < kD / 4; ++i)
+    orow[part + 4 * i] = from_float<T>(l > 0.f ? acc[i] / l : 0.f);
 }
 
 template <typename T, typename KV, typename QMap, typename Rows>
@@ -318,10 +333,10 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
     const T* __restrict__ q, const KV* __restrict__ cache, T* __restrict__ out,
     QMap qmap, const int* __restrict__ qinfo, Rows rows,
     int hq, int hkv, int pad_tile, long long rows_total, int layer,
-    float sm_scale) {
+    float sm_scale, int window) {
   extern __shared__ float smem[];
   prefill_tile(q, cache, out, qmap, qinfo, rows, hq, hkv, pad_tile,
-                  rows_total, layer, sm_scale, blockIdx.x, blockIdx.y,
+                  rows_total, layer, sm_scale, window, blockIdx.x, blockIdx.y,
                   threadIdx.x, smem);
 }
 
@@ -356,7 +371,8 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // The online softmax of one key tile for one thread's two rows (a, b):
-// mask keys at or past lim_a / lim_b (kMask only), update the row maxima
+// mask keys at or past lim_a / lim_b or below low_a / low_b (kMask only:
+// the causal diagonal, kv_len and the window), update the row maxima
 // (in base 2, shared by the row's 4 lanes), turn S into P in place, and
 // fold P's row sums into this thread's partial l.  Returns in alpha_a,
 // alpha_b the factors that carry O from the old maxima to the new ones.
@@ -366,9 +382,12 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float& m_a,
                                              float& m_b, float& l_a,
                                              float& l_b, float& alpha_a,
                                              float& alpha_b, float scale,
-                                             int key0, int lim_a, int lim_b) {
+                                             int key0, int lim_a, int lim_b,
+                                             int low_a, int low_b) {
   auto masked = [&](int i) {
-    return kMask && key0 + 8 * (i >> 2) + (i & 1) >= ((i & 2) ? lim_b : lim_a);
+    const int key = key0 + 8 * (i >> 2) + (i & 1);
+    return kMask && (key >= ((i & 2) ? lim_b : lim_a) ||
+                     key < ((i & 2) ? low_b : low_a));
   };
   float mx_a = -INFINITY, mx_b = -INFINITY;  // raw scores
 #pragma unroll
@@ -383,12 +402,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float& m_a,
   mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
   mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
   mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-  // every row sees key 0 in tile 0, so m is finite from then on and a
-  // tile that masks a whole row leaves it (alpha 1, P 0)
+  // once a row has seen a key its m is finite, and a tile that masks the
+  // whole row leaves it (alpha 1, P 0).  Under a window a row may see no
+  // key in the block's first tiles (m stays -inf): alpha 1 there too
   const float mn_a = fmaxf(m_a, mx_a * scale);
   const float mn_b = fmaxf(m_b, mx_b * scale);
-  alpha_a = ex2(m_a - mn_a);
-  alpha_b = ex2(m_b - mn_b);
+  alpha_a = kMask && mn_a == -INFINITY ? 1.f : ex2(m_a - mn_a);
+  alpha_b = kMask && mn_b == -INFINITY ? 1.f : ex2(m_b - mn_b);
   m_a = mn_a;
   m_b = mn_b;
   float sum_a = 0.f, sum_b = 0.f;
@@ -420,8 +440,8 @@ __device__ __forceinline__ void prefill_tile_tc(
     const __nv_bfloat16* __restrict__ q, const KV* __restrict__ cache,
     __nv_bfloat16* __restrict__ out, QMap qmap,
     const int* __restrict__ qinfo, Rows rows, int hq, int hkv, int pad_tile,
-    long long rows_total, int layer, float sm_scale, int tile, int h,
-    unsigned char* smem) {
+    long long rows_total, int layer, float sm_scale, int window, int tile,
+    int h, unsigned char* smem) {
   using namespace sm90;
   const int tid = threadIdx.x;
   const uint32_t qs = (smem_addr(smem) + 1023u) & ~1023u;  // swizzle atoms
@@ -448,14 +468,17 @@ __device__ __forceinline__ void prefill_tile_tc(
     return head0 + t * tok_stride + static_cast<long long>(rr - t * group) * kD;
   };
 
-  if (kv_len <= 0) {
+  const int n_keys = min(kv_len, pos0 + qtok);  // causal diagonal of the tile
+  // the walk: key tiles j0 .. j0 + n_tiles - 1, j0 the first tile that the
+  // block's first row sees under a window; local tile j is key tile j0 + j
+  const int j0 = window > 0 ? max(0, pos0 - window + 1) / kTcKeys : 0;
+  const int n_tiles = (n_keys + kTcKeys - 1) / kTcKeys - j0;
+  if (n_tiles <= 0) {  // the empty run, or rows at least `window` past kv_len
     for (int i = tid; i < kTcRows * (kD / 8); i += kTcThreads)
       reinterpret_cast<uint4*>(out + row_offset(i >> 4))[i & 15] =
           make_uint4(0u, 0u, 0u, 0u);
     return;
   }
-  const int n_keys = min(kv_len, pos0 + qtok);  // causal diagonal of the tile
-  const int n_tiles = (n_keys + kTcKeys - 1) / kTcKeys;
 
   if (tid == 0) {
     for (int s = 0; s < kTcStages; ++s) {
@@ -467,8 +490,8 @@ __device__ __forceinline__ void prefill_tile_tc(
   __syncthreads();
 
   if (tid >= kTcConsumers) {
-    // ---- producer: Q once, then K/V tile j into stage j % kTcStages once
-    // the consumers have released tile j - kTcStages there
+    // ---- producer: Q once, then K/V local tile j into stage j % kTcStages
+    // once the consumers have released local tile j - kTcStages there
     const int ptid = tid - kTcConsumers;
     for (int i = ptid; i < kTcRows * (kD / 8); i += kTcProducers) {
       const int rr = i >> 4;
@@ -487,7 +510,7 @@ __device__ __forceinline__ void prefill_tile_tc(
     const int lane = tid & 31;
     const int key0 = 16 * (ptid >> 5);
     auto key_row = [&](int j) -> long long {
-      const int p = j * kTcKeys + key0 + (lane & 15);
+      const int p = (j0 + j) * kTcKeys + key0 + (lane & 15);
       return p < n_keys ? row_of(p) : -1;
     };
     if constexpr (sizeof(KV) == 2) {
@@ -591,7 +614,12 @@ __device__ __forceinline__ void prefill_tile_tc(
   const int r_a = 64 * wg + 16 * ((tid & 127) >> 5) + (lane >> 2);
   const int lim_a = min(kv_len, pos0 + r_a / group + 1);       // keys < lim
   const int lim_b = min(kv_len, pos0 + (r_a + 8) / group + 1);
+  // keys >= low under a window (0 without one)
+  const int low_a = window > 0 ? pos0 + r_a / group - window + 1 : 0;
+  const int low_b = window > 0 ? pos0 + (r_a + 8) / group - window + 1 : 0;
   const int wg_first = pos0 + (64 * wg) / group;  // first row's position
+  // the least key that every row of the warpgroup sees
+  const int wg_low = window > 0 ? pos0 + (64 * wg + 63) / group - window + 1 : 0;
   const float scale = sm_scale * 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
   const uint32_t qwg = qs + 64 * wg * kTcHalf;
 
@@ -633,19 +661,20 @@ __device__ __forceinline__ void prefill_tile_tc(
                           desc128(vs + kk * 16 * kTcHalf, kTcKeys * kTcHalf, 1024));
     wgmma_commit();
   };
-  // tile j's softmax on S (landed); only tiles crossing the warpgroup's
-  // diagonal or kv_len test each key.  A tile above all of a warpgroup's
-  // rows gives P = 0 and alpha = 1: it adds nothing
+  // local tile j's softmax on S (landed); only tiles crossing the
+  // warpgroup's diagonal, kv_len or the window's edge test each key.  A
+  // tile above (or before) all of a warpgroup's rows gives P = 0 and alpha
+  // = 1: it adds nothing
   auto softmax = [&](int j, float& alpha_a, float& alpha_b) {
     fence_regs(s);
-    const int k0 = j * kTcKeys;
+    const int k0 = (j0 + j) * kTcKeys;
     const int key0 = k0 + 2 * (lane & 3);
-    if (k0 + kTcKeys > kv_len || k0 + kTcKeys - 1 > wg_first)
+    if (k0 + kTcKeys > kv_len || k0 + kTcKeys - 1 > wg_first || k0 < wg_low)
       softmax_tile<true>(s, m_a, m_b, l_a, l_b, alpha_a, alpha_b, scale, key0,
-                         lim_a, lim_b);
+                         lim_a, lim_b, low_a, low_b);
     else
       softmax_tile<false>(s, m_a, m_b, l_a, l_b, alpha_a, alpha_b, scale, key0,
-                          lim_a, lim_b);
+                          lim_a, lim_b, low_a, low_b);
   };
   // O to the new maxima (skipped where no row's maximum moved), and P as
   // wgmma's register A: k-step kk holds keys 16kk .. 16kk + 15, S's
@@ -693,8 +722,8 @@ __device__ __forceinline__ void prefill_tile_tc(
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float inv_a = 1.f / l_a;
-  const float inv_b = 1.f / l_b;
+  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;  // l == 0: the row saw no key
+  const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
   __nv_bfloat16* oa = out + row_offset(r_a) + 2 * (lane & 3);
   __nv_bfloat16* ob = out + row_offset(r_a + 8) + 2 * (lane & 3);
 #pragma unroll
@@ -709,10 +738,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) prefill_attention_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const KV* __restrict__ cache,
     __nv_bfloat16* __restrict__ out, QMap qmap,
     const int* __restrict__ qinfo, Rows rows, int hq, int hkv, int pad_tile,
-    long long rows_total, int layer, float sm_scale) {
+    long long rows_total, int layer, float sm_scale, int window) {
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   prefill_tile_tc(q, cache, out, qmap, qinfo, rows, hq, hkv, pad_tile,
-                  rows_total, layer, sm_scale, blockIdx.x, blockIdx.y, tc_smem);
+                  rows_total, layer, sm_scale, window, blockIdx.x, blockIdx.y,
+                  tc_smem);
 }
 
 // query rows per block of the body for `dtype` (0 if none)
@@ -725,7 +755,7 @@ int launch_one(Kernel kernel, int threads, int smem_bytes, int qtok,
                const void* q, const void* cache, void* out, QMap qmap,
                const int* qinfo, Rows rows, int num_tokens, int hq, int hkv,
                int pad_tile, long long rows_total, int layer, float sm_scale,
-               cudaStream_t stream) {
+               int window, cudaStream_t stream) {
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -733,7 +763,7 @@ int launch_one(Kernel kernel, int threads, int smem_bytes, int qtok,
   kernel<<<grid, threads, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), qmap, qinfo, rows, hq, hkv, pad_tile,
-      rows_total, layer, sm_scale);
+      rows_total, layer, sm_scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -743,34 +773,35 @@ template <typename T, typename KV, typename QMap, typename Rows>
 int launch_body(int qtok, const void* q, const void* cache, void* out,
                 QMap qmap, const int* qinfo, Rows rows, int num_tokens,
                 int hq, int hkv, int pad_tile, long long rows_total,
-                int layer, float sm_scale, cudaStream_t s) {
+                int layer, float sm_scale, int window, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value)
     return launch_one<T, KV>(prefill_attention_kernel<T, KV, QMap, Rows>,
                              kThreads, kSmemBytes, qtok, q, cache, out, qmap,
                              qinfo, rows, num_tokens, hq, hkv, pad_tile,
-                             rows_total, layer, sm_scale, s);
+                             rows_total, layer, sm_scale, window, s);
   else
     return launch_one<T, KV>(prefill_attention_tc_kernel<KV, QMap, Rows>,
                              kTcThreads, kTcSmemBytesFor<KV>, qtok, q, cache, out,
                              qmap, qinfo, rows, num_tokens, hq, hkv, pad_tile,
-                             rows_total, layer, sm_scale, s);
+                             rows_total, layer, sm_scale, window, s);
 }
 
 // q, out: [num_tokens, hq, 128] of `dtype`; cache: [L, 2, hkv, rows_total,
 // 128] of `kv_dtype` (dtype, e4m3 or int8); qinfo: [K, 2] (int32); `qmap`
 // maps each pad_tile-row tile to (run, local tile) and `rows` each run's
-// key positions to arena rows.  With R = block_rows(dtype) (128 in bf16, 64
-// in f32), hq/hkv must divide R, and R/(hq/hkv) must divide pad_tile, which
-// must divide num_tokens.
+// key positions to arena rows; window: the sliding window (0: none).  With
+// R = block_rows(dtype) (128 in bf16, 64 in f32), hq/hkv must divide R, and
+// R/(hq/hkv) must divide pad_tile, which must divide num_tokens.
 template <typename QMap, typename Rows>
 int launch(const void* q, const void* cache, void* out, QMap qmap,
            const int* qinfo, Rows rows, int num_tokens, int hq, int hkv,
            int pad_tile, long long rows_total, int layer, float sm_scale,
-           int dtype, int kv_dtype, void* stream) {
+           int window, int dtype, int kv_dtype, void* stream) {
   if (num_tokens <= 0) return 0;
   const int group = hkv > 0 ? hq / hkv : 0;
   const int rows_per_block = block_rows(dtype);
   if (group <= 0 || rows_per_block == 0 || rows_per_block % group != 0 ||
+      window < 0 ||
       pad_tile <= 0 || pad_tile % (rows_per_block / group) != 0 ||
       num_tokens % pad_tile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -778,7 +809,7 @@ int launch(const void* q, const void* cache, void* out, QMap qmap,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VATTN_PREFILL_BODY(T, KV)                                            \
   launch_body<T, KV>(qtok, q, cache, out, qmap, qinfo, rows, num_tokens, hq, \
-                     hkv, pad_tile, rows_total, layer, sm_scale, s)
+                     hkv, pad_tile, rows_total, layer, sm_scale, window, s)
   const bool f32 = dtype == kFloat32;
   if (kv_dtype == dtype)
     return f32 ? VATTN_PREFILL_BODY(float, float)

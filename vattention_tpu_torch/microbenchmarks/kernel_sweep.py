@@ -28,6 +28,11 @@ rtol = 2e-2, each row within 2^-6 of its largest output), and a line
 ``# check <kernel> ctx <ctx>: max abs err <e> (row worst <r>)`` follows
 the CSV rows of that ctx; a failure raises.
 
+``--window W`` runs every kernel under a sliding window of W positions
+(Mistral-7B's is 4096): G and H attend keys p with q - W < p <= q, C the
+last W positions of each sequence, and ``gbps`` counts only the K/V rows
+that the window lets the call read.
+
 ``--kv-dtype fp8`` or ``int8`` runs every kernel over a 1-byte arena (the
 seeded values quantized as kernel A writes them, int8 in steps of 0.04
 with the step folded into ``sm_scale``), with bf16 queries.
@@ -40,7 +45,8 @@ knobs of the JAX twin (``kv_tile``, ``kv_fetch``, ``seq_tile``,
 and loops to the live depth.
 
     python -m vattention_tpu_torch.microbenchmarks.kernel_sweep \\
-        [--ctx 1024 2048 4096 8192 16384 32768] [--batch 16] [--csv out.csv]
+        [--ctx 1024 2048 4096 8192 16384 32768] [--batch 16] [--window W]
+        [--csv out.csv]
 
 With ``--cpu`` the kernels' plain versions run on the CPU at tiny shapes
 (ctx at most 512, batch at most 2, at most 2 timed calls) and the times are
@@ -76,6 +82,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--block-size", type=int, default=256)
     p.add_argument("--kv-dtype", choices=sorted(KV_DTYPES), default="bf16",
                    help="the arena's dtype")
+    p.add_argument("--window", type=int, default=None,
+                   help="sliding window in positions (default: none)")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--csv", default=None)
     p.add_argument("--check", action="store_true",
@@ -106,6 +114,7 @@ def sweep(args) -> list:
     Hq, Hkv, D = args.q_heads, args.kv_heads, args.head_dim
     BT, B, S = args.block_size, args.batch, MAX_SEGMENTS
     sm = D ** -0.5
+    win = dict(window=args.window)
     # each decode sequence owns `stride` rows: its context, then one block
     stride = round_up(max(args.ctx), BT) + BT
     R = max(stride, B * stride)
@@ -149,22 +158,25 @@ def sweep(args) -> list:
 
         def g():
             return segment_prefill_attention(q, kv, seg_row, seg_cum, qinfo,
-                                             0, sm_scale=sm)
+                                             0, sm_scale=sm, **win)
 
         def h():
             return paged_prefill_attention_single(q, kv, table, qinfo, 0,
-                                                  block_size=BT, sm_scale=sm)
+                                                  block_size=BT, sm_scale=sm,
+                                                  **win)
 
         got_g, got_h = g(), h()
         if not torch.equal(got_g, got_h):
             raise AssertionError(
                 f"kernel_sweep: G and H differ at ctx {ctx} on the same rows")
         check("G", ctx, got_g, lambda: segment_prefill_attention_plain(
-            q, kv, seg_row, seg_cum, qinfo, 0, sm_scale=sm))
+            q, kv, seg_row, seg_cum, qinfo, 0, sm_scale=sm, **win))
         check(f"H (bs {BT})", ctx, got_h,
               lambda: paged_prefill_attention_single_plain(
-                  q, kv, table, qinfo, 0, block_size=BT, sm_scale=sm))
-        pre_bytes = ctx * Hkv * D * es * 2  # K+V read once
+                  q, kv, table, qinfo, 0, block_size=BT, sm_scale=sm, **win))
+        # K+V rows the chunk attends, read once
+        keys = min(ctx, Tq + args.window - 1) if args.window else ctx
+        pre_bytes = keys * Hkv * D * es * 2
         emit("prefill", "vattn_contig", ctx, g, pre_bytes)
         emit("prefill", "paged", ctx, h, pre_bytes)
 
@@ -184,11 +196,11 @@ def sweep(args) -> list:
 
         def c_vattn():
             return decode_attention(qd, kv, vattn_rows, seqlens, 0, sub=sub,
-                                    sm_scale=sm)
+                                    sm_scale=sm, **win)
 
         def c_paged():
             return decode_attention(qd, kv, paged_rows, seqlens, 0, sub=BT,
-                                    sm_scale=sm)
+                                    sm_scale=sm, **win)
 
         got_v, got_p = c_vattn(), c_paged()
         if sub != BT:
@@ -199,10 +211,11 @@ def sweep(args) -> list:
             raise AssertionError(f"kernel_sweep: vattn and paged decode "
                                  f"differ at ctx {ctx} on the same rows")
         check(f"C (sub {sub})", ctx, got_v, lambda: decode_attention_plain(
-            qd, kv, vattn_rows, seqlens, 0, sub=sub, sm_scale=sm))
+            qd, kv, vattn_rows, seqlens, 0, sub=sub, sm_scale=sm, **win))
         check(f"C (sub {BT})", ctx, got_p, lambda: decode_attention_plain(
-            qd, kv, paged_rows, seqlens, 0, sub=BT, sm_scale=sm))
-        dec_bytes = B * ctx * Hkv * D * es * 2
+            qd, kv, paged_rows, seqlens, 0, sub=BT, sm_scale=sm, **win))
+        depth = min(ctx, args.window) if args.window else ctx
+        dec_bytes = B * depth * Hkv * D * es * 2
         emit("decode", "vattn_contig", ctx, c_vattn, dec_bytes)
         emit("decode", "paged", ctx, c_paged, dec_bytes)
         for line in checks:

@@ -7,6 +7,11 @@ multiple of 64; q_start 40, 56 and 60 mod 64, where a 64-key tile lies
 wholly above one warpgroup's rows (it skips the tile) or above some rows
 of a warpgroup that still runs it (all their keys there are masked); and
 the empty run (kv_len 0) that fixed-width padding maps a tail tile to.
+With a sliding ``window`` every kernel takes it, and one more run, q_start
+``window + 40`` at kv_len ``window + 300``, puts the window's edge inside
+a chunk; every row of the other runs past ``window`` then has its first
+key at ``q - window + 1``, which falls on, before and after 64-key tile
+edges across the runs' q_starts.
 
 - B runs twice: over E's rows (block tables of 16-token blocks drawn as a
   seeded permutation of the pool, every entry past a run's last valid
@@ -71,34 +76,42 @@ def _tables(rng_perm, depths, width: int) -> np.ndarray:
     return tables
 
 
+def edge_runs(window=None):
+    """(q_start, kv_len) of each run, the empty run last."""
+    extra = [(window + 40, window + 300)] if window else []
+    return EDGE_RUNS[:-1] + extra + EDGE_RUNS[-1:]
+
+
 def check_prefill_edges(cache: torch.Tensor, hq: int, layer: int,
                         seed: int = 0, sm_scale: float | None = None,
-                        out_scale: float = 1.0):
+                        out_scale: float = 1.0, window=None):
     """The cases above over ``cache`` ([L, 2, Hkv, R, D] on the card, R >=
-    8192; a 1-byte arena is read by bf16 queries; an int8 arena's step
-    goes in ``sm_scale`` and ``out_scale``) with ``hq`` query heads drawn
-    from ``seed``.  Raises on the first failure; returns (max abs err
-    against the plain versions, the worst row's err as a fraction of its
-    largest output)."""
+    8192, or 8192 + ``window`` + 300 under a window; a 1-byte arena is read
+    by bf16 queries; an int8 arena's step goes in ``sm_scale`` and
+    ``out_scale``) with ``hq`` query heads drawn from ``seed``, every
+    kernel under ``window`` (None: none).  Raises on the first failure;
+    returns (max abs err against the plain versions, the worst row's err
+    as a fraction of its largest output)."""
     dev = cache.device
+    runs = edge_runs(window)
     R, D = cache.shape[3], cache.shape[4]
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     sm = D ** -0.5 if sm_scale is None else sm_scale
     qdt = torch.bfloat16 if cache.element_size() == 1 else cache.dtype
-    K = len(EDGE_RUNS)
-    chunks = [n - q0 for q0, n in EDGE_RUNS]
+    K = len(runs)
+    chunks = [n - q0 for q0, n in runs]
     pads = [cdiv(max(c, 1), PAD) * PAD for c in chunks]
     offs = np.cumsum([0] + pads[:-1]).tolist()
     qt_run = torch.tensor([(r, i) for r in range(K)
                            for i in range(pads[r] // PAD)],
                           dtype=torch.int32, device=dev)
-    qinfo = torch.tensor(EDGE_RUNS, dtype=torch.int32, device=dev)
+    qinfo = torch.tensor(runs, dtype=torch.int32, device=dev)
     q = torch.randn((sum(pads), hq, D), generator=gen, device=dev).to(qdt)
     qd = torch.randn((len(DECODE_DEPTHS), hq, D), generator=gen,
                      device=dev).to(qdt)
 
-    depths = [n for _, n in EDGE_RUNS]
+    depths = [n for _, n in runs]
     width = cdiv(max(depths), BLOCK) + 2
     perm = rng.permutation(R // BLOCK)
     tables = torch.from_numpy(_tables(perm, depths, width)).to(dev)
@@ -116,7 +129,7 @@ def check_prefill_edges(cache: torch.Tensor, hq: int, layer: int,
     rows_g = torch.from_numpy(tile_rows_from_segments(
         seg_row, seg_cum, 1, width * BLOCK)).to(dev)
 
-    kw = dict(pad_tile=PAD, sm_scale=sm)
+    kw = dict(pad_tile=PAD, sm_scale=sm, window=window)
     b_e = prefill_attention(q, cache, qt_run, qinfo, rows_e, layer,
                             sub=BLOCK, **kw)
     b_g = prefill_attention(q, cache, qt_run, qinfo, rows_g, layer, sub=1,
@@ -126,7 +139,7 @@ def check_prefill_edges(cache: torch.Tensor, hq: int, layer: int,
     f_p, f_d = pod_attention(q, qd, cache, qt_run, qinfo, rows_e, dec_rows,
                              seqlens, layer, sub=BLOCK, **kw)
     c = decode_attention(qd, cache, dec_rows, seqlens, layer, sub=BLOCK,
-                         sm_scale=sm)
+                         sm_scale=sm, window=window)
     ref_e = prefill_attention_plain(q, cache, qt_run, qinfo, rows_e, layer,
                                     sub=BLOCK, **kw)
     ref_g = prefill_attention_plain(q, cache, qt_run, qinfo, rows_g, layer,
@@ -134,7 +147,7 @@ def check_prefill_edges(cache: torch.Tensor, hq: int, layer: int,
     torch.cuda.synchronize()
 
     err, rel = 0.0, 0.0
-    for r, (q0, n) in enumerate(EDGE_RUNS):
+    for r, (q0, n) in enumerate(runs):
         if n == 0:
             if b_e[offs[r]:offs[r] + pads[r]].abs().max().item() != 0.0:
                 raise AssertionError("edge cases: the empty run's tile is "
@@ -153,17 +166,18 @@ def check_prefill_edges(cache: torch.Tensor, hq: int, layer: int,
             raise AssertionError(f"edge cases: {what} differs from "
                                  f"{'C' if 'decode' in what else 'B'} on "
                                  "the same rows")
-    for r, (q0, n) in enumerate(EDGE_RUNS):
+    for r, (q0, n) in enumerate(runs):
         if n == 0:
             continue
         sl = slice(offs[r], offs[r] + pads[r])
         info = qinfo[r].clone()   # a row of its own: 16-byte aligned
         g = segment_prefill_attention(
             q[sl], cache, torch.from_numpy(seg_row[r]).to(dev),
-            torch.from_numpy(seg_cum[r]).to(dev), info, layer, sm_scale=sm)
+            torch.from_numpy(seg_cum[r]).to(dev), info, layer, sm_scale=sm,
+            window=window)
         h = paged_prefill_attention_single(q[sl], cache, tables[r].clone(),
                                            info, layer, block_size=BLOCK,
-                                           sm_scale=sm)
+                                           sm_scale=sm, window=window)
         torch.cuda.synchronize()
         if not torch.equal(g, b_g[sl]):
             raise AssertionError(f"edge case q_start {q0} kv_len {n}: G "

@@ -6,7 +6,9 @@ narrower than the TPU's 32-row windows need no ``serialize``); then the
 prefill region attends through kernel E over the per-run block tables and
 the decode slots through kernel C over the runner's clamped row table at
 ``sub = block_size``.  The pool's dtype and an int8 step fold in as in the
-vattn backend.
+vattn backend.  A model's ``sliding_window`` goes to both kernels; the JAX
+runner builds its paged backend without it, so this backend diverges from
+the JAX one on windowed models by design (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -23,10 +25,12 @@ from vattention_tpu_torch.ops.paged_attention import paged_prefill_attention
 
 class PagedAttentionBackend:
     def __init__(self, *, block_size: int, q_tile: int = PREFILL_TOKEN_PAD,
-                 kv_scale: float | None = None):
+                 kv_scale: float | None = None,
+                 sliding_window: int | None = None):
         self.block_size = block_size
         self.q_tile = q_tile
         self.kv_scale = kv_scale
+        self.window = sliding_window
 
     append_kv = VattnAttentionBackend.append_kv
     _pad_heads = staticmethod(VattnAttentionBackend._pad_heads)
@@ -46,11 +50,11 @@ class PagedAttentionBackend:
                 q[:n_prefill_tokens].contiguous(), kv_cache, inputs.qt_run,
                 inputs.pre_qinfo, inputs.pre_block_tables, layer,
                 block_size=self.block_size, pad_tile=self.q_tile,
-                sm_scale=sm_scale))
+                sm_scale=sm_scale, window=self.window))
         if q.shape[0] > n_prefill_tokens:
             outs.append(decode_attention(
                 q[n_prefill_tokens:].contiguous(), kv_cache,
                 inputs.dec_tile_rows, inputs.dec_seqlens, layer,
-                sub=self.block_size, sm_scale=sm_scale))
+                sub=self.block_size, sm_scale=sm_scale, window=self.window))
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
         return self._descale_out(out[..., :D])

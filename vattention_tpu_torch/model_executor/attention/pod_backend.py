@@ -7,7 +7,10 @@ attends through ONE launch of kernel F (``ops/pod_fused.pod_attention``),
 which returns both outputs; single-phase steps take the vattn backend's
 kernels B and C, as the JAX backend falls back to them.  Every prefill run
 of the step fuses, at any depth (the JAX runner's ``POD_KV_LEN_LIMIT``
-fallback is not carried: F loops to each run's live depth).
+fallback is not carried: F loops to each run's live depth).  A model's
+``sliding_window`` goes to F's both parts, as to B and C; the JAX POD
+backend drops it, so the two diverge on windowed models by design (ROADMAP
+Queue 3).
 """
 
 from __future__ import annotations
@@ -41,5 +44,5 @@ class PodAttentionBackend(VattnAttentionBackend):
             q[n_prefill_tokens:].contiguous(), kv_cache, inputs.qt_run,
             inputs.pre_qinfo, inputs.pre_tile_rows, inputs.dec_tile_rows,
             inputs.dec_seqlens, layer, sub=self.sub, pad_tile=self.q_tile,
-            sm_scale=self._eff_sm_scale(sm_scale))
+            sm_scale=self._eff_sm_scale(sm_scale), window=self.window)
         return self._descale_out(torch.cat([out_p, out_d], dim=0)[..., :D])

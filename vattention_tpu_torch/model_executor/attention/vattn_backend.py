@@ -9,7 +9,8 @@ host-resolved row tables at ``sub``-row granularity.  An int8 arena's step
 ``kv_scale`` costs the kernels nothing: it folds into ``sm_scale`` (scores
 = q . K_int * sm_scale * kv_scale) and multiplies the attention output
 once, in the output's dtype (softmax is invariant to V's scale), as the
-JAX backend does.
+JAX backend does.  A model's ``sliding_window`` goes to every prefill
+and decode call.
 """
 
 from __future__ import annotations
@@ -34,8 +35,10 @@ class VattnAttentionBackend:
 
     def __init__(self, *, block_tokens: int, max_context_len: int,
                  arena_rows: int, q_tile: int = PREFILL_TOKEN_PAD,
-                 kv_scale: float | None = None):
+                 kv_scale: float | None = None,
+                 sliding_window: int | None = None):
         self.kv_scale = kv_scale
+        self.window = sliding_window
         self.q_tile = q_tile
         self.sub = select_kv_tile(block_tokens, TABLE_SUB)
         self.n_sub = cdiv(min(max_context_len, arena_rows), self.sub)
@@ -79,11 +82,11 @@ class VattnAttentionBackend:
             outs.append(prefill_attention(
                 q[:n_prefill_tokens].contiguous(), kv_cache, inputs.qt_run,
                 inputs.pre_qinfo, inputs.pre_tile_rows, layer, sub=self.sub,
-                pad_tile=self.q_tile, sm_scale=sm_scale))
+                pad_tile=self.q_tile, sm_scale=sm_scale, window=self.window))
         if q.shape[0] > n_prefill_tokens:
             outs.append(decode_attention(
                 q[n_prefill_tokens:].contiguous(), kv_cache,
                 inputs.dec_tile_rows, inputs.dec_seqlens, layer,
-                sub=self.sub, sm_scale=sm_scale))
+                sub=self.sub, sm_scale=sm_scale, window=self.window))
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
         return self._descale_out(out[..., :D])

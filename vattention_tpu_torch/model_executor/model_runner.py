@@ -85,11 +85,15 @@ class ModelRunner:
                 block_tokens=cache_engine.block_tokens,
                 max_context_len=config.model_config.max_model_len,
                 arena_rows=cache_engine.allocator.arena_tokens,
-                q_tile=self.q_tile, kv_scale=cache_engine.kv_scale)
+                q_tile=self.q_tile, kv_scale=cache_engine.kv_scale,
+                sliding_window=arch.sliding_window)
         else:
+            # the window on the paged backend too (the JAX runner leaves
+            # it out there: ROADMAP Queue 3)
             self.backend = PagedAttentionBackend(
                 block_size=cache_engine.block_size, q_tile=self.q_tile,
-                kv_scale=cache_engine.kv_scale)
+                kv_scale=cache_engine.kv_scale,
+                sliding_window=arch.sliding_window)
         self.logprobs_top = config.model_config.max_logprobs
         self._metrics_store = MetricsStore.get_instance()
         self._generator = torch.Generator(device=device).manual_seed(seed)

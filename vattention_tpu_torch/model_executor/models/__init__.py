@@ -1,7 +1,9 @@
 """Model registry (counterpart of vattention_tpu/model_executor/models/__init__.py).
 
-The port has the llama-family body only; the other families raise
-NotImplementedError until they are ported (ROADMAP Queue 1 item 12).
+llama, yi, mistral, qwen, qwen2, internlm and opt share the llama-family
+body (their differences are ModelArch data: a sliding window, a qkv bias);
+falcon's parallel-attention body is not ported and raises
+NotImplementedError (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -10,11 +12,21 @@ from vattention_tpu_torch.model_executor.models.llama import LlamaForCausalLM
 
 
 def get_model_class(model_type: str):
+    from vattention_tpu_torch.model_executor.models.internlm import (
+        InternLMForCausalLM)
+    from vattention_tpu_torch.model_executor.models.mistral import (
+        MistralForCausalLM)
+    from vattention_tpu_torch.model_executor.models.qwen import (
+        Qwen2ForCausalLM, QwenForCausalLM)
     from vattention_tpu_torch.model_executor.models.yi import YiForCausalLM
 
     registry = {
         "llama": LlamaForCausalLM,
         "yi": YiForCausalLM,
+        "mistral": MistralForCausalLM,
+        "qwen": QwenForCausalLM,
+        "qwen2": Qwen2ForCausalLM,
+        "internlm": InternLMForCausalLM,
         "opt": LlamaForCausalLM,
     }
     if model_type not in registry:

@@ -1,4 +1,4 @@
-"""Llama-family model (llama/yi/mistral/qwen/internlm share this body).
+"""Llama-family model (llama/yi/mistral/qwen/qwen2/internlm share this body).
 
 Counterpart of ``vattention_tpu/model_executor/models/llama.py``.  Weights
 are a plain dict of tensors in the JAX package's layout -- per-layer
@@ -7,7 +7,10 @@ forward is ``h @ w`` -- which makes ``weight_utils.params_from_jax`` a
 plain copy.  The forward is a Python loop over layers: each layer runs
 rms_norm -> qkv -> rope -> KV append (kernel A) -> attention (kernels
 B/C) -> o-proj -> SwiGLU, one kernel launch per layer and op.  The arena
-is updated in place.
+is updated in place.  A sliding window (``ModelArch.sliding_window``,
+mistral) is the attention backend's, and a qkv bias (qwen, internlm) is a
+weight; falcon's parallel attention is not ported (ROADMAP Queue 1 item
+12).
 """
 
 from __future__ import annotations
@@ -29,10 +32,10 @@ class LlamaForCausalLM:
     """Model definition + forward; weights live in a separate dict."""
 
     def __init__(self, arch: ModelArch, *, dtype: torch.dtype = torch.bfloat16):
-        if arch.parallel_attn or arch.sliding_window is not None:
+        if arch.parallel_attn:
             raise NotImplementedError(
-                f"{arch.model_type}: parallel attention and sliding windows "
-                "are not ported yet (ROADMAP Queue 1 item 12)")
+                f"{arch.model_type}: parallel attention is not ported yet "
+                "(ROADMAP Queue 1 item 12)")
         self.arch = arch
         self.dtype = dtype
         self.hq = arch.num_q_heads

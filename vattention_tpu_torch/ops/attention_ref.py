@@ -10,10 +10,12 @@ import torch
 
 
 def mha_reference(q, k, v, *, causal: bool, q_start: int = 0,
-                  sm_scale: float | None = None):
+                  sm_scale: float | None = None, window: int | None = None):
     """q: [Tq, Hq, D]; k/v: [Tk, Hkv, D] (GQA: Hq = G*Hkv).
 
     ``q_start``: absolute position of q[0] (query i sits at q_start + i).
+    ``window`` (causal only; None or 0: none): query position q attends
+    keys p with q - window < p <= q, the kernels' sliding window.
     """
     Tq, Hq, D = q.shape
     Tk, Hkv, _ = k.shape
@@ -25,7 +27,10 @@ def mha_reference(q, k, v, *, causal: bool, q_start: int = 0,
     if causal:
         q_pos = q_start + torch.arange(Tq, device=q.device)[:, None]
         k_pos = torch.arange(Tk, device=q.device)[None, :]
-        scores = scores.masked_fill(~(q_pos >= k_pos), float("-inf"))
+        seen = q_pos >= k_pos
+        if window:
+            seen &= k_pos > q_pos - window
+        scores = scores.masked_fill(~seen, float("-inf"))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("hgqk,khd->qhgd", p, v.float())
     return out.reshape(Tq, Hq, D)

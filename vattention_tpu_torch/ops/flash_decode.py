@@ -3,9 +3,11 @@
 
 Replaces ``flash_decode`` (``_decode_kernel``) of
 ``vattention_tpu/ops/flash_decode.py``: slot b's query token (``[Hq, D]``)
-attends its arena rows for positions ``[0, seqlens[b])``, position p at
-row ``tile_rows[b, p // sub] + p % sub``.  Slots with ``seqlens[b] == 0``
-give zeros, never NaN.  The TPU devices (``seq_tile``, ``kv_fetch``,
+attends its arena rows for positions ``[0, seqlens[b])`` -- under a
+sliding ``window``, ``[max(0, seqlens[b] - window), seqlens[b])``, the JAX
+kernel's ``kv_pos >= kv_len - window`` -- position p at row ``tile_rows[b,
+p // sub] + p % sub``.  Slots with ``seqlens[b] == 0`` give zeros, never
+NaN.  The TPU devices (``seq_tile``, ``kv_fetch``,
 static kv-tile grids and their buckets) have no counterpart: the kernel
 loops to each slot's live depth.
 
@@ -15,7 +17,9 @@ decode_attention.cuh (shared with kernel F): one launch of a fixed grid
 (``decode_grid``: twice the SM count, whatever the table's depth); every
 block plans the splits over the slots' live depths from ``seqlens`` on
 the device (tiles of ``DECODE_TILE`` positions, at least
-``MIN_SPLIT_TILES`` per split), streams K/V tiles through per-warp
+``MIN_SPLIT_TILES`` per split; under a window only the tiles from the one
+holding ``seqlens[b] - window``, so the window, not the depth, sizes the
+plan), streams K/V tiles through per-warp
 cp.async rings into tensor-core products (bf16; float32 on the CUDA
 cores), and the last split of each (slot, head) merges the splits inside
 the launch.  The wrapper reads nothing back from the device, so a call
@@ -41,7 +45,7 @@ from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, KV_DTYPE_CODES,
 P, I = ctypes.c_void_p, ctypes.c_int
 DECODE_ATTENTION = CudaKernel("decode_attention", "vattn_decode_attention", [
     P, P, P, P, P, P, P, I, I, I, I, I, ctypes.c_longlong, I,
-    ctypes.c_float, I, I, I, P])
+    ctypes.c_float, I, I, I, I, P])
 
 KERNEL_HEAD_DIM = 128
 KERNEL_GROUPS = (1, 2, 4, 8)
@@ -61,24 +65,38 @@ _scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 _grid: Dict[torch.device, int] = {}
 
 
-def gather_rows(tile_rows_b: torch.Tensor, n: int, sub: int) -> torch.Tensor:
-    """Arena rows of positions [0, n) from one sequence's row table."""
-    pos = torch.arange(n, device=tile_rows_b.device)
+def window_arg(window) -> int:
+    """The kernels' window argument: 0 for no window (None or 0), else the
+    window in positions."""
+    if window is None or window == 0:
+        return 0
+    if window < 0:
+        raise ValueError(f"sliding window {window} < 0")
+    return int(window)
+
+
+def gather_rows(tile_rows_b: torch.Tensor, n: int, sub: int,
+                start: int = 0) -> torch.Tensor:
+    """Arena rows of positions [start, n) from one sequence's row table."""
+    pos = torch.arange(start, n, device=tile_rows_b.device)
     return tile_rows_b.long()[pos // sub] + pos % sub
 
 
 def decode_attention_plain(q, kv_cache, tile_rows, seqlens, layer: int, *,
-                           sub: int, sm_scale: float) -> torch.Tensor:
-    """Plain PyTorch version: per slot, gather the live rows and run a full
-    float32 softmax."""
+                           sub: int, sm_scale: float,
+                           window=None) -> torch.Tensor:
+    """Plain PyTorch version: per slot, gather the live rows (the last
+    ``window`` under a window) and run a full float32 softmax."""
     B, Hq, D = q.shape
     Hkv = kv_cache.shape[2]
     G = Hq // Hkv
+    window = window_arg(window)
     out = torch.zeros_like(q)
     for b, n in enumerate(seqlens.tolist()):
         if n <= 0:
             continue
-        rows = gather_rows(tile_rows[b], n, sub)
+        rows = gather_rows(tile_rows[b], n, sub,
+                           max(0, n - window) if window else 0)
         k = kv_cache[layer, 0][:, rows].float()           # [Hkv, n, D]
         v = kv_cache[layer, 1][:, rows].float()
         qf = q[b].float().reshape(Hkv, G, D)
@@ -139,14 +157,15 @@ def decode_scratch(device: torch.device, batch: int, hkv: int, group: int,
 
 
 def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
-                     sub: int, sm_scale: float) -> torch.Tensor:
+                     sub: int, sm_scale: float, window=None) -> torch.Tensor:
     """q: [B, Hq, D]; kv_cache: [L, 2, Hkv, R, D]; tile_rows: [B, n_sub]
-    int32; seqlens: [B] int32, each at most n_sub * sub -> [B, Hq, D] in
-    q's dtype.  CPU tensors take the plain version; CUDA tensors launch
-    kernel C once."""
+    int32; seqlens: [B] int32, each at most n_sub * sub; window: the
+    sliding window (None or 0: none) -> [B, Hq, D] in q's dtype.  CPU
+    tensors take the plain version; CUDA tensors launch kernel C once."""
     if not q.is_cuda:
         return decode_attention_plain(q, kv_cache, tile_rows, seqlens,
-                                      layer, sub=sub, sm_scale=sm_scale)
+                                      layer, sub=sub, sm_scale=sm_scale,
+                                      window=window)
     check_decode_args("decode_attention", q, kv_cache, tile_rows, seqlens,
                       layer, sub)
     B, Hq, D = q.shape
@@ -161,6 +180,6 @@ def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
                      part.data_ptr(), tickets.data_ptr(),
                      tile_rows.data_ptr(), seqlens.data_ptr(), B, Hkv, G,
                      tile_rows.shape[1], sub, R, layer, float(sm_scale),
-                     grid, DTYPE_CODES[q.dtype],
+                     window_arg(window), grid, DTYPE_CODES[q.dtype],
                      KV_DTYPE_CODES[kv_cache.dtype], current_stream())
     return out

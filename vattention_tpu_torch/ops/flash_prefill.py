@@ -6,19 +6,24 @@ Replaces ``flash_prefill_multi`` (``_prefill_kernel``) of
 holds K prefill runs, each padded to ``pad_tile`` rows;
 ``qt_run[i] = (run, local tile)`` for each pad_tile-row tile and
 ``qinfo[run] = (q_start, kv_len)``.  Token j of local tile lt sits at
-position ``q_start + lt*pad_tile + j`` (not ``positions[]``, which is 0 on
-padding rows) and attends positions ``p <= its own`` with ``p < kv_len``,
-read from the arena at row ``tile_rows[run, p // sub] + p % sub``.  The
-chunk's own K/V must already be in the arena (kernel A runs first).
+position ``q = q_start + lt*pad_tile + j`` (not ``positions[]``, which is 0
+on padding rows) and attends positions ``p <= q`` with ``p < kv_len`` and,
+under a sliding ``window``, ``p > q - window`` (the JAX kernel's window
+mask), read from the arena at row ``tile_rows[run, p // sub] + p % sub``.
+The chunk's own K/V must already be in the arena (kernel A runs first).
 Tiles whose run has ``kv_len == 0`` -- the empty run that fixed-width
-padding maps tail tiles to -- give zeros.
+padding maps tail tiles to -- give zeros, and so does a padding row that
+sees no key (at least ``window`` past kv_len; the JAX kernel leaves such
+rows undefined).
 
 The kernel's own q tile is ``KERNEL_ROWS[dtype] / G`` tokens (G =
 Hq/Hkv): 128/G in bfloat16, 64/G in float32; ``pad_tile`` stays the
 scheduler's charge unit (config.PREFILL_TOKEN_PAD = 128), which every
 group of 1, 2, 4 or 8 fits.  Dropped TPU devices: ``kv_fetch``,
 ``seq_tile``, static kv grids and their buckets -- the kernel walks each
-q tile's keys to its causal diagonal.
+q tile's keys to its causal diagonal, and under a window from the first
+64-key tile its first row sees, so tiles wholly before the window are
+neither read nor multiplied.
 
 Bound on the H100: operations at serving depth (4*Hq*D FLOPs per attended
 (query, key) pair).  Design: csrc/prefill_attention.cuh -- a block per
@@ -35,9 +40,9 @@ table (``seg_row [S]``, ``seg_cum [S+1]``, S <= 8) as ``seg_row_lookup``
 does, for each key position -- so, unlike the TPU kernel, whose index map
 resolves one row per sub-row tile, G takes extents that align to no tile.
 G is B's body with that row map and a one-run q map (no ``qt_run``), so
-it equals B bit for bit on the same rows.  The TPU option ``window``
-raises (ROADMAP Queue 1 item 12); ``q_tile``, ``kv_tile``, ``kv_fetch``
-and ``max_kv_tiles`` have no counterpart.
+it equals B bit for bit on the same rows.  G takes ``window`` as B does;
+``q_tile``, ``kv_tile``, ``kv_fetch`` and ``max_kv_tiles`` have no
+counterpart.
 
 Arenas: the compute dtype's, or 1-byte e4m3 or int8 (kernel A quantized
 them).  Every kernel of the body widens 1-byte K/V tiles exactly to the
@@ -58,7 +63,7 @@ from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, KV_DTYPE_CODES,
                                                  check_cuda_tensor,
                                                  check_kv_cache,
                                                  current_stream)
-from vattention_tpu_torch.ops.flash_decode import gather_rows
+from vattention_tpu_torch.ops.flash_decode import gather_rows, window_arg
 
 PREFILL_ATTENTION = CudaKernel(
     "prefill_attention", "vattn_prefill_attention", [
@@ -66,14 +71,15 @@ PREFILL_ATTENTION = CudaKernel(
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 SEGMENT_PREFILL_ATTENTION = CudaKernel(
     "prefill_attention", "vattn_segment_prefill_attention", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p])
 
 KERNEL_HEAD_DIM = 128
 # query rows (token, head) per block of the CUDA body, by dtype
@@ -83,13 +89,18 @@ PLAIN_Q_SLICE = 256  # query tokens per pass of G's and H's plain versions
 
 
 def causal_prefill_plain(q, kv_cache, qt_run, qinfo, rows_of, layer: int, *,
-                         pad_tile: int, sm_scale: float) -> torch.Tensor:
+                         pad_tile: int, sm_scale: float,
+                         window=None) -> torch.Tensor:
     """Plain PyTorch prefill over K runs: per run, gather the rows
-    ``rows_of(run, kv_len)`` of its positions [0, kv_len) and run a full
-    float32 causal softmax.  Shared by kernels B and E's plain versions."""
+    ``rows_of(run, kv_len)`` of its positions [0, kv_len) (under a window
+    from the first that its first query sees) and run a full float32
+    causal softmax, masked in float32 as the JAX tests' windowed reference;
+    a row that sees no key gives zeros.  Shared by kernels B and E's plain
+    versions."""
     Tq, Hq, D = q.shape
     Hkv = kv_cache.shape[2]
     G = Hq // Hkv
+    window = window_arg(window)
     out = torch.zeros_like(q)
     qt_run = qt_run.long()
     local = torch.arange(pad_tile, device=q.device)
@@ -101,15 +112,22 @@ def causal_prefill_plain(q, kv_cache, qt_run, qinfo, rows_of, layer: int, *,
         tok = (tiles[:, None] * pad_tile + local[None, :]).reshape(-1)
         q_pos = (q_start + qt_run[tiles, 1][:, None] * pad_tile
                  + local[None, :]).reshape(-1)
-        rows = rows_of(run, kv_len)
-        k = kv_cache[layer, 0][:, rows].float()           # [Hkv, kv_len, D]
+        lo = min(max(0, int(q_pos.min()) - window + 1) if window else 0,
+                 kv_len)
+        rows = rows_of(run, kv_len)[lo:]
+        k = kv_cache[layer, 0][:, rows].float()           # [Hkv, keys, D]
         v = kv_cache[layer, 1][:, rows].float()
         qf = q[tok].float().reshape(-1, Hkv, G, D)
         s = torch.einsum("thgd,hkd->hgtk", qf, k) * sm_scale
-        kv_pos = torch.arange(kv_len, device=q.device)
-        s = s.masked_fill(~(q_pos[:, None] >= kv_pos[None, :]),
-                          float("-inf"))
-        o = torch.einsum("hgtk,hkd->thgd", torch.softmax(s, -1), v)
+        kv_pos = torch.arange(lo, kv_len, device=q.device)
+        seen = q_pos[:, None] >= kv_pos[None, :]
+        if window:
+            seen &= kv_pos[None, :] > q_pos[:, None] - window
+        s = s.masked_fill(~seen, float("-inf"))
+        p = torch.softmax(s, -1)
+        if window:
+            p = p.nan_to_num(0.0)   # rows that see no key
+        o = torch.einsum("hgtk,hkd->thgd", p, v)
         out[tok] = o.reshape(-1, Hq, D).to(q.dtype)
     return out
 
@@ -159,25 +177,27 @@ def check_prefill_args(name, q, kv_cache, qt_run, qinfo, table, layer: int,
 
 def prefill_attention_plain(q, kv_cache, qt_run, qinfo, tile_rows,
                             layer: int, *, sub: int, pad_tile: int,
-                            sm_scale: float) -> torch.Tensor:
+                            sm_scale: float, window=None) -> torch.Tensor:
     """Plain PyTorch version of kernel B."""
     return causal_prefill_plain(
         q, kv_cache, qt_run, qinfo,
         lambda run, n: gather_rows(tile_rows[run], n, sub), layer,
-        pad_tile=pad_tile, sm_scale=sm_scale)
+        pad_tile=pad_tile, sm_scale=sm_scale, window=window)
 
 
 def prefill_attention(q, kv_cache, qt_run, qinfo, tile_rows, layer: int, *,
-                      sub: int, pad_tile: int,
-                      sm_scale: float) -> torch.Tensor:
+                      sub: int, pad_tile: int, sm_scale: float,
+                      window=None) -> torch.Tensor:
     """q: [Tq, Hq, D] with Tq % pad_tile == 0; kv_cache: [L, 2, Hkv, R, D];
     qt_run: [Tq // pad_tile, 2], qinfo: [K, 2], tile_rows: [K, n_sub]
-    (int32) -> [Tq, Hq, D] in q's dtype.  CPU tensors take the plain
-    version; CUDA tensors launch kernel B."""
+    (int32); window: the sliding window (None or 0: none) -> [Tq, Hq, D] in
+    q's dtype.  CPU tensors take the plain version; CUDA tensors launch
+    kernel B."""
     if not q.is_cuda:
         return prefill_attention_plain(q, kv_cache, qt_run, qinfo,
                                        tile_rows, layer, sub=sub,
-                                       pad_tile=pad_tile, sm_scale=sm_scale)
+                                       pad_tile=pad_tile, sm_scale=sm_scale,
+                                       window=window)
     check_prefill_args("prefill_attention", q, kv_cache, qt_run, qinfo,
                        tile_rows, layer, pad_tile, sub)
     Tq, Hq, _ = q.shape
@@ -189,22 +209,13 @@ def prefill_attention(q, kv_cache, qt_run, qinfo, tile_rows, layer: int, *,
                       qt_run.data_ptr(), qinfo.data_ptr(),
                       tile_rows.data_ptr(), Tq, Hq, Hkv, pad_tile,
                       tile_rows.shape[1], sub, R, layer, float(sm_scale),
-                      DTYPE_CODES[q.dtype], KV_DTYPE_CODES[kv_cache.dtype],
-                      current_stream())
+                      window_arg(window), DTYPE_CODES[q.dtype],
+                      KV_DTYPE_CODES[kv_cache.dtype], current_stream())
     return out
 
 
-def reject_unported(name, window) -> None:
-    """Raise NotImplementedError for the TPU kernels' option that the
-    single-run prefill kernels (G, H) do not take yet."""
-    if window is not None:
-        raise NotImplementedError(
-            f"{name}: sliding windows are not ported yet (ROADMAP Queue 1 "
-            "item 12)")
-
-
 def single_run_plain(q, kv_cache, qinfo, rows_of, layer: int, *,
-                     sm_scale: float) -> torch.Tensor:
+                     sm_scale: float, window=None) -> torch.Tensor:
     """Plain PyTorch prefill of one run at positions ``qinfo[0] + [0,
     Tq)`` (``qinfo = (q_start, kv_len)``): kernels G and H's plain
     versions.  Runs ``PLAIN_Q_SLICE`` query tokens at a time over the keys
@@ -219,7 +230,7 @@ def single_run_plain(q, kv_cache, qinfo, rows_of, layer: int, *,
                             device=q.device)
         out[a:a + qs.shape[0]] = causal_prefill_plain(
             qs, kv_cache, qt_run, info, rows_of, layer, pad_tile=qs.shape[0],
-            sm_scale=sm_scale)
+            sm_scale=sm_scale, window=window)
     return out
 
 
@@ -239,12 +250,12 @@ def segment_rows(seg_row: torch.Tensor, seg_cum: torch.Tensor,
 
 
 def segment_prefill_attention_plain(q, kv_cache, seg_row, seg_cum, qinfo,
-                                    layer: int, *,
-                                    sm_scale: float) -> torch.Tensor:
+                                    layer: int, *, sm_scale: float,
+                                    window=None) -> torch.Tensor:
     """Plain PyTorch version of kernel G."""
     return single_run_plain(
         q, kv_cache, qinfo, lambda run, n: segment_rows(seg_row, seg_cum, n),
-        layer, sm_scale=sm_scale)
+        layer, sm_scale=sm_scale, window=window)
 
 
 def segment_prefill_attention(q, kv_cache, seg_row, seg_cum, qinfo,
@@ -252,12 +263,13 @@ def segment_prefill_attention(q, kv_cache, seg_row, seg_cum, qinfo,
                               window=None) -> torch.Tensor:
     """q: [Tq, Hq, D], one chunk at positions ``qinfo[0] + [0, Tq)``;
     kv_cache: [L, 2, Hkv, R, D]; seg_row: [S], seg_cum: [S+1] (S <= 8),
-    qinfo: [2] = (q_start, kv_len) (int32) -> [Tq, Hq, D] in q's dtype.
-    CPU tensors take the plain version; CUDA tensors launch kernel G."""
-    reject_unported("segment_prefill_attention", window)
+    qinfo: [2] = (q_start, kv_len) (int32); window: the sliding window
+    (None or 0: none) -> [Tq, Hq, D] in q's dtype.  CPU tensors take the
+    plain version; CUDA tensors launch kernel G."""
     if not q.is_cuda:
         return segment_prefill_attention_plain(
-            q, kv_cache, seg_row, seg_cum, qinfo, layer, sm_scale=sm_scale)
+            q, kv_cache, seg_row, seg_cum, qinfo, layer, sm_scale=sm_scale,
+            window=window)
     S = seg_row.shape[0] if seg_row.dim() == 1 else 0
     check_prefill_shapes(
         "segment_prefill_attention", q, kv_cache, layer, None,
@@ -272,6 +284,6 @@ def segment_prefill_attention(q, kv_cache, seg_row, seg_cum, qinfo,
     SEGMENT_PREFILL_ATTENTION(
         q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(), seg_row.data_ptr(),
         seg_cum.data_ptr(), S, qinfo.data_ptr(), Tq, Hq, Hkv, R, layer,
-        float(sm_scale), DTYPE_CODES[q.dtype], KV_DTYPE_CODES[kv_cache.dtype],
-        current_stream())
+        float(sm_scale), window_arg(window), DTYPE_CODES[q.dtype],
+        KV_DTYPE_CODES[kv_cache.dtype], current_stream())
     return out

@@ -6,8 +6,11 @@ Replaces ``pod_fused_attention`` (``_pod_kernel``) of
 takes (``ops/flash_prefill.py``: K runs padded to ``pad_tile``,
 ``qt_run``, ``qinfo``, the runs' arena-row tables) and the decode part
 what kernel C takes (``ops/flash_decode.py``: one query token per slot,
-the slots' row tables, ``seqlens``); both outputs are returned, and they
-equal B's and C's on the same inputs.
+the slots' row tables, ``seqlens``), and one sliding ``window`` for both;
+both outputs are returned, and they equal B's and C's on the same inputs.
+The JAX kernel takes no window (its backend drops the model's), so on a
+windowed model the JAX fa_pod engine attends past the window; F applies
+it, as the vattn backend does (ROADMAP Queue 3).
 
 Dropped TPU devices: ``build_pod_schedule`` (the host weave handed to the
 kernel by scalar prefetch) -- F's blocks find their role from their own
@@ -38,47 +41,49 @@ from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, KV_DTYPE_CODES,
 from vattention_tpu_torch.ops.flash_decode import (check_decode_args,
                                                    decode_attention_plain,
                                                    decode_grid,
-                                                   decode_scratch)
+                                                   decode_scratch, window_arg)
 from vattention_tpu_torch.ops.flash_prefill import (check_prefill_args,
                                                     prefill_attention_plain)
 
 P, I = ctypes.c_void_p, ctypes.c_int
 POD_ATTENTION = CudaKernel("pod_attention", "vattn_pod_attention", [
     P, P, P, P, P, P, P, P, P, P, I, P, I, P, I, I, I, I, I, I,
-    ctypes.c_longlong, I, ctypes.c_float, I, I, I, P])
+    ctypes.c_longlong, I, ctypes.c_float, I, I, I, I, P])
 
 
 def pod_attention_plain(q_prefill, q_decode, kv_cache, qt_run, qinfo,
                         pre_tile_rows, dec_tile_rows, dec_seqlens,
                         layer: int, *, sub: int, pad_tile: int,
-                        sm_scale: float
+                        sm_scale: float, window=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel F: kernel B's plain version, then
     kernel C's, on the same inputs."""
     out_p = prefill_attention_plain(q_prefill, kv_cache, qt_run, qinfo,
                                     pre_tile_rows, layer, sub=sub,
-                                    pad_tile=pad_tile, sm_scale=sm_scale)
+                                    pad_tile=pad_tile, sm_scale=sm_scale,
+                                    window=window)
     out_d = decode_attention_plain(q_decode, kv_cache, dec_tile_rows,
                                    dec_seqlens, layer, sub=sub,
-                                   sm_scale=sm_scale)
+                                   sm_scale=sm_scale, window=window)
     return out_p, out_d
 
 
 def pod_attention(q_prefill, q_decode, kv_cache, qt_run, qinfo,
                   pre_tile_rows, dec_tile_rows, dec_seqlens, layer: int, *,
-                  sub: int, pad_tile: int, sm_scale: float
+                  sub: int, pad_tile: int, sm_scale: float, window=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q_prefill: [Tq, Hq, D] (Tq % pad_tile == 0) with qt_run
     [Tq // pad_tile, 2], qinfo [K, 2] and pre_tile_rows [K, n_sub];
     q_decode: [B, Hq, D] with dec_tile_rows [B, n_sub'] and dec_seqlens
-    [B] (int32); kv_cache: [L, 2, Hkv, R, D] -> (prefill out [Tq, Hq, D],
-    decode out [B, Hq, D]) in q's dtype.  CPU tensors take the plain
-    version; CUDA tensors launch kernel F."""
+    [B] (int32); kv_cache: [L, 2, Hkv, R, D]; window: the sliding window of
+    both parts (None or 0: none) -> (prefill out [Tq, Hq, D], decode out
+    [B, Hq, D]) in q's dtype.  CPU tensors take the plain version; CUDA
+    tensors launch kernel F."""
     args = (q_prefill, q_decode, kv_cache, qt_run, qinfo, pre_tile_rows,
             dec_tile_rows, dec_seqlens, layer)
     if not q_prefill.is_cuda:
         return pod_attention_plain(*args, sub=sub, pad_tile=pad_tile,
-                                   sm_scale=sm_scale)
+                                   sm_scale=sm_scale, window=window)
     check_prefill_args("pod_attention", q_prefill, kv_cache, qt_run, qinfo,
                        pre_tile_rows, layer, pad_tile, sub)
     check_decode_args("pod_attention", q_decode, kv_cache, dec_tile_rows,
@@ -106,6 +111,7 @@ def pod_attention(q_prefill, q_decode, kv_cache, qt_run, qinfo,
         pre_tile_rows.data_ptr(), pre_tile_rows.shape[1],
         dec_tile_rows.data_ptr(), dec_tile_rows.shape[1],
         dec_seqlens.data_ptr(), Tq, B, Hkv, G, sub, pad_tile, R, layer,
-        float(sm_scale), n_dec, DTYPE_CODES[q_prefill.dtype],
+        float(sm_scale), window_arg(window), n_dec,
+        DTYPE_CODES[q_prefill.dtype],
         KV_DTYPE_CODES[kv_cache.dtype], current_stream())
     return out_p, out_d
