@@ -5,11 +5,13 @@
 
 Builds the port's eight CUDA kernels (A-H) from the six sources of
 ``vattention_tpu_torch/csrc`` (one nvcc per source, in parallel) and
-prints ptxas's registers and spills of kernels B, C, E, F, G and H, with
-the shared memory per block of the bf16 prefill body's instances and of
-kernel C, for each K/V storage type (and any ptxas note on wgmma), then
+prints ptxas's registers and spills of kernels A, B, C, E, F, G and H,
+with the shared memory per block of the bf16 prefill body's instances and
+of kernel C, for each K/V storage type (and any ptxas note on wgmma), then
 runs its phases; any failure raises and the script exits non-zero without
-printing a result.
+printing a result.  Kernel A rotates Q and K and appends K/V in one launch
+per layer on the serving path (``rope_kv_append``); ``kv_append`` is the
+same kernel with the rotation off, held and timed in (a) as before.
 
 (a) Kernels at the main paths' shapes (Yi-6B-200K geometry, bf16, the
     2048-token blocks the allocator gives fa_vattn_2mb; for the paged
@@ -61,6 +63,16 @@ printing a result.
     each timed beside its plain version, its bound at one byte per K/V
     element and SDPA over K/V widened to bf16 once, outside the timed
     call (so reading twice the bytes); A has no library yardstick.
+(a rope) Kernel A with the rotation at (a)'s step of 520 tokens (positions
+    to 199999, rows of -1): Yi-6B's heads with bf16 into bf16, e4m3 and
+    int8 arenas (V carrying the quantization's edges) and f32 into f32,
+    and Mistral-7B's heads in bf16; q and the arena bit for bit against
+    ``rope_kv_append_plain``; each timed beside its plain version and the
+    eager sequence it replaces (the rope with its per-call inv_freq copy,
+    the K and V copies, then ``kv_append``), with its bytes bound (qkv read
+    once, q written once, each valid token's K/V written once) and host
+    microseconds per call of both; no single PyTorch call computes it, so
+    its library time is null.
 (b) f32 parity: tiny-llama-debug, float32, sarathi chunk 128 on the
     two-prompt workload of tests/test_e2e.py, through fa_vattn, then
     (b') fa_paged_16 and (b'') fa_pod (whose mixed step must run through
@@ -73,15 +85,23 @@ printing a result.
     from a seed) through LLMEngine with fa_vattn_2mb, sarathi chunk 512,
     max_model_len 8192, max_batch_size 8: 8 requests of seeded prompt
     lengths in [1024, 4096] and 32 greedy tokens each, the launch counts
-    zeroed just before and read just after.  kv_append, prefill and
-    decode attention must have launched, the paged prefill not;
+    zeroed just before and read just after.  rope_kv_append, prefill and
+    decode attention must have launched, the paged prefill and kv_append
+    (A without the rotation) not;
     arena_relocate launches once per relocation the allocator plans, and
     at these sizes it plans none (a request spans at most 4 blocks and
     may hold 8 extents), so phase (a) is what holds it.  Then 2 short
     prompts whose first token is held against a dense float32 reference
-    on the same bf16 weights.  Last, 4 more requests run under
-    torch.profiler for a breakdown of device time and idle share, lines
-    "(p)".
+    on the same bf16 weights.  Then three steps' layer loops (a prompt, a
+    mixed step, a decode step) run under
+    ``torch.cuda.set_sync_debug_mode("error")``: the run fails if
+    ``run_layers`` waits for the device, or if kernel A does not launch
+    once per layer and step.  Last, 4 more requests run under
+    torch.profiler (``microbenchmarks/serving_profile.py``), lines "(p)":
+    device time by family (kernel A under every name it has had), each
+    port kernel's time and launches, the wall and idle share, kernel
+    launches and cudaStreamSynchronize calls per step, and the device time
+    of the rope and KV append.
 (c8) (c)'s 8 requests and 2 short prompts with ``kv_quant`` fp8, then
     int8 (fresh engines, no profile): A, B and C must launch; the tokens
     per 2 MB page, tok/s, and how many greedy tokens equal (c)'s
@@ -92,7 +112,7 @@ printing a result.
     rounding, which e4m3's 3-bit mantissa turns into whole steps on the
     values near a rounding boundary; its gap is printed beside.
 (d) The same through a fresh engine with fa_paged_256 (the (c) engine
-    freed first): kv_append, paged prefill and decode attention must
+    freed first): rope_kv_append, paged prefill and decode attention must
     have launched, prefill_attention and arena_relocate not; the tokens
     are compared with (c)'s and the short prompts held as in (c).
 (e) The same through a fresh engine with fa_pod (2 MB pages, the (c)
@@ -167,8 +187,10 @@ Prints the phase results, then ``{"kernels": [...]}`` (A-H, then their
 e4m3 and int8 instances, ``<name>[e4m3]``, then the windowed instances,
 ``<name>[w4096]`` and ``<name>[e4m3 w4096]``, with launches from (g) and
 (g') for bf16 B, C, E, F, (b w) for the 1-byte ones and (f w) for G and
-H), the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``.
+H, then ``rope_kv_append`` and its ``[e4m3]``, ``[int8]``, ``[f32]`` and
+``[mistral]`` instances with launches from (c), (c8), (b) and (g);
+``kv_append``, which serving no longer runs, shows 0), the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -189,6 +211,8 @@ try:
         EDGE_DEPTHS, check_decode_edges, edge_depths)
     from vattention_tpu_torch.microbenchmarks.prefill_edges import (
         check_prefill_edges)
+    from vattention_tpu_torch.microbenchmarks.serving_profile import (
+        check_layer_loop_does_not_sync, profile_window, serve)
     from vattention_tpu_torch.microbenchmarks.timing import (
         ATTN_TOL, Timer, bound, check_attention, seeded)
 except ImportError as e:  # chip_smoke.py without the port beside it
@@ -565,6 +589,129 @@ def kernel_phase(dev, arena=torch.bfloat16):
     return results
 
 
+# --------------------------------------------------------------------- #
+# (a rope) kernel A with the rotation
+# --------------------------------------------------------------------- #
+# instance suffix -> (model, model dtype, arena dtype); launches from (c),
+# (c8), (b) (the f32 tiny model) and (g)
+ROPE_INSTANCES = {
+    "": ("yi-6b-200k", torch.bfloat16, torch.bfloat16),
+    "[e4m3]": ("yi-6b-200k", torch.bfloat16, torch.float8_e4m3fn),
+    "[int8]": ("yi-6b-200k", torch.bfloat16, torch.int8),
+    "[f32]": ("yi-6b-200k", torch.float32, torch.float32),
+    "[mistral]": ("mistral-7b", torch.bfloat16, torch.bfloat16),
+}
+
+
+def rope_append_phase(dev):
+    """(a rope): kernel A with the rotation (``rope_kv_append``) at (a)'s
+    step of 520 tokens (two prefill runs, 32 padding tokens, 6 decode
+    slots at positions to 199999 and 2 idle ones) on Yi-6B's heads (bf16
+    into bf16, e4m3 and int8 arenas; f32 into f32) and Mistral-7B's (bf16):
+    q and the arena bit for bit against the plain version (the port's rope,
+    then kv_append_plain), V carrying the quantization's edges; each timed
+    beside the plain version and the eager sequence it replaces (the rope
+    with its per-call copy of inv_freq, the K and V copies, then kernel A
+    without the rotation), with its bytes bound and the host microseconds
+    per call of it and of the eager sequence."""
+    from vattention_tpu_torch.config import get_model_arch
+    from vattention_tpu_torch.model_executor.layers.rotary_embedding import (
+        get_rope)
+    from vattention_tpu_torch.ops import cache_append
+    from vattention_tpu_torch.ops.cache_append import split_qkv
+    from vattention_tpu_torch.ops.utils import quantize_kv
+
+    layer, L, bt = 5, 8, 2048
+    T = 512 + 8
+    rows = np.full(T, -1, np.int32)
+    rows[:300] = np.arange(3 * bt + 1000, 3 * bt + 1300)
+    rows[300:480] = np.arange(9 * bt, 9 * bt + 180)      # 480..511: padding
+    rows[512:518] = [bt * i + 17 * i for i in (11, 12, 13, 14, 15, 16)]
+    pos = np.zeros(T, np.int32)
+    pos[:300] = np.arange(1000, 1300)
+    pos[300:480] = np.arange(180)
+    pos[512:518] = [4095, 8191, 65535, 131071, 199999, 17]
+    rows_d = torch.from_numpy(rows).to(dev)
+    pos_d = torch.from_numpy(pos).to(dev)
+    nvalid = int((rows >= 0).sum())
+    timer = Timer(dev)
+    results = []
+    for suffix, (model, dt, arena) in ROPE_INSTANCES.items():
+        a = get_model_arch(model)
+        HQ, HKV, D = a.num_q_heads, a.num_kv_heads, a.head_dim
+        rope = get_rope(D, D, a.max_position_embeddings, a.rope_theta,
+                        a.rope_scaling)
+        step = INT8_STEP if arena == torch.int8 else None
+        gen = torch.Generator(device=dev).manual_seed(9)
+        qkv = (torch.randn(T, (HQ + 2 * HKV) * D, generator=gen, device=dev)
+               * 3).to(dt)
+        cache = torch.randn(L, 2, HKV, 24 * bt, D, generator=gen,
+                            device=dev)
+        cache = quantize_kv(cache, arena, step)
+        if arena != dt:
+            # the quantization's edges in V (not rotated): the flush cutoff
+            # and its bf16 neighbours, e4m3's largest value and past it,
+            # int8 half steps
+            s_ = step or 1.0
+            edge = torch.tensor([15 * 2 ** -10, 1.8671875 * 2 ** -7,
+                                 1.8828125 * 2 ** -7, 448, 500, 1000,
+                                 0.5 * s_, 1.5 * s_, 126.5 * s_, 300 * s_],
+                                device=dev)
+            edge = torch.cat([edge, -edge]).to(dt)
+            qkv[:edge.numel(), (HQ + HKV) * D] = edge
+        args = (qkv, pos_d, rows_d, layer, rope, step)
+        expect = cache.clone()
+        q_ref = cache_append.rope_kv_append_plain(expect, *args)
+        got = cache.clone()
+        q = cache_append.rope_kv_append(got, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(q.view(torch.uint8), q_ref.view(torch.uint8))
+                and torch.equal(got.view(torch.uint8),
+                                expect.view(torch.uint8))):
+            bad = (q.float() != q_ref.float()).sum().item()
+            raise AssertionError(f"rope_kv_append{suffix} differs from its "
+                                 f"plain version ({bad} q values)")
+        del expect, q_ref
+
+        def eager():
+            # the serving path before kernel A rotated: the rope, which
+            # copied inv_freq to the card at every call (a wait), K and V
+            # made contiguous, then kernel A without the rotation
+            rope.inv_freq.to(dev)
+            q_, k_, v_ = split_qkv(qkv, HKV, D)
+            q_, k_ = rope(pos_d, q_, k_)
+            cache_append.kv_append(got, k_.contiguous(), v_.contiguous(),
+                                   rows_d, layer, kv_scale=step)
+            return q_
+
+        es = qkv.element_size()
+        b_ms, b_by = bound(T * (2 * HQ + 2 * HKV) * D * es + T * 8 + D * 2
+                          + nvalid * 2 * HKV * D * got.element_size(), 0)
+        fused = functools.partial(cache_append.rope_kv_append, got, *args)
+        r = dict(
+            name="rope_kv_append" + suffix, route="cuda",
+            source="vattention_tpu_torch/csrc/kv_append.cu",
+            replaces="vattention_tpu/ops/cache_append.py:152,274",
+            max_abs_err=0.0, ms=timer(fused),
+            plain_ms=timer(lambda: cache_append.rope_kv_append_plain(
+                got, *args)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            eager_ms=timer(eager), host_us=host_us(fused),
+            eager_host_us=host_us(eager),
+            shape=f"T={T} ({nvalid} valid) Hq={HQ} Hkv={HKV} D={D} "
+                  f"{str(dt)[6:]} -> {str(arena)[6:]}")
+        log(f"(a rope) rope_kv_append{suffix} [{r['shape']}]: q and arena "
+            f"== plain bit for bit; ms {r['ms']:.4f}, bound "
+            f"{b_ms:.5f} ({b_by}), {100 * b_ms / r['ms']:.0f}% of it; plain "
+            f"{r['plain_ms']:.4f}; eager rope + copies + kernel A "
+            f"{r['eager_ms']:.4f} ms; host us per call {r['host_us']:.1f}, "
+            f"eager {r['eager_host_us']:.1f}")
+        results.append(r)
+        del got, cache, qkv
+        torch.cuda.empty_cache()
+    return results
+
+
 def widening_check(dev, arena, sm, lbl):
     """(a) on a 1-byte arena: row 0's V holds every finite e4m3 pattern (or
     every int8 value) in each kv head; zero queries at kv_len 1 give that
@@ -718,13 +865,14 @@ def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms, sm, suffix,
 
 
 def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
-                        "decode_attention", "pod_attention")):
+                        "decode_attention", "pod_attention", "kv_append")):
     """Registers, spills and shared memory per block of the bf16 prefill
     body's kernels (B, G, E and H, named by their q map and row map) and
     of the G = 8 instances of the others (C's shared memory in both
-    dtypes), from each library's ptxas log (written when the library is
-    built) and the dynamic shared memory the launchers ask for; ptxas's
-    notes on wgmma, if any, follow."""
+    dtypes), and registers and spills of each instance of kernel A, from
+    each library's ptxas log (written when the library is built) and the
+    dynamic shared memory the launchers ask for; ptxas's notes on wgmma,
+    if any, follow."""
     import ctypes
 
     from vattention_tpu_torch.ops.cuda_build import library, library_path
@@ -761,6 +909,13 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
             if m and fn:
                 spills = f"{m.group(1)}/{m.group(2)} bytes spilled"
             m = re.search(r"Used (\d+) registers", line)
+            if m and fn and name == "kv_append":
+                kv = ("e4m3" if "ToFp8" in fn else "int8" if "ToInt8" in fn
+                      else "the model's type")
+                log(f"ptxas kv_append.cu: rope_kv_append_kernel "
+                    f"({'bf16' if 'bfloat16' in fn else 'f32'} into {kv}): "
+                    f"{m.group(1)} registers, {spills}")
+                continue
             if m and fn and ("tc_kernel" in fn or "Li8E" in fn):
                 bf16 = "bfloat16" in fn
                 kernel = re.search(r"\d+([a-z_]+_kernel)", fn).group(1)
@@ -1501,31 +1656,6 @@ def dense_logits(model, params, ids, dev, arena=None, dtype=torch.float32,
     return x[-1] @ params["lm_head"].float()
 
 
-def serve(engine, requests, stats=None):
-    """requests: [(seq_id, prompt ids, max_tokens)] -> {seq_id: tokens};
-    ``stats["steps"]`` gets the number of engine steps."""
-    from vattention_tpu_torch import SamplingParams
-
-    for seq_id, ids, max_tokens in requests:
-        engine.add_request(prompt=None, prompt_token_ids=ids,
-                           sampling_params=SamplingParams(
-                               temperature=0.0, max_tokens=max_tokens,
-                               ignore_eos=True),
-                           seq_id=seq_id)
-    out = {}
-    steps = 0
-    while engine.has_unfinished_requests():
-        for o in engine.step():
-            if o.finished:
-                out[o.seq_id] = o.token_ids
-        steps += 1
-        if steps > 10_000:
-            raise AssertionError("serving did not finish")
-    if stats is not None:
-        stats["steps"] = steps
-    return out
-
-
 def fresh_metrics():
     from vattention_tpu_torch.metrics.metrics_store import MetricsStore
 
@@ -1686,6 +1816,16 @@ def serving_phase(dev, kernels, backend, tag, required, idle,
         if not gap <= LOGIT_GAP_TOL:
             raise AssertionError(f"({tag}) {seq_id}: logit gap {gap}")
     if arena is None:
+        # no host wait in the layer loop: one prompt's step, a mixed step
+        # and a decode step under sync debug mode "error"
+        a_launches = check_layer_loop_does_not_sync(engine)
+        n_layers = engine.worker.model_runner.model.arch.num_layers
+        log(f"({tag}) run_layers under torch.cuda.set_sync_debug_mode("
+            f"'error'): a prefill, a mixed and a decode step ran without a "
+            f"host wait; kernel A launches per step {a_launches}")
+        if a_launches != [n_layers] * 3:
+            raise AssertionError(f"({tag}) kernel A launched {a_launches} "
+                                 f"times per step, not once per layer")
         profile_serving(engine, rng, tag)
     engine.cleanup()
     return counts, out
@@ -1693,54 +1833,15 @@ def serving_phase(dev, kernels, backend, tag, required, idle,
 
 def profile_serving(engine, rng, tag, n=4, prompt=2048):
     """Where the serving time goes: ``n`` requests of ``prompt`` tokens and
-    16 greedy tokens under torch.profiler; device time by kernel family and
-    the device's busy share of the wall time (one stream, no overlap)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    16 greedy tokens under torch.profiler (``serving_profile.
+    profile_window``): device time by kernel family, the device's busy
+    share of the wall time (one stream, no overlap), kernel launches and
+    cudaStreamSynchronize calls per step, and the rope and KV append's
+    device time."""
     vocab = engine.worker.model_runner.model.arch.vocab_size
     reqs = [(f"t{i}", rng.integers(1, vocab, prompt).tolist(), 16)
             for i in range(n)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve(engine, reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy = sum(ms for _, ms, _ in kernels)
-    if not kernels:
-        log(f"(p {tag}) the profiler recorded no device time (wall "
-            f"{wall * 1e3:.1f} ms)")
-        return
-    families = {"port kernels A-F": 0.0, "matmul": 0.0, "other": 0.0}
-    port = {}
-    for name, ms, count in kernels:
-        if any(s in name for s in ("kv_append_kernel", "prefill_attention",
-                                   "decode_attention_kernel",
-                                   "arena_relocate", "pod_attention")):
-            families["port kernels A-F"] += ms
-            short = re.search(r"(\w+_kernel)", name).group(1)
-            ms0, n0 = port.get(short, (0.0, 0))
-            port[short] = (ms0 + ms, n0 + count)
-        elif any(s in name.lower() for s in ("gemm", "gemv", "xmma", "nvjet",
-                                             "cutlass", "matmul")):
-            families["matmul"] += ms
-        else:
-            families["other"] += ms
-    log(f"(p {tag}) profiled {n} x ({prompt} + 16) tokens: wall "
-        f"{wall * 1e3:.1f} ms, "
-        f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), "
-        f"idle {100 - 100 * busy / (wall * 1e3):.1f}%; "
-        + ", ".join(f"{k} {v:.1f} ms" for k, v in families.items()))
-    log(f"(p {tag}) port kernels: " + ", ".join(
-        f"{k} {ms:.2f} ms in {n}" for k, (ms, n) in sorted(
-            port.items(), key=lambda kv: -kv[1][0])))
-    for name, ms, count in sorted(kernels, key=lambda r: -r[1])[:8]:
-        log(f"(p {tag})   {ms:9.2f} ms {count:6d} x {name[:90]}")
+    profile_window(engine, reqs, tag)
 
 
 # --------------------------------------------------------------------- #
@@ -1973,7 +2074,8 @@ def main() -> int:
     try:
         from vattention_tpu_torch.ops import cuda_build
         from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
-        from vattention_tpu_torch.ops.cache_append import KV_APPEND
+        from vattention_tpu_torch.ops.cache_append import (KV_APPEND,
+                                                           ROPE_KV_APPEND)
         from vattention_tpu_torch.ops.flash_decode import DECODE_ATTENTION
         from vattention_tpu_torch.ops.flash_prefill import (
             PREFILL_ATTENTION, SEGMENT_PREFILL_ATTENTION)
@@ -1996,14 +2098,18 @@ def main() -> int:
     ptxas_report()
 
     single = [SEGMENT_PREFILL_ATTENTION, PAGED_PREFILL_SINGLE]
-    kernels = [KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION, ARENA_RELOCATE,
-               PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single]
+    kernels = [ROPE_KV_APPEND, KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+               ARENA_RELOCATE, PAGED_PREFILL_ATTENTION, POD_ATTENTION,
+               *single]
     results = kernel_phase(dev)
     for arena in QUANT:
         results += kernel_phase(dev, arena)
     for arena in (torch.bfloat16, *QUANT):
         results += window_phase(dev, arena)
-    parity_phase(dev, "fa_vattn", "b")
+    results += rope_append_phase(dev)
+    counts_b = parity_phase(dev, "fa_vattn", "b", kernels=kernels)
+    if counts_b[ROPE_KV_APPEND.symbol] <= 0:
+        raise AssertionError("(b) the f32 model never launched kernel A")
     parity_phase(dev, "fa_paged_16", "b'")
     parity_phase(dev, "fa_pod", "b''")
     # (b8): the f32 tiny model on 1-byte arenas; E's and F's launches on
@@ -2041,8 +2147,8 @@ def main() -> int:
                                          f"launched on {backend}")
     counts_c, tokens_c = serving_phase(
         dev, kernels, "fa_vattn_2mb", "c",
-        required=[KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
     # free the (c) engine's memory before the next engine sizes its arena
     gc.collect()
     torch.cuda.empty_cache()
@@ -2050,23 +2156,24 @@ def main() -> int:
     for arena, (_, tag) in QUANT.items():
         counts_c8[tag], _ = serving_phase(
             dev, kernels, "fa_vattn_2mb", f"c8 {tag}",
-            required=[KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-            idle=[PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single],
+            required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+            idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single],
             reference=tokens_c, arena=arena)
         gc.collect()
         torch.cuda.empty_cache()
     counts_d, _ = serving_phase(
         dev, kernels, "fa_paged_256", "d",
-        required=[KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION, *single],
+        required=[ROPE_KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[KV_APPEND, PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION,
+              *single],
         reference=tokens_c)
     gc.collect()
     torch.cuda.empty_cache()
     counts_e, _ = serving_phase(
         dev, kernels, "fa_pod", "e",
-        required=[POD_ATTENTION, KV_APPEND, PREFILL_ATTENTION,
+        required=[POD_ATTENTION, ROPE_KV_APPEND, PREFILL_ATTENTION,
                   DECODE_ATTENTION],
-        idle=[PAGED_PREFILL_ATTENTION, ARENA_RELOCATE, *single],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, ARENA_RELOCATE, *single],
         reference=tokens_c)
     f, b, c = (POD_ATTENTION.symbol, PREFILL_ATTENTION.symbol,
                DECODE_ATTENTION.symbol)
@@ -2082,22 +2189,23 @@ def main() -> int:
     # (g') the same requests on the paged and POD backends
     counts_g, ref_g = mistral_phase(
         dev, kernels, "fa_vattn_2mb", "g",
-        required=[KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
     gc.collect()
     torch.cuda.empty_cache()
     counts_gp, _ = mistral_phase(
         dev, kernels, "fa_paged_256", "g' paged",
-        required=[KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION, *single],
+        required=[ROPE_KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[KV_APPEND, PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION,
+              *single],
         reference=ref_g)
     gc.collect()
     torch.cuda.empty_cache()
     counts_gf, _ = mistral_phase(
         dev, kernels, "fa_pod", "g' pod",
-        required=[POD_ATTENTION, KV_APPEND, PREFILL_ATTENTION,
+        required=[POD_ATTENTION, ROPE_KV_APPEND, PREFILL_ATTENTION,
                   DECODE_ATTENTION],
-        idle=[PAGED_PREFILL_ATTENTION, *single], reference=ref_g)
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, *single], reference=ref_g)
     del ref_g
     log(f"(g' pod) F + B = {counts_gf[f]} + {counts_gf[b]} against B in (g) "
         f"{counts_g[b]}; F + C = {counts_gf[f]} + {counts_gf[c]} against C "
@@ -2117,6 +2225,7 @@ def main() -> int:
     # 1-byte arenas A-D's from (c8), E's and F's from (b8), G's and H's
     # from the quantized sweeps
     launches = {
+        "rope_kv_append": (ROPE_KV_APPEND, counts_c),
         "kv_append": (KV_APPEND, counts_c),
         "prefill_attention": (PREFILL_ATTENTION, counts_c),
         "decode_attention": (DECODE_ATTENTION, counts_c),
@@ -2150,6 +2259,10 @@ def main() -> int:
                         if k_ is k and "[" not in n)
             launches[f"{name}[{tag + ' ' if tag else ''}w{WINDOW}]"] = (
                 k, counts)
+    # kernel A with the rotation in float32 from (b), at mistral's heads
+    # from (g)
+    launches["rope_kv_append[f32]"] = (ROPE_KV_APPEND, counts_b)
+    launches["rope_kv_append[mistral]"] = (ROPE_KV_APPEND, counts_g)
     for r in results:
         k, counts = launches[r["name"]]
         r["launches"] = counts[k.symbol]

@@ -30,6 +30,16 @@ on 1-byte arenas are held against their plain versions as above, with
 G = B, H = E and F = B then C bit for bit; D moves 1-byte rows.  An int8
 arena's scores take sm_scale * 0.04, as the backends fold its step.
 
+Kernel A with the rotation (``rope_kv_append``): every rope variant
+(plain, linear by 4 and by 3, dynamic NTK, YaRN), float32 and bfloat16
+models, arenas of the model's dtype, e4m3 and int8, head_dim 128 and 64
+(zeros past 64), positions to 200K and rows of -1, bit for bit against
+its plain version on the card; captured in a CUDA graph and replayed at
+new positions and rows; and the layer loops of a prompt's, a mixed and a
+decode step of tiny models (llama, mistral, head_dim 64) on fa_vattn,
+fa_paged_16 and fa_pod under ``torch.cuda.set_sync_debug_mode("error")``,
+kernel A launching once per layer and step.
+
 Sliding windows: every kernel of both bodies against its windowed plain
 version at windows 1-300 (the edge cases at 1, 63, 64, 65 and 300, also
 on 1-byte arenas), with the same bit-for-bit identities, C captured in a
@@ -845,3 +855,124 @@ def test_quantized_windowed_edge_cases(dev, arena):
                         out_scale=_step(arena), window=65)
     check_decode_edges(cache, 0, sm_scale=_sm(arena), out_scale=_step(arena),
                        window=65)
+
+
+# ---------------------------------------------------------------------- #
+# kernel A with the rotation (rope_kv_append)
+# ---------------------------------------------------------------------- #
+ROPE_SCALINGS = {
+    "plain": None,
+    "linear4": {"type": "linear", "factor": 4.0},
+    # 1/3 is inexact: the kernel multiplies by PyTorch's float32 reciprocal
+    "linear3": {"type": "linear", "factor": 3.0},
+    "dynamic": {"type": "dynamic", "factor": 2.0},
+    "yarn": {"type": "yarn", "factor": 4.0,
+             "original_max_position_embeddings": 4096},
+}
+
+
+def _rope_case(rng, T, head_dim, dtype, arena, dev):
+    """qkv [T, (HQ + 2 HKV) * head_dim], positions to 200K (cosf's slow
+    range reduction included), rows with -1 every 5th token, and an
+    arena of dtype ``arena`` (None: the model's) with D-wide heads."""
+    qkv = torch.from_numpy(
+        (rng.standard_normal((T, (HQ + 2 * HKV) * head_dim)) * 3
+         ).astype(np.float32)).to(dev, dtype)
+    pos = torch.from_numpy(rng.integers(0, 200_000, T).astype(np.int32))
+    pos[:4] = torch.tensor([0, 1, 4095, 131071], dtype=torch.int32)[:T]
+    rows = rng.permutation(R)[:T].astype(np.int32)
+    rows[::5] = -1
+    cache = _cache(rng, torch.float32, dev)
+    cache = cache.to(dtype) if arena is None else _quant(cache, arena)
+    return qkv, pos.to(dev), torch.from_numpy(rows).to(dev), cache
+
+
+@pytest.mark.parametrize("head_dim", [128, 64])
+@pytest.mark.parametrize("arena", [None, *QUANT])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scaling", list(ROPE_SCALINGS))
+def test_rope_kv_append_matches_plain(dev, scaling, dtype, arena, head_dim):
+    """Kernel A with the rotation against its plain version (the rope,
+    then kv_append_plain) on the card, bit for bit: q for every token, the
+    arena (zeros past head_dim 64), 1-byte arenas quantized alike."""
+    from vattention_tpu_torch.model_executor.layers.rotary_embedding import (
+        get_rope)
+    from vattention_tpu_torch.ops.cache_append import (rope_kv_append,
+                                                       rope_kv_append_plain)
+
+    rng = np.random.default_rng(20)
+    qkv, pos, rows, cache = _rope_case(rng, 70, head_dim, dtype, arena, dev)
+    rope = get_rope(head_dim, head_dim, 8192, 5e6, ROPE_SCALINGS[scaling])
+    step = STEP if arena == torch.int8 else None
+    expect = cache.clone()
+    q_ref = rope_kv_append_plain(expect, qkv, pos, rows, 1, rope, step)
+    q = rope_kv_append(cache, qkv, pos, rows, 1, rope, step)
+    torch.cuda.synchronize()
+    assert torch.equal(q.view(torch.uint8), q_ref.view(torch.uint8))
+    assert torch.equal(cache.view(torch.uint8), expect.view(torch.uint8))
+
+
+def test_rope_kv_append_captures_in_a_cuda_graph(dev):
+    """A's wrapper reads nothing back from the device: its call captures
+    in a CUDA graph, one launch, and a replay after new positions and
+    rows are written rotates and writes at those."""
+    from vattention_tpu_torch.model_executor.layers.rotary_embedding import (
+        get_rope)
+    from vattention_tpu_torch.ops.cache_append import (ROPE_KV_APPEND,
+                                                       rope_kv_append,
+                                                       rope_kv_append_plain)
+
+    rng = np.random.default_rng(21)
+    qkv, pos, rows, cache = _rope_case(rng, 40, D, torch.bfloat16, None, dev)
+    rope = get_rope(D, D, 8192, 5e6, None)
+    start = cache.clone()
+    rope_kv_append(cache, qkv, pos, rows, 0, rope)  # builds, copies inv_freq
+    torch.cuda.synchronize()
+    before = ROPE_KV_APPEND.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q = rope_kv_append(cache, qkv, pos, rows, 1, rope)
+    assert ROPE_KV_APPEND.launches == before + 1
+    new_pos = pos.flip(0).clone()
+    new_rows = rows.roll(3).clone()
+    pos.copy_(new_pos)
+    rows.copy_(new_rows)
+    cache.copy_(start)
+    graph.replay()
+    torch.cuda.synchronize()
+    expect = start.clone()
+    q_ref = rope_kv_append_plain(expect, qkv, new_pos, new_rows, 1, rope)
+    assert torch.equal(q, q_ref)
+    assert torch.equal(cache[1], expect[1])
+
+
+@pytest.mark.parametrize("model", ["tiny-llama-debug", "tiny-mistral-debug",
+                                   "tiny-d64-debug"])
+@pytest.mark.parametrize("backend", ["fa_vattn", "fa_paged_16", "fa_pod"])
+def test_run_layers_does_not_synchronize(dev, backend, model):
+    """The layer loops of a prompt's step, a mixed step (one prompt's
+    chunk beside another's decode) and a decode step run under
+    torch.cuda.set_sync_debug_mode("error"): nothing in them waits for the
+    device.  Kernel A launches once per layer and step."""
+    import gc
+
+    from vattention_tpu_torch import LLMEngine
+    from vattention_tpu_torch.metrics.metrics_store import MetricsStore
+    from vattention_tpu_torch.microbenchmarks.serving_profile import (
+        check_layer_loop_does_not_sync, serve)
+
+    MetricsStore._instance = None
+    engine = LLMEngine.from_engine_args(
+        model=model, dtype="bfloat16", attention_backend=backend,
+        scheduler_type="sarathi", max_model_len=512, max_batch_size=4,
+        max_num_seqs=4, chunk_size=128, gpu_memory_utilization=0.05)
+    try:
+        # a first request builds the kernels and copies inv_freq to the card
+        serve(engine, [("warm", list(range(1, 41)), 4)])
+        layers = engine.worker.model_runner.model.arch.num_layers
+        assert check_layer_loop_does_not_sync(engine) == [layers] * 3
+    finally:
+        engine.cleanup()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()

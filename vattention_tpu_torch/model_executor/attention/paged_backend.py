@@ -1,9 +1,10 @@
 """Paged attention backend (block tables), the A/B baseline.
 
 Counterpart of ``vattention_tpu/model_executor/attention/paged_backend.py``.
-K/V are appended first through kernel A (a per-row scatter, so blocks
-narrower than the TPU's 32-row windows need no ``serialize``); then the
-prefill region attends through kernel E over the per-run block tables and
+Q and K are rotated and K/V appended first through kernel A (a per-row
+scatter, so blocks narrower than the TPU's 32-row windows need no
+``serialize``); then the prefill region attends through kernel E over
+the per-run block tables and
 the decode slots through kernel C over the runner's clamped row table at
 ``sub = block_size``.  The pool's dtype and an int8 step fold in as in the
 vattn backend.  A model's ``sliding_window`` goes to both kernels; the JAX
@@ -32,7 +33,7 @@ class PagedAttentionBackend:
         self.kv_scale = kv_scale
         self.window = sliding_window
 
-    append_kv = VattnAttentionBackend.append_kv
+    rope_append_kv = VattnAttentionBackend.rope_append_kv
     _pad_heads = staticmethod(VattnAttentionBackend._pad_heads)
     _eff_sm_scale = VattnAttentionBackend._eff_sm_scale
     _descale_out = VattnAttentionBackend._descale_out

@@ -2,15 +2,16 @@
 
 Counterpart of ``vattention_tpu/model_executor/attention/pod_backend.py``.
 A step that mixes prefill runs and decode slots (``inputs.pod``, set by
-the runner) appends K/V as the vattn backend does (kernel A) and then
-attends through ONE launch of kernel F (``ops/pod_fused.pod_attention``),
-which returns both outputs; single-phase steps take the vattn backend's
-kernels B and C, as the JAX backend falls back to them.  Every prefill run
-of the step fuses, at any depth (the JAX runner's ``POD_KV_LEN_LIMIT``
-fallback is not carried: F loops to each run's live depth).  A model's
+the runner) rotates Q and K and appends K/V as the vattn backend does
+(kernel A) and then attends through ONE launch of kernel F
+(``ops/pod_fused.pod_attention``), which returns both outputs;
+single-phase steps take the vattn backend's kernels B and C, as the JAX
+backend falls back to them.  Every prefill run of the step fuses, at
+any depth (the JAX runner's ``POD_KV_LEN_LIMIT`` fallback is not
+carried: F loops to each run's live depth).  A model's
 ``sliding_window`` goes to F's both parts, as to B and C; the JAX POD
-backend drops it, so the two diverge on windowed models by design (ROADMAP
-Queue 3).
+backend drops it, so the two diverge on windowed models by design
+(ROADMAP Queue 3).
 """
 
 from __future__ import annotations

@@ -2,9 +2,11 @@
 
 Counterpart of ``vattention_tpu/model_executor/attention/vattn_backend.py``
 (``append_kv`` and ``attend``), for arenas of the model's dtype and for
-e4m3 and int8 arenas.  K/V are appended first (kernel A, which quantizes
-into a 1-byte arena), then the prefill region attends through kernel B
-and the decode slots through kernel C; all three read the arena through
+e4m3 and int8 arenas.  Kernel A first rotates a layer's Q and K and
+appends K/V (``rope_append_kv``: the JAX step's rope and append in one
+launch, quantizing into a 1-byte arena), then the prefill region attends
+through kernel B and the decode slots through kernel C; all three read
+the arena through
 host-resolved row tables at ``sub``-row granularity.  An int8 arena's step
 ``kv_scale`` costs the kernels nothing: it folds into ``sm_scale`` (scores
 = q . K_int * sm_scale * kv_scale) and multiplies the attention output
@@ -16,14 +18,13 @@ and decode call.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from vattention_tpu_torch.config import PREFILL_TOKEN_PAD
 from vattention_tpu_torch.model_executor.step_inputs import StepInputs
-from vattention_tpu_torch.ops.cache_append import kv_append
+from vattention_tpu_torch.ops.cache_append import rope_kv_append
 from vattention_tpu_torch.ops.flash_decode import decode_attention
 from vattention_tpu_torch.ops.flash_prefill import prefill_attention
-from vattention_tpu_torch.ops.utils import cdiv, select_kv_tile
+from vattention_tpu_torch.ops.utils import cdiv, pad_heads, select_kv_tile
 
 # rows per arena-row-table entry (a divisor of the allocator's
 # block_tokens, so one entry never straddles two extents)
@@ -43,12 +44,7 @@ class VattnAttentionBackend:
         self.sub = select_kv_tile(block_tokens, TABLE_SUB)
         self.n_sub = cdiv(min(max_context_len, arena_rows), self.sub)
 
-    @staticmethod
-    def _pad_heads(x: torch.Tensor, Dp: int) -> torch.Tensor:
-        """Zero-pad the head dim to the arena's 128-aligned width (zeros
-        are score-neutral)."""
-        D = x.shape[-1]
-        return x if D == Dp else F.pad(x, (0, Dp - D))
+    _pad_heads = staticmethod(pad_heads)
 
     def _eff_sm_scale(self, sm_scale: float) -> float:
         return sm_scale if self.kv_scale is None else sm_scale * self.kv_scale
@@ -60,15 +56,14 @@ class VattnAttentionBackend:
             return out
         return out * float(torch.tensor(self.kv_scale, dtype=out.dtype))
 
-    def append_kv(self, kv_cache: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor, inputs: StepInputs, layer: int) -> None:
-        """Write this step's K/V ([T, Hkv, D], the model's dtype) for one
-        layer, in place, converted to the arena's dtype by kernel A."""
-        Dp = kv_cache.shape[-1]
-        k = self._pad_heads(k, Dp).contiguous()
-        v = self._pad_heads(v, Dp).contiguous()
-        kv_append(kv_cache, k, v, inputs.append_rows, layer,
-                  kv_scale=self.kv_scale)
+    def rope_append_kv(self, kv_cache: torch.Tensor, qkv: torch.Tensor,
+                       rope, inputs: StepInputs, layer: int) -> torch.Tensor:
+        """Rotate this step's Q and K for one layer and write its K/V into
+        the cache, converted to the cache's dtype, in one launch of kernel
+        A.  qkv: [T, (Hq + 2 Hkv) * D] of the model's dtype -> q [T, Hq, D]."""
+        return rope_kv_append(kv_cache, qkv, inputs.positions,
+                              inputs.append_rows, layer, rope,
+                              kv_scale=self.kv_scale)
 
     def attend(self, q: torch.Tensor, kv_cache: torch.Tensor,
                inputs: StepInputs, layer: int, n_prefill_tokens: int, *,

@@ -4,7 +4,11 @@ Counterpart of ``vattention_tpu/model_executor/layers/rotary_embedding.py``:
 non-interleaved (rotate-half) RoPE, HF-Llama convention, with linear,
 dynamic-NTK and YaRN scaling.  cos/sin are computed from the positions in
 float32 on the positions' device; q/k are rotated in float32 and cast
-back, as in the JAX version.
+back, as in the JAX version.  The inverse frequencies are copied to each
+device once, at its first call (a copy from host memory waits for the
+device).  On the card kernel A rotates instead (``ops/cache_append.
+rope_kv_append``), from ``kernel_args``: every variant is the inverse
+frequencies, a position scale and a post-scale.
 """
 
 from __future__ import annotations
@@ -25,14 +29,27 @@ class RotaryEmbedding:
         self.base = base
         self.inv_freq = torch.from_numpy(
             self._compute_inv_freq(base).astype(np.float32))
+        self._inv_freq_on: Dict[torch.device, torch.Tensor] = {}
 
     def _compute_inv_freq(self, base: float) -> np.ndarray:
         return 1.0 / (base ** (
             np.arange(0, self.rotary_dim, 2, dtype=np.float32)
             / self.rotary_dim))
 
+    def inv_freq_on(self, device: torch.device) -> torch.Tensor:
+        """``inv_freq`` on ``device``, copied there at the first call."""
+        if device not in self._inv_freq_on:
+            self._inv_freq_on[device] = self.inv_freq.to(device)
+        return self._inv_freq_on[device]
+
+    def kernel_args(self, device: torch.device):
+        """Kernel A's rope arguments: (inv_freq on ``device``, position
+        scale, post-scale); the rotation is cos/sin of float(pos) *
+        pos_scale * inv_freq, times post_scale after the cast back."""
+        return self.inv_freq_on(device), 1.0, 1.0
+
     def _cos_sin(self, positions: torch.Tensor):
-        inv_freq = self.inv_freq.to(positions.device)
+        inv_freq = self.inv_freq_on(positions.device)
         freqs = positions.float()[:, None] * inv_freq[None, :]
         return torch.cos(freqs), torch.sin(freqs)
 
@@ -62,6 +79,12 @@ class LinearScalingRotaryEmbedding(RotaryEmbedding):
 
     def _cos_sin(self, positions):
         return super()._cos_sin(positions.float() / self.factor)
+
+    def kernel_args(self, device):
+        # PyTorch divides a CUDA tensor by a host scalar as a product with
+        # the scalar's float32 reciprocal
+        inv_freq, _, post = super().kernel_args(device)
+        return inv_freq, float(np.float32(1) / np.float32(self.factor)), post
 
 
 class DynamicNTKScalingRotaryEmbedding(RotaryEmbedding):
@@ -115,6 +138,10 @@ class YaRNScalingRotaryEmbedding(RotaryEmbedding):
     def __call__(self, positions, q, k):
         q, k = super().__call__(positions, q, k)
         return q * self.mscale, k * self.mscale
+
+    def kernel_args(self, device):
+        inv_freq, pos_scale, _ = super().kernel_args(device)
+        return inv_freq, pos_scale, self.mscale
 
 
 def get_rope(head_dim: int, rotary_dim: int, max_position: int, base: float,

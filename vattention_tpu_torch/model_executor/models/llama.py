@@ -5,12 +5,12 @@ are a plain dict of tensors in the JAX package's layout -- per-layer
 weights stacked on a leading [L] axis, projections as [in, out] so the
 forward is ``h @ w`` -- which makes ``weight_utils.params_from_jax`` a
 plain copy.  The forward is a Python loop over layers: each layer runs
-rms_norm -> qkv -> rope -> KV append (kernel A) -> attention (kernels
-B/C) -> o-proj -> SwiGLU, one kernel launch per layer and op.  The arena
-is updated in place.  A sliding window (``ModelArch.sliding_window``,
-mistral) is the attention backend's, and a qkv bias (qwen, internlm) is a
-weight; falcon's parallel attention is not ported (ROADMAP Queue 1 item
-12).
+rms_norm -> qkv -> rope + KV append (one launch of kernel A) ->
+attention (kernels B/C) -> o-proj -> SwiGLU, one kernel launch per layer
+and op, and no host wait.  The arena is updated in place.  A sliding
+window (``ModelArch.sliding_window``, mistral) is the attention
+backend's, and a qkv bias (qwen, internlm) is a weight; falcon's
+parallel attention is not ported (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -109,12 +109,8 @@ class LlamaForCausalLM:
             qkv = h @ lp["qkv_w"][layer]
             if "qkv_b" in lp:
                 qkv = qkv + lp["qkv_b"][layer]
-            q = qkv[:, :self.hq * D].reshape(T, self.hq, D)
-            k = qkv[:, self.hq * D:(self.hq + self.hkv) * D].reshape(
-                T, self.hkv, D)
-            v = qkv[:, (self.hq + self.hkv) * D:].reshape(T, self.hkv, D)
-            q, k = self.rope(inputs.positions, q, k)
-            backend.append_kv(kv_cache, k, v, inputs, layer)
+            q = backend.rope_append_kv(kv_cache, qkv, self.rope, inputs,
+                                       layer)
             attn = backend.attend(q, kv_cache, inputs, layer,
                                   n_prefill_tokens, sm_scale=self.sm_scale)
             x = x + attn.reshape(T, self.hq * D) @ lp["o_w"][layer]

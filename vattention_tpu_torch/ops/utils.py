@@ -55,6 +55,13 @@ def quantize_kv(x: torch.Tensor, dtype: torch.dtype,
     return x.to(dtype)
 
 
+def pad_heads(x: torch.Tensor, Dp: int) -> torch.Tensor:
+    """Zero-pad the head dim to the arena's 128-aligned width (zeros are
+    score-neutral)."""
+    D = x.shape[-1]
+    return x if D == Dp else torch.nn.functional.pad(x, (0, Dp - D))
+
+
 def widen_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """1-byte K/V to the compute dtype (exact for every finite e4m3
     pattern and every int8 value)."""
