@@ -9,7 +9,10 @@ prints ptxas's registers and spills of kernels A, B, C, E, F, G and H,
 with the shared memory per block of the bf16 prefill body's instances and
 of kernel C, for each K/V storage type (and any ptxas note on wgmma), then
 runs its phases; any failure raises and the script exits non-zero without
-printing a result.  Kernel A rotates Q and K and appends K/V in one launch
+printing a result.  Every engine serves with the port's defaults: async
+execution (samples read up to two steps late, the next step's tokens fed
+on the device) and each step signature captured once as a CUDA graph and
+replayed after; the launch counts count the kernels a replay runs.  Kernel A rotates Q and K and appends K/V in one launch
 per layer on the serving path (``rope_kv_append``); ``kv_append`` is the
 same kernel with the rotation off, held and timed in (a) as before.
 
@@ -77,10 +80,13 @@ same kernel with the rotation off, held and timed in (a) as before.
     two-prompt workload of tests/test_e2e.py, through fa_vattn, then
     (b') fa_paged_16 and (b'') fa_pod (whose mixed step must run through
     kernel F); the engine's greedy tokens must equal a dense
-    full-recompute reference's.  (b8) The same with ``kv_quant`` fp8 and
-    int8 on the three backends, the reference's K and V taken through
-    the arena's round trip (quantized, widened, times the int8 step);
-    E's and F's launches on 1-byte arenas are read here.
+    full-recompute reference's.  (b sync) fa_vattn again with
+    ``enable_async_execution=False``: the synchronous engine's tokens
+    against the same reference, its launches equal to (b)'s.  (b8) The
+    same with ``kv_quant`` fp8 and int8 on the three backends, the
+    reference's K and V taken through the arena's round trip (quantized,
+    widened, times the int8 step); E's and F's launches on 1-byte arenas
+    are read here.
 (c) Serving at full width: yi-6b-200k (32 layers, bf16, random weights
     from a seed) through LLMEngine with fa_vattn_2mb, sarathi chunk 512,
     max_model_len 8192, max_batch_size 8: 8 requests of seeded prompt
@@ -92,16 +98,30 @@ same kernel with the rotation off, held and timed in (a) as before.
     at these sizes it plans none (a request spans at most 4 blocks and
     may hold 8 extents), so phase (a) is what holds it.  Then 2 short
     prompts whose first token is held against a dense float32 reference
-    on the same bf16 weights.  Then three steps' layer loops (a prompt, a
-    mixed step, a decode step) run under
-    ``torch.cuda.set_sync_debug_mode("error")``: the run fails if
-    ``run_layers`` waits for the device, or if kernel A does not launch
-    once per layer and step.  Last, 4 more requests run under
+    on the same bf16 weights.  Then (h c), below.  Last, 4 more requests
+    run under
     torch.profiler (``microbenchmarks/serving_profile.py``), lines "(p)":
     device time by family (kernel A under every name it has had), each
     port kernel's time and launches, the wall and idle share, kernel
-    launches and cudaStreamSynchronize calls per step, and the device time
-    of the rope and KV append.
+    launches, host launch calls (cudaLaunchKernel, cudaGraphLaunch),
+    cudaStreamSynchronize calls and host milliseconds outside waits per
+    step, and the device time of the rope and KV append.
+(h c), (h d), (h e) The captured step (``microbenchmarks/captured_step.py``)
+    on the engines of (c), (d) and (e) after they served: two requests
+    (700 and 1100 prompt tokens) meet a prompt's, mixed and decode
+    signatures, and the first replay of each is held bit for bit against
+    the eager ``_step`` on the same staged inputs (the samples, the arena
+    rows the step writes, the token buffer); the decode-only and the mixed
+    signature (fused through F on fa_pod) must be among them.  The
+    engine's graphs are listed with their capture times and the port
+    kernels' launches per replay.  Then a prompt's, a mixed and a decode
+    step, their signatures captured first, each run as a whole async
+    engine step under ``torch.cuda.set_sync_debug_mode("error")``: the run
+    fails on any stream synchronization from ``_prepare_inputs`` through
+    the replay to the next dispatch, or if kernel A does not launch once
+    per layer and step.  Then the op profiler's rows
+    (``profile_op_level``: A′ as the KV-save row, B or E prefill, C
+    decode, the projections, norm, head and sampler, by CUDA events).
 (c8) (c)'s 8 requests and 2 short prompts with ``kv_quant`` fp8, then
     int8 (fresh engines, no profile): A, B and C must launch; the tokens
     per 2 MB page, tok/s, and how many greedy tokens equal (c)'s
@@ -211,8 +231,10 @@ try:
         EDGE_DEPTHS, check_decode_edges, edge_depths)
     from vattention_tpu_torch.microbenchmarks.prefill_edges import (
         check_prefill_edges)
+    from vattention_tpu_torch.microbenchmarks.captured_step import (
+        check_replays, check_step_does_not_sync, graph_report)
     from vattention_tpu_torch.microbenchmarks.serving_profile import (
-        check_layer_loop_does_not_sync, profile_window, serve)
+        profile_window, serve)
     from vattention_tpu_torch.microbenchmarks.timing import (
         ATTN_TOL, Timer, bound, check_attention, seeded)
 except ImportError as e:  # chip_smoke.py without the port beside it
@@ -1666,12 +1688,14 @@ def fresh_metrics():
 # (b) f32 parity
 # --------------------------------------------------------------------- #
 def parity_phase(dev, backend, tag, arena=None, kernels=(),
-                 model="tiny-llama-debug"):
+                 model="tiny-llama-debug", async_execution=True):
     """(b): greedy tokens of the f32 tiny ``model`` on ``backend`` against
     the dense reference's (under the model's window, if any: (b w) serves
     tiny-mistral-debug); with a 1-byte ``arena`` (b8) the engine serves
-    ``kv_quant`` and the reference takes the arena's round trip.  Returns
-    the launches of ``kernels``, zeroed just before serving."""
+    ``kv_quant`` and the reference takes the arena's round trip; with
+    ``async_execution=False`` (b sync) the engine serves synchronously,
+    each step resolved before the next (still a replay of its graph).
+    Returns the launches of ``kernels``, zeroed just before serving."""
     from vattention_tpu_torch import LLMEngine
 
     fresh_metrics()
@@ -1679,7 +1703,11 @@ def parity_phase(dev, backend, tag, arena=None, kernels=(),
         model=model, dtype="float32", attention_backend=backend,
         scheduler_type="sarathi", max_model_len=512, max_batch_size=4,
         max_num_seqs=4, chunk_size=128, gpu_memory_utilization=0.9,
-        kv_quant=QUANT[arena][0] if arena is not None else "none")
+        kv_quant=QUANT[arena][0] if arena is not None else "none",
+        enable_async_execution=async_execution)
+    if engine.async_execution != async_execution:
+        raise AssertionError(f"({tag}) the engine ignored "
+                             f"enable_async_execution={async_execution}")
     rng = np.random.default_rng(5)
     prompts = {f"r{i}": rng.integers(1, 2000, int(n)).tolist()
                for i, n in enumerate([200, 37])}
@@ -1702,6 +1730,11 @@ def parity_phase(dev, backend, tag, arena=None, kernels=(),
                 f"({tag}) {seq_id}: engine {got[seq_id]} != dense {expect}")
         log(f"({tag}) f32 parity, {model}, {backend}, {kv} arena, "
             f"{seq_id}: engine == dense {expect}")
+    mode = "async" if async_execution else "sync"
+    log(f"({tag}) served {mode}, {len(runner.graphs)} step graphs "
+        f"captured")
+    if not runner.graphs:
+        raise AssertionError(f"({tag}) no step was captured")
     pod_steps = getattr(runner.backend, "pod_steps", None)
     if pod_steps is not None:
         log(f"({tag}) steps through kernel F: {pod_steps}")
@@ -1816,19 +1849,64 @@ def serving_phase(dev, kernels, backend, tag, required, idle,
         if not gap <= LOGIT_GAP_TOL:
             raise AssertionError(f"({tag}) {seq_id}: logit gap {gap}")
     if arena is None:
-        # no host wait in the layer loop: one prompt's step, a mixed step
-        # and a decode step under sync debug mode "error"
-        a_launches = check_layer_loop_does_not_sync(engine)
-        n_layers = engine.worker.model_runner.model.arch.num_layers
-        log(f"({tag}) run_layers under torch.cuda.set_sync_debug_mode("
-            f"'error'): a prefill, a mixed and a decode step ran without a "
-            f"host wait; kernel A launches per step {a_launches}")
-        if a_launches != [n_layers] * 3:
-            raise AssertionError(f"({tag}) kernel A launched {a_launches} "
-                                 f"times per step, not once per layer")
+        captured_phase(engine, rng, f"h {tag}")
+        op_rows(engine, tag)
         profile_serving(engine, rng, tag)
     engine.cleanup()
     return counts, out
+
+
+def captured_phase(engine, rng, tag):
+    """(h) The captured step on a full-width engine that has served: the
+    first replay of each greedy signature two requests meet (a prompt's
+    steps, mixed steps, decodes) against the eager step on the same inputs
+    (samples, the arena rows the step writes, the token buffer: bit for
+    bit); the engine's graphs, their capture times and the port kernels'
+    launches per replay; then whole async steps (a prompt's, a mixed and a
+    decode step) under ``torch.cuda.set_sync_debug_mode("error")``."""
+    runner = engine.worker.model_runner
+    vocab = runner.model.arch.vocab_size
+    reqs = [(f"h{i}", rng.integers(1, vocab, n).tolist(), 4)
+            for i, n in enumerate((700, 1100))]
+    checked = check_replays(engine, reqs, serve)
+    for sig, same in checked.items():
+        log(f"({tag}) signature (n_pre, pod, sampler) {sig}: replay == "
+            "eager step: " + ", ".join(f"{k} {v}" for k, v in same.items()))
+        if not all(same.values()):
+            raise AssertionError(f"({tag}) {sig}: the replay differs from the "
+                                 f"eager step: {same}")
+    met = {(sig[0] > 0, sig[1]) for sig in checked}
+    want = {(False, False), (True, runner.backend.__class__.__name__
+                             == "PodAttentionBackend")}
+    if not want <= met:
+        raise AssertionError(f"({tag}) checked signatures {sorted(checked)} "
+                             "miss the decode-only or the mixed step")
+    report = graph_report(runner)
+    log(f"({tag}) {len(report)} graphs captured: " + "; ".join(
+        f"{r['signature']} in {r['capture_s']:.3f} s, "
+        f"{sum(r['launches'].values())} port-kernel launches per replay ("
+        + ", ".join(f"{k} {n}" for k, n in r["launches"].items()) + ")"
+        for r in report))
+    a_launches = check_step_does_not_sync(engine)
+    n_layers = runner.model.arch.num_layers
+    log(f"({tag}) whole async steps under torch.cuda.set_sync_debug_mode("
+        f"'error'): a prompt's, a mixed and a decode step ran without a "
+        f"stream synchronization; kernel A launches per step {a_launches}")
+    if a_launches != [n_layers] * 3:
+        raise AssertionError(f"({tag}) kernel A launched {a_launches} times "
+                             "per step, not once per layer")
+
+
+def op_rows(engine, tag):
+    """The op profiler's rows (``BaseWorker.profile_op_level``: CUDA events
+    around 8 calls of each op at the engine's serving shapes, ctx 1024);
+    every row must be timed."""
+    ops = engine.worker.profile_op_level()
+    log(f"({tag}) op rows, ms per call at batch 8, ctx 1024: " + ", ".join(
+        f"{k} {1e3 * v:.4f}" for k, v in ops.items()))
+    if "attn_rope" in ops or not all(v > 0 for v in ops.values()) or not {
+            "attn_prefill", "attn_decode", "attn_kv_cache_save"} <= set(ops):
+        raise AssertionError(f"({tag}) op rows: {ops}")
 
 
 def profile_serving(engine, rng, tag, n=4, prompt=2048):
@@ -2110,6 +2188,12 @@ def main() -> int:
     counts_b = parity_phase(dev, "fa_vattn", "b", kernels=kernels)
     if counts_b[ROPE_KV_APPEND.symbol] <= 0:
         raise AssertionError("(b) the f32 model never launched kernel A")
+    # (b sync): the synchronous engine (enable_async_execution=False)
+    counts_bs = parity_phase(dev, "fa_vattn", "b sync", kernels=kernels,
+                             async_execution=False)
+    if counts_bs != counts_b:
+        raise AssertionError(f"(b sync) launches {counts_bs} != (b)'s "
+                             f"{counts_b}")
     parity_phase(dev, "fa_paged_16", "b'")
     parity_phase(dev, "fa_pod", "b''")
     # (b8): the f32 tiny model on 1-byte arenas; E's and F's launches on

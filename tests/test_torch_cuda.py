@@ -35,10 +35,17 @@ Kernel A with the rotation (``rope_kv_append``): every rope variant
 models, arenas of the model's dtype, e4m3 and int8, head_dim 128 and 64
 (zeros past 64), positions to 200K and rows of -1, bit for bit against
 its plain version on the card; captured in a CUDA graph and replayed at
-new positions and rows; and the layer loops of a prompt's, a mixed and a
-decode step of tiny models (llama, mistral, head_dim 64) on fa_vattn,
-fa_paged_16 and fa_pod under ``torch.cuda.set_sync_debug_mode("error")``,
-kernel A launching once per layer and step.
+new positions and rows.
+
+The captured serving step: a prompt's, a mixed and a decode step of tiny
+models (llama, mistral, head_dim 64) on fa_vattn, fa_paged_16 and fa_pod,
+each a whole async engine step replaying its graph, under
+``torch.cuda.set_sync_debug_mode("error")``, kernel A launching once per
+layer and step by the counters (which count replays); the first replay of
+each signature (decode-only, mixed, fused through F, paged) equal to the
+eager step bit for bit; one graph per signature met, no device allocation
+in a replay, the decode scratch never replaced; and the sampling modes
+replaying with the generator registered.
 
 Sliding windows: every kernel of both bodies against its windowed plain
 version at windows 1-300 (the edge cases at 1, 63, 64, 65 and 300, also
@@ -946,33 +953,185 @@ def test_rope_kv_append_captures_in_a_cuda_graph(dev):
     assert torch.equal(cache[1], expect[1])
 
 
+def _engine(model="tiny-llama-debug", backend="fa_vattn", **kw):
+    from vattention_tpu_torch import LLMEngine
+    from vattention_tpu_torch.metrics.metrics_store import MetricsStore
+
+    MetricsStore._instance = None
+    args = dict(model=model, dtype="bfloat16", attention_backend=backend,
+                scheduler_type="sarathi", max_model_len=512,
+                max_batch_size=4, max_num_seqs=4, chunk_size=128,
+                gpu_memory_utilization=0.05)
+    args.update(kw)
+    return LLMEngine.from_engine_args(**args)
+
+
+def _free(engine):
+    import gc
+
+    engine.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("model", ["tiny-llama-debug", "tiny-mistral-debug",
                                    "tiny-d64-debug"])
 @pytest.mark.parametrize("backend", ["fa_vattn", "fa_paged_16", "fa_pod"])
 def test_run_layers_does_not_synchronize(dev, backend, model):
-    """The layer loops of a prompt's step, a mixed step (one prompt's
-    chunk beside another's decode) and a decode step run under
-    torch.cuda.set_sync_debug_mode("error"): nothing in them waits for the
-    device.  Kernel A launches once per layer and step."""
-    import gc
+    """Whole async engine steps -- a prompt's, a mixed step (one prompt's
+    chunk beside another's decode) and a decode step, each a replay of its
+    captured graph -- run under torch.cuda.set_sync_debug_mode("error"):
+    nothing from the input staging through the replay to the next
+    dispatch synchronizes a stream.  Kernel A launches once per layer and
+    step (the counters count replays)."""
+    from vattention_tpu_torch.microbenchmarks.captured_step import (
+        check_step_does_not_sync)
 
-    from vattention_tpu_torch import LLMEngine
-    from vattention_tpu_torch.metrics.metrics_store import MetricsStore
-    from vattention_tpu_torch.microbenchmarks.serving_profile import (
-        check_layer_loop_does_not_sync, serve)
-
-    MetricsStore._instance = None
-    engine = LLMEngine.from_engine_args(
-        model=model, dtype="bfloat16", attention_backend=backend,
-        scheduler_type="sarathi", max_model_len=512, max_batch_size=4,
-        max_num_seqs=4, chunk_size=128, gpu_memory_utilization=0.05)
+    engine = _engine(model, backend)
     try:
-        # a first request builds the kernels and copies inv_freq to the card
-        serve(engine, [("warm", list(range(1, 41)), 4)])
         layers = engine.worker.model_runner.model.arch.num_layers
-        assert check_layer_loop_does_not_sync(engine) == [layers] * 3
+        assert check_step_does_not_sync(engine) == [layers] * 3
     finally:
-        engine.cleanup()
-        del engine
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free(engine)
+
+
+# prompts that meet a prompt's steps, mixed steps (the first request
+# decoding beside the second's chunks) and decode-only steps
+_GRAPH_REQUESTS = [("g0", list(range(1, 181)), 6),
+                   ("g1", list(range(3, 303)), 6)]
+
+
+@pytest.mark.parametrize("model", ["tiny-llama-debug", "tiny-d64-debug"])
+@pytest.mark.parametrize("backend", ["fa_vattn", "fa_paged_16", "fa_pod"])
+def test_replay_equals_the_eager_step(dev, backend, model):
+    """The first replay of each signature -- decode-only, mixed (through
+    kernel F on fa_pod), paged -- gives the eager step's samples, arena
+    rows and token buffer bit for bit on the same inputs."""
+    from vattention_tpu_torch.microbenchmarks.captured_step import (
+        check_replays)
+    from vattention_tpu_torch.microbenchmarks.serving_profile import serve
+
+    engine = _engine(model, backend)
+    try:
+        checked = check_replays(engine, _GRAPH_REQUESTS, serve)
+        assert checked and all(all(v.values()) for v in checked.values()), \
+            checked
+        pod = backend == "fa_pod"
+        assert (0, False, "greedy") in checked
+        assert any(n > 0 and p == pod for n, p, _ in checked), checked
+    finally:
+        _free(engine)
+
+
+@pytest.mark.parametrize("backend", ["fa_vattn", "fa_paged_16", "fa_pod"])
+def test_sync_engine_replays_equal_the_eager_step(dev, backend):
+    """With enable_async_execution=False every step is resolved before the
+    next (``run = resolve(run_async)``), and still replays its graph: the
+    first replay of each signature equals the eager step bit for bit, and
+    the tokens equal the async engine's."""
+    from vattention_tpu_torch.microbenchmarks.captured_step import (
+        check_replays)
+    from vattention_tpu_torch.microbenchmarks.serving_profile import serve
+
+    tokens = {}
+    for async_execution in (False, True):
+        engine = _engine(backend=backend,
+                         enable_async_execution=async_execution)
+        try:
+            assert engine.async_execution is async_execution
+            if not async_execution:
+                checked = check_replays(engine, _GRAPH_REQUESTS, serve)
+                assert checked and all(all(v.values())
+                                       for v in checked.values()), checked
+                assert (0, False, "greedy") in checked
+            tokens[async_execution] = serve(
+                engine, [(f"again-{s}", p, n) for s, p, n in _GRAPH_REQUESTS])
+        finally:
+            _free(engine)
+    assert tokens[False] == tokens[True]
+
+
+def test_graphs_are_bounded_by_the_signatures_met(dev):
+    """One graph per signature met, captured once; a replay allocates no
+    device memory and the decode scratch the graphs read is never
+    replaced."""
+    from vattention_tpu_torch.microbenchmarks.serving_profile import serve
+    from vattention_tpu_torch.ops.flash_decode import current_scratch
+
+    engine = _engine(backend="fa_pod")
+    runner = engine.worker.model_runner
+    met = []
+    launch = runner._launch
+
+    def spy(inputs, n_pre, mode):
+        met.append(runner.signature(inputs, n_pre, mode))
+        return launch(inputs, n_pre, mode)
+    runner._launch = spy
+    try:
+        serve(engine, _GRAPH_REQUESTS)
+        assert len(runner.graphs) == len(set(met)) < len(met)
+        scratch = [t.data_ptr() for t in current_scratch(runner.device)]
+        for g in runner.graphs.values():
+            assert [t.data_ptr() for t in g.scratch] == scratch
+        serve(engine, [(f"h{i}", list(range(5, 5 + n)), 8)
+                       for i, n in enumerate((90, 260, 33, 140))])
+        assert [t.data_ptr() for t in current_scratch(runner.device)] == scratch
+        assert len(runner.graphs) == len(set(met))
+        torch.cuda.synchronize()
+        graph = runner.graphs[(0, False, "greedy")]
+        before = torch.cuda.memory_allocated(dev)
+        runner.replay(graph)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(dev) == before
+    finally:
+        del runner._launch
+        _free(engine)
+
+
+def test_sampling_modes_replay_with_the_generator(dev):
+    """Sampling and filtering steps capture with the runner's generator
+    registered: each replay draws new numbers, and two engines built with
+    the same seed sample the same tokens."""
+    from vattention_tpu_torch import SamplingParams
+
+    def run():
+        engine = _engine()
+        params = [SamplingParams(temperature=0.9, max_tokens=8,
+                                 ignore_eos=True),
+                  SamplingParams(temperature=0.7, top_k=20, top_p=0.9,
+                                 max_tokens=8, ignore_eos=True)]
+        for i, sp in enumerate(params):
+            engine.add_request(prompt=None, seq_id=f"s{i}",
+                               prompt_token_ids=list(range(10, 80)),
+                               sampling_params=sp)
+        out = {}
+        while engine.has_unfinished_requests():
+            for o in engine.step():
+                if o.finished:
+                    out[o.seq_id] = o.token_ids
+        modes = {sig[2] for sig in engine.worker.model_runner.graphs}
+        _free(engine)
+        return out, modes
+
+    first, modes = run()
+    assert "filter" in modes
+    assert all(len(v) == 8 and min(v) >= 0 for v in first.values())
+    assert run()[0] == first
+
+
+@pytest.mark.parametrize("backend", ["fa_vattn", "fa_paged_16", "fa_pod"])
+def test_profile_op_level_on_the_card(dev, backend):
+    """The op profiler times every row on the card (CUDA events) through
+    the port's kernels, and puts back the arena rows kernel A wrote."""
+    engine = _engine(backend=backend)
+    try:
+        kv = engine.worker.cache_engine.kv_cache.clone()
+        ops = engine.worker.profile_op_level(ctx=300, iters=2)
+        assert {"attn_prefill", "attn_decode", "attn_kv_cache_save",
+                "attn_pre_proj", "mlp_up_proj", "sample"} <= set(ops)
+        assert "attn_rope" not in ops and all(v > 0 for v in ops.values())
+        torch.cuda.synchronize()
+        assert torch.equal(engine.worker.cache_engine.kv_cache.view(
+            torch.uint8), kv.view(torch.uint8))
+    finally:
+        _free(engine)

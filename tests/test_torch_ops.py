@@ -253,7 +253,8 @@ def test_sampler_greedy_and_packing_match():
     jtok = np.asarray(js.sample_tokens(
         jnp.asarray(logits), jnp.asarray(temps), jnp.asarray(top_p),
         jnp.asarray(top_k), __import__("jax").random.PRNGKey(0)))
-    ttok = ts.sample_tokens(t(logits), t(temps), t(top_p), t(top_k)).numpy()
+    ttok = ts.sample_tokens(t(logits), t(temps), t(top_p), t(top_k),
+                            ts.sampler_mode(temps, top_p, top_k, 300)).numpy()
     np.testing.assert_array_equal(ttok, jtok)
     tokens = np.array([3, -1, 299, 0], np.int32)
     jp = js.unpack_samples(js.pack_samples(jnp.asarray(logits),
@@ -263,7 +264,8 @@ def test_sampler_greedy_and_packing_match():
     for a, b in zip(tp, jp):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
     # a non-greedy draw with top-k 1 is the argmax, from any generator
-    hot = ts.sample_tokens(t(logits), t(np.ones(4, np.float32)), t(top_p),
-                           t(np.ones(4, np.int32)),
+    hot_t, hot_k = np.ones(4, np.float32), np.ones(4, np.int32)
+    hot = ts.sample_tokens(t(logits), t(hot_t), t(top_p), t(hot_k),
+                           ts.sampler_mode(hot_t, top_p, hot_k, 300),
                            torch.Generator().manual_seed(0)).numpy()
     np.testing.assert_array_equal(hot, jtok)

@@ -2,9 +2,8 @@
 
 The PyTorch port's own copy of ``vattention_tpu/config.py``: the same
 dataclasses and architecture registry, so schedules and arena geometry
-match the JAX package field for field.  One default differs:
-``SystemConfig.enable_async_execution`` is False, because the port runs
-the synchronous engine branch only.
+match the JAX package field for field, defaults included
+(``SystemConfig.enable_async_execution`` is True in both).
 
 Differences from the sarathi reference:
   - dtype defaults to bfloat16 instead of fp16.
@@ -436,10 +435,10 @@ class SystemConfig:
     scheduler_config: BaseSchedulerConfig = field(
         default_factory=SarathiSchedulerConfig)
     metrics_config: MetricsConfig = field(default_factory=MetricsConfig)
-    # async execution (device-side token feedback + lagged host
-    # materialization) is not ported yet: the engine raises
-    # NotImplementedError when it is asked for (ROADMAP Queue 1 item 13)
-    enable_async_execution: bool = False
+    # async execution: dispatch steps without waiting for their sampled
+    # tokens (device-side token feedback, host bookkeeping up to
+    # max_inflight_steps steps behind)
+    enable_async_execution: bool = True
     max_inflight_steps: int = 2
     # where the engine runs: "cuda" (the default) or "cpu", which only the
     # tests ask for (the kernels' plain PyTorch versions run there)

@@ -1,9 +1,8 @@
 """EngineArgs -> config objects (counterpart of vattention_tpu/engine/arg_utils.py).
 
-The same fields and defaults as the JAX package, with these
-differences: ``device`` picks where the engine runs ("cuda" unless the
-caller asks for "cpu"); ``enable_async_execution`` defaults to False
-(only the synchronous step is ported); and the TPU-only
+The same fields and defaults as the JAX package (async execution on),
+with these differences: ``device`` picks where the engine runs ("cuda"
+unless the caller asks for "cpu"); and the TPU-only
 ``dynamic_kv_len_buckets`` is gone (the CUDA kernels loop to each step's
 live depth).
 """
@@ -59,7 +58,7 @@ class EngineArgs:
     enable_op_level_metrics: bool = False
     enable_plots: bool = False
     # execution
-    enable_async_execution: bool = False
+    enable_async_execution: bool = True
     max_inflight_steps: int = 2
 
     def create_engine_configs(self) -> SystemConfig:

@@ -1,10 +1,12 @@
 """BaseLLMEngine: the engine's serving loop.
 
-Counterpart of ``vattention_tpu/engine/base_llm_engine.py`` on its
-synchronous branch: poll free blocks -> schedule -> execute_model ->
-on_step_completed, one device, in process.  The JAX package's async
-dispatch (device-side token feedback, lagged host materialization) is
-not ported yet, and asking for it raises.
+Counterpart of ``vattention_tpu/engine/base_llm_engine.py``: poll free
+blocks -> schedule -> execute_model -> on_step_completed, one device, in
+process.  Async execution (the default, as in the JAX package) dispatches
+each step and applies the samples of older steps as they land: the next
+decode step reads its input tokens from the device, so the host never
+waits for a step it has just dispatched, and at most
+``max_inflight_steps`` steps are unresolved.
 """
 
 from __future__ import annotations
@@ -50,10 +52,6 @@ def resolve_device(name: str) -> torch.device:
 
 class BaseLLMEngine:
     def __init__(self, config: SystemConfig):
-        if config.enable_async_execution:
-            raise NotImplementedError(
-                "enable_async_execution is not ported yet "
-                "(ROADMAP Queue 1 item 13)")
         pc = config.parallel_config
         if pc.tensor_parallel_size > 1 or pc.pipeline_parallel_size > 1:
             raise NotImplementedError(
@@ -86,6 +84,10 @@ class BaseLLMEngine:
             config.scheduler_config.type, config.scheduler_config,
             config.cache_config)
         self.scheduler.set_block_manager(config.model_config)
+        # async execution: host bookkeeping lags the device by at most
+        # max_inflight_steps steps
+        self.async_execution = config.enable_async_execution
+        self.max_inflight_steps = config.max_inflight_steps
 
     # ------------------------------------------------------------------ #
     def add_request(
@@ -122,14 +124,16 @@ class BaseLLMEngine:
         self.metrics_store.on_request_arrival(seq)
 
     def has_unfinished_requests(self) -> bool:
-        return self.scheduler.has_unfinished_seqs()
+        return (self.scheduler.has_unfinished_seqs()
+                or self.worker.has_inflight_steps())
 
     def get_num_unfinished_requests(self) -> int:
         return self.scheduler.get_num_unfinished_seqs()
 
     # ------------------------------------------------------------------ #
     def step(self) -> List[RequestOutput]:
-        """One serving iteration; returns this step's outputs."""
+        """One serving iteration.  Sync mode returns this step's outputs;
+        async mode those of older steps whose samples have landed."""
         if hasattr(self.scheduler.block_manager, "set_free_blocks"):
             self.scheduler.block_manager.set_free_blocks(
                 self.worker.get_free_blocks())
@@ -138,21 +142,77 @@ class BaseLLMEngine:
         self.metrics_store.push_cpu_operation_time(
             CpuOperationMetrics.SCHEDULE, time.perf_counter() - t0)
         if scheduler_outputs.has_no_output():
+            if self.worker.has_inflight_steps():
+                return self._process_resolved(self.worker.flush_inflight())
             return []
         if scheduler_outputs.is_empty():
             self.scheduler.num_running_batches = max(
                 0, self.scheduler.num_running_batches)
+            if self.worker.has_inflight_steps():
+                return self._process_resolved(self.worker.flush_inflight())
             return self._on_step_completed(scheduler_outputs, [], [], [])
 
+        outputs: List[RequestOutput] = []
+        # a preemption folds generated tokens into the prompt: resolve the
+        # in-flight values first so none are lost (none are in sync mode)
+        if (scheduler_outputs.preempted_seq_ids
+                and self.worker.has_inflight_steps()):
+            outputs += self._process_resolved(self.worker.flush_inflight())
         ignored_seqs, seq_metadata_list = self.seq_manager.on_schedule(
             scheduler_outputs)
         self.metrics_store.on_batch_start()
         self.metrics_store.on_step_dispatch(seq_metadata_list)
-        sampler_outputs = self.worker.execute_model(
-            scheduler_outputs, seq_metadata_list)
-        return self._on_step_completed(
-            scheduler_outputs, ignored_seqs, seq_metadata_list,
-            sampler_outputs)
+
+        if not self.async_execution:
+            sampler_outputs = self.worker.execute_model(
+                scheduler_outputs, seq_metadata_list)
+            return outputs + self._on_step_completed(
+                scheduler_outputs, ignored_seqs, seq_metadata_list,
+                sampler_outputs)
+
+        resolved = self.worker.execute_model_async(
+            scheduler_outputs, seq_metadata_list,
+            max_inflight=self.max_inflight_steps)
+        # the bookkeeping that needs no token value happens at dispatch:
+        # prompt progress, pause transitions, pending placeholders, length
+        # stops
+        self.seq_manager.on_step_dispatched(scheduler_outputs)
+        self.scheduler.on_step_completed()
+        if ignored_seqs:
+            outputs += self.seq_manager.generate_request_outputs(
+                ignored_seqs, [])
+        outputs += self._process_resolved(resolved)
+        return outputs
+
+    def _process_resolved(self, resolved) -> List[RequestOutput]:
+        """Apply the samples of earlier dispatched steps: patch the token
+        values in, run the stops that depend on them, free finished
+        sequences and emit their RequestOutputs."""
+        t0 = time.perf_counter()
+        outputs: List[RequestOutput] = []
+        for scheduler_outputs, seq_metadata_list, sampler_outputs in resolved:
+            self.seq_manager.on_step_resolved(sampler_outputs)
+            self.worker.on_step_completed(seq_metadata_list)
+            # EOS and stop strings finish sequences between scheduler
+            # ticks; retire them from the running queue
+            self.scheduler.free_finished_seqs()
+            self.scheduler.remove_finished_seqs()
+            self._end_finished(seq_metadata_list)
+            outputs += self.seq_manager.generate_request_outputs(
+                [], seq_metadata_list)
+        if resolved:
+            self.metrics_store.push_cpu_operation_time(
+                CpuOperationMetrics.PROCESS_MODEL_OUTPUTS,
+                time.perf_counter() - t0)
+        return outputs
+
+    def _end_finished(self, seq_metadata_list) -> None:
+        for meta in seq_metadata_list:
+            seq = meta.seq
+            if seq.is_finished() and not getattr(seq, "_metrics_ended",
+                                                 False):
+                seq._metrics_ended = True
+                self.metrics_store.on_request_end(seq)
 
     def _on_step_completed(self, scheduler_outputs: SchedulerOutputs,
                            ignored_seqs, seq_metadata_list,
@@ -161,12 +221,7 @@ class BaseLLMEngine:
                                            sampler_outputs)
         self.worker.on_step_completed(seq_metadata_list)
         self.scheduler.on_step_completed()
-        for meta in seq_metadata_list:
-            seq = meta.seq
-            if seq.is_finished() and not getattr(seq, "_metrics_ended",
-                                                 False):
-                seq._metrics_ended = True
-                self.metrics_store.on_request_end(seq)
+        self._end_finished(seq_metadata_list)
         return self.seq_manager.generate_request_outputs(
             ignored_seqs, seq_metadata_list)
 

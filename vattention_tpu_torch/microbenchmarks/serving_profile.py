@@ -12,18 +12,21 @@ time and launches; per engine step the kernel launches and the host's
 ``cudaStreamSynchronize`` calls (the profiler's CPU events); and the
 device time spent rotating Q and K and appending K/V, whatever runs it
 (the eager rope and kernel A, or kernel A alone), with the part of it
-that is not kernel A.  ``check_layer_loop_does_not_sync`` runs three
-steps' layer loops under ``torch.cuda.set_sync_debug_mode("error")``
-(chip_smoke (c)-(e), ``tests/test_torch_cuda.py``).
+that is not kernel A; per engine step the host's launch calls
+(``cudaLaunchKernel`` and ``cudaGraphLaunch``) and its milliseconds
+outside waits for the device (the profiled wall less the time in
+``cudaStreamSynchronize``, ``cudaEventSynchronize`` and
+``cudaDeviceSynchronize``, over the steps).
 
 With ``--trees`` each pass runs this file in a process of its own, from
 the checkout it profiles and with that checkout first on ``sys.path``:
 the file uses only the engine's public API, so it profiles earlier
 checkouts too.  A pass serves, after a warm-up request, (c) yi-6b-200k on
 fa_vattn_2mb (sarathi chunk 512, max_model_len 8192, batch 8; 4 requests
-of 2048 prompt tokens and 16 greedy tokens profiled) and (g) mistral-7b
-on fa_vattn_2mb (max_model_len 16384; 2 requests of 6144 + 16), random
-weights from seed 0.  The trees run in turns, reversed every other round
+of 2048 prompt tokens and 16 greedy tokens) and (g) mistral-7b on
+fa_vattn_2mb (max_model_len 16384; 2 requests of 6144 + 16), random
+weights from seed 0, each case's requests once without the profiler (its
+wall is "wall unprofiled ms") and then once more under it.  The trees run in turns, reversed every other round
 (A B, B A, ...); each pass's output goes to ``<out>/<tree>_<round>.txt``
 and a table of every pass's numbers with each tree's mean to
 ``<out>/summary.json``.  Needs the card.
@@ -85,53 +88,6 @@ def serve(engine, requests, stats=None):
     if stats is not None:
         stats["steps"] = steps
     return out
-
-
-def check_layer_loop_does_not_sync(engine, lengths=(40, 150), seed=0):
-    """Run three steps' layer loops under
-    ``torch.cuda.set_sync_debug_mode("error")``: a prompt of
-    ``lengths[0]`` tokens, then a second prompt's chunk beside its decode
-    (a mixed step), then both decoding; anything in ``run_layers`` that
-    waits for the device raises.  The requests are then served to their
-    end.  Returns kernel A's launches in each of the three steps."""
-    from vattention_tpu_torch import SamplingParams
-    from vattention_tpu_torch.ops.cache_append import ROPE_KV_APPEND
-
-    model = engine.worker.model_runner.model
-    rng = np.random.default_rng(seed)
-    run_layers = model.run_layers
-    launches = []
-
-    def checked(*args, **kwargs):
-        before = ROPE_KV_APPEND.launches
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = run_layers(*args, **kwargs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        launches.append(ROPE_KV_APPEND.launches - before)
-        return out
-
-    def add(seq_id, n):
-        engine.add_request(
-            prompt=None, seq_id=seq_id,
-            prompt_token_ids=rng.integers(1, model.arch.vocab_size,
-                                          n).tolist(),
-            sampling_params=SamplingParams(temperature=0.0, max_tokens=4,
-                                           ignore_eos=True))
-
-    model.run_layers = checked
-    try:
-        add("sync-a", lengths[0])
-        engine.step()
-        add("sync-b", lengths[1])
-        engine.step()
-        engine.step()
-    finally:
-        del model.run_layers
-    while engine.has_unfinished_requests():
-        engine.step()
-    return launches
 
 
 class _Labelled:
@@ -241,9 +197,17 @@ def profile_window(engine, requests, tag) -> dict:
             families["other"] += ms
     launches = sum(c for name, _, c in device
                    if not name.startswith(("Memcpy", "Memset")))
-    syncs = sum(e.count for e in events
-                if e.device_type == DeviceType.CPU
-                and e.key == "cudaStreamSynchronize")
+    cpu = {e.key: e for e in events if e.device_type == DeviceType.CPU}
+
+    def calls(name):
+        return cpu[name].count if name in cpu else 0
+    syncs = calls("cudaStreamSynchronize")
+    api = {k: calls(k) / steps for k in ("cudaLaunchKernel",
+                                         "cudaGraphLaunch")}
+    waits_ms = sum(cpu[k].cpu_time_total / 1e3 for k in (
+        "cudaStreamSynchronize", "cudaEventSynchronize",
+        "cudaDeviceSynchronize") if k in cpu)
+    host_ms = (wall - waits_ms) / steps
     labelled = labelled_device_ms(prof)
     a_ms = sum(ms for k, (ms, _) in port.items() if k in A_KERNELS)
     log(f"(p {tag}) profiled {n} x ({prompt} + {requests[0][2]}) tokens: "
@@ -254,7 +218,11 @@ def profile_window(engine, requests, tag) -> dict:
         f"{k} {ms:.2f} ms in {c}" for k, (ms, c) in sorted(
             port.items(), key=lambda kv: -kv[1][0])))
     log(f"(p {tag}) per step ({steps} steps): {launches / steps:.1f} kernel "
-        f"launches, {syncs / steps:.2f} cudaStreamSynchronize; {ROPE_APPEND}: "
+        f"launches, host calls " + ", ".join(
+            f"{k} {v:.2f}" for k, v in api.items())
+        + f", {syncs / steps:.2f} cudaStreamSynchronize, host {host_ms:.3f} "
+        f"ms outside waits ({waits_ms:.1f} ms of waits in all); "
+        f"{ROPE_APPEND}: "
         + ("not measured (no device span under its label)"
            if labelled is None else
            f"{labelled:.2f} ms of device time, of it outside kernel A "
@@ -265,6 +233,8 @@ def profile_window(engine, requests, tag) -> dict:
             **{f"{k} ms": v for k, v in families.items()},
             "A ms": a_ms, "launches per step": launches / steps,
             "syncs per step": syncs / steps,
+            **{f"{k} per step": v for k, v in api.items()},
+            "host ms per step": host_ms, "steps": steps,
             **({} if labelled is None else {
                 f"{ROPE_APPEND} ms": labelled,
                 f"{ROPE_APPEND} outside A ms": labelled - a_ms})}
@@ -291,7 +261,15 @@ def profile_case(tag: str) -> dict:
                                               case["prompt"]).tolist(), 16)
                 for i in range(n)]
     serve(engine, reqs("w", 1))
-    out = profile_window(engine, reqs("t", case["n"]), tag)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(engine, reqs("u", case["n"]))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    log(f"(p {tag}) the same requests without the profiler: wall "
+        f"{wall:.1f} ms")
+    out = {"wall unprofiled ms": wall,
+           **profile_window(engine, reqs("t", case["n"]), tag)}
     engine.cleanup()
     del engine
     torch.cuda.empty_cache()

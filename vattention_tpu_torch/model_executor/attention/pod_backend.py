@@ -27,7 +27,9 @@ from vattention_tpu_torch.ops.pod_fused import pod_attention
 class PodAttentionBackend(VattnAttentionBackend):
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
-        self.pod_steps = 0  # steps that attended through kernel F
+        # steps that attended through kernel F, counted by the runner (a
+        # replayed step makes no call here)
+        self.pod_steps = 0
 
     def attend(self, q: torch.Tensor, kv_cache: torch.Tensor,
                inputs: StepInputs, layer: int, n_prefill_tokens: int, *,
@@ -36,8 +38,6 @@ class PodAttentionBackend(VattnAttentionBackend):
         if not inputs.pod:
             return super().attend(q, kv_cache, inputs, layer,
                                   n_prefill_tokens, sm_scale=sm_scale)
-        if layer == 0:
-            self.pod_steps += 1
         D = q.shape[-1]
         q = self._pad_heads(q, kv_cache.shape[-1])
         out_p, out_d = pod_attention(

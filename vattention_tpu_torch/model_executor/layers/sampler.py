@@ -1,9 +1,14 @@
 """Token sampler (counterpart of vattention_tpu/model_executor/layers/sampler.py).
 
 Greedy + temperature/top-k/top-p sampling over each slot's last-token
-logits.  Random draws come from an explicit ``torch.Generator``, so
-sampled (non-greedy) tokens differ from the JAX package's; greedy tokens
-are the same argmax.
+logits.  The JAX sampler decides inside its program whether the step
+filters (``lax.cond``); here the host decides from the step's sampling
+arrays, before the step runs (``sampler_mode``), and the sampler takes
+that mode as an argument.  So the sampler reads nothing back from the
+device and a CUDA graph can hold it: the mode is part of the captured
+step's signature.  Random draws come from an explicit ``torch.Generator``,
+so sampled (non-greedy) tokens differ from the JAX package's; greedy
+tokens are the same argmax.
 """
 
 from __future__ import annotations
@@ -13,23 +18,42 @@ from typing import Optional
 import numpy as np
 import torch
 
+# sampler modes: every slot greedy; some slot samples; some sampling slot
+# also restricts top-k or top-p (the [B, V] sort runs)
+GREEDY, SAMPLE, FILTER = "greedy", "sample", "filter"
+
+
+def sampler_mode(temperatures: np.ndarray, top_p: np.ndarray,
+                 top_k: np.ndarray, vocab_size: int) -> str:
+    """The mode of a step from its host-side sampling arrays ([B] each):
+    the branches the sampler took on the device before it took a mode."""
+    greedy = np.asarray(temperatures) < 1e-5
+    if greedy.all():
+        return GREEDY
+    top_k = np.asarray(top_k)
+    need_filter = (~greedy) & (((top_k > 0) & (top_k < vocab_size))
+                               | (np.asarray(top_p) < 1.0))
+    return FILTER if need_filter.any() else SAMPLE
+
 
 def sample_tokens(
     logits: torch.Tensor,        # [B, V] float32
     temperatures: torch.Tensor,  # [B] (0 => greedy)
     top_p: torch.Tensor,         # [B]
     top_k: torch.Tensor,         # [B] int32 (-1 disables)
+    mode: str,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
+    """Tokens [B] int32.  ``mode`` is ``sampler_mode`` of the same arrays,
+    worked out on the host."""
     B, V = logits.shape
-    greedy = temperatures < 1e-5
     argmax = torch.argmax(logits, dim=-1)
-    if bool(greedy.all()):
+    if mode == GREEDY:
         return argmax.to(torch.int32)
+    greedy = temperatures < 1e-5
     temps = torch.where(greedy, torch.ones_like(temperatures), temperatures)
     scaled = logits / temps[:, None]
-    need_filter = (~greedy) & (((top_k > 0) & (top_k < V)) | (top_p < 1.0))
-    if bool(need_filter.any()):
+    if mode == FILTER:
         sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
         k = torch.where(top_k <= 0, torch.full_like(top_k, V), top_k)
         kth = torch.gather(sorted_logits, 1,

@@ -4,20 +4,35 @@ Counterpart of ``vattention_tpu/model_executor/model_runner.py``.
 ``_prepare_inputs`` builds the same fixed-layout numpy arrays as the JAX
 runner (prefill runs padded to the q tile and the region padded to one
 fixed width, tail tiles mapped to an empty run; decode tokens
-slot-indexed) and moves them to the device in one packed copy.  The
-backend follows the cache engine as in the JAX runner: ``no_op`` skips
-attention, the vattn arena reads row tables, the paged pool block
-tables, and the POD backends the arena's tables through kernel F on
-steps that mix prefills and decodes.  ``_step`` is eager PyTorch: embed
--> a Python loop over layers (one launch per layer and op, the attention
-ops being the port's CUDA kernels) -> sampler.
-The step is synchronous: ``run`` returns this step's sampled tokens.
+slot-indexed) and stages them in the device's persistent input buffers
+(``step_inputs.InputStager``: one copy per step).  The backend follows
+the cache engine as in the JAX runner: ``no_op`` skips attention, the
+vattn arena reads row tables, the paged pool block tables, and the POD
+backends the arena's tables through kernel F on steps that mix prefills
+and decodes.
+
+``_step`` is the JAX runner's jitted ``_step``: splice the previous
+step's tokens in from the device token buffer, embed -> the layers (the
+attention ops being the port's CUDA kernels) -> head -> sampler -> token
+buffer update -> ``pack_samples``.  On a CUDA device it runs as one CUDA
+graph per step signature (``n_pre``, the POD flag, the sampler mode: the
+JAX step's static arguments).  The first step of a signature runs
+eagerly, which builds the kernels, copies the rope's frequencies and
+sizes the decode scratch, and is then captured; every later step of that
+signature replays its graph.  The graphs share one memory pool; the arena
+and the token buffer are updated in place, as JAX donates them.  A capture
+that fails raises.  On the CPU the step runs eagerly.
+
+``run_async`` dispatches a step and returns a ``StepHandle`` at once: the
+samples are copied to pinned host memory behind the step and an event
+marks their arrival; ``resolve`` waits for that event and reads them.
+``run`` is ``resolve(run_async(...))``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -38,16 +53,52 @@ from vattention_tpu_torch.model_executor.attention.pod_backend import (
 from vattention_tpu_torch.model_executor.attention.vattn_backend import (
     VattnAttentionBackend)
 from vattention_tpu_torch.model_executor.layers.sampler import (
-    pack_samples, sample_tokens, unpack_samples)
+    GREEDY, pack_samples, sample_tokens, sampler_mode, unpack_samples)
 from vattention_tpu_torch.model_executor.models import get_model_class
-from vattention_tpu_torch.model_executor.step_inputs import StepInputs
+from vattention_tpu_torch.model_executor.step_inputs import (InputStager,
+                                                             StepInputs)
 from vattention_tpu_torch.model_executor.weight_utils import load_weights
+from vattention_tpu_torch.ops.cuda_build import CudaKernel
+from vattention_tpu_torch.ops.flash_decode import current_scratch
 from vattention_tpu_torch.ops.paged_attention import paged_tile_rows
 from vattention_tpu_torch.ops.utils import round_up, tile_rows_from_segments
 
 logger = init_logger(__name__)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class StepHandle:
+    """A dispatched serving step whose samples may not have reached the
+    host yet (async execution)."""
+
+    __slots__ = ("seq_metadata_list", "sampled", "samples", "n_top",
+                 "event")
+
+    def __init__(self, seq_metadata_list, sampled, samples, n_top=0,
+                 event=None):
+        self.seq_metadata_list = seq_metadata_list
+        # [(seq, slot, generation-at-dispatch)] for every sampled token
+        self.sampled = sampled
+        # host int32 [B, 2+2*n_top]: packed tokens + logprobs
+        # (layers/sampler.pack_samples), valid once ``event`` completes
+        self.samples = samples
+        self.n_top = n_top
+        # recorded after the device-to-host copy (None on the CPU)
+        self.event = event
+
+    def is_ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+
+class StepGraph(NamedTuple):
+    """One captured step signature."""
+    graph: "torch.cuda.CUDAGraph"
+    samples: torch.Tensor         # the graph's output, rewritten per replay
+    launches: Dict[CudaKernel, int]  # kernel launches per replay
+    capture_s: float              # host seconds the capture took
+    scratch: object               # the decode scratch the graph reads
+    inputs_at: int                # address of the staged inputs it reads
 
 
 class ModelRunner:
@@ -97,16 +148,100 @@ class ModelRunner:
         self.logprobs_top = config.model_config.max_logprobs
         self._metrics_store = MetricsStore.get_instance()
         self._generator = torch.Generator(device=device).manual_seed(seed)
+        # each slot's latest sampled token, on the device: the next decode
+        # step reads it without a round trip through the host
+        self._tok_buf = torch.full((self.B,), -1, dtype=torch.int32,
+                                   device=device)
+        self._stager = InputStager(device, config.max_inflight_steps + 1)
+        self.graphs: Dict[tuple, StepGraph] = {}
+        self._pool = None  # the graphs' shared memory pool
 
     # ------------------------------------------------------------------ #
-    def _step(self, inputs: StepInputs, n_pre: int) -> torch.Tensor:
+    @staticmethod
+    def _splice_prev_tokens(inputs: StepInputs, tok_buf: torch.Tensor,
+                            n_pre: int) -> StepInputs:
+        """Decode slots flagged ``use_prev_tok`` read their input token from
+        the device buffer (the previous step's sample) instead of the host
+        array."""
+        if inputs.use_prev_tok is None:
+            return inputs
+        dec = inputs.token_ids[n_pre:]
+        dec = torch.where(inputs.use_prev_tok != 0, tok_buf.to(dec.dtype),
+                          dec)
+        token_ids = (torch.cat([inputs.token_ids[:n_pre], dec])
+                     if n_pre else dec)
+        return inputs._replace(token_ids=token_ids)
+
+    def _step(self, inputs: StepInputs, n_pre: int,
+              mode: str = GREEDY) -> torch.Tensor:
+        """The whole step on the device: [B, 2 + 2 * n_top] int32 samples;
+        the arena and the token buffer are updated in place."""
+        inputs = self._splice_prev_tokens(inputs, self._tok_buf, n_pre)
         logits = self.model.forward(self.params, self.cache_engine.kv_cache,
                                     inputs, self.backend, n_pre)
         tokens = sample_tokens(logits, inputs.temperatures, inputs.top_p,
-                               inputs.top_k, self._generator)
+                               inputs.top_k, mode, self._generator)
         tokens = torch.where(inputs.sample_idx >= 0, tokens,
                              torch.full_like(tokens, -1))
+        self._tok_buf.copy_(torch.where(tokens >= 0, tokens, self._tok_buf))
         return pack_samples(logits, tokens, self.logprobs_top)
+
+    @staticmethod
+    def signature(inputs: StepInputs, n_pre: int, mode: str) -> tuple:
+        return (n_pre, inputs.pod, mode)
+
+    def _launch(self, inputs: StepInputs, n_pre: int,
+                mode: str) -> torch.Tensor:
+        """Run one step: eagerly on the CPU; on CUDA, a replay of its
+        signature's graph, or the eager warm-up and then the capture."""
+        if self.device.type != "cuda":
+            return self._step(inputs, n_pre, mode)
+        sig = self.signature(inputs, n_pre, mode)
+        graph = self.graphs.get(sig)
+        if graph is not None:
+            # the graph reads the stager's buffer of the layout it was
+            # captured on; a signature must not meet two layouts
+            if inputs.token_ids.data_ptr() != graph.inputs_at:
+                raise RuntimeError(
+                    f"step signature {sig}: inputs staged in another "
+                    "buffer than the one its graph reads")
+            return self.replay(graph)
+        samples = self._step(inputs, n_pre, mode)
+        self.graphs[sig] = self._capture(inputs, n_pre, mode)
+        return samples
+
+    def _capture(self, inputs: StepInputs, n_pre: int,
+                 mode: str) -> StepGraph:
+        """Capture ``_step`` on the stager's buffers.  A capture runs
+        nothing: the kernel calls it counted are taken back off and added
+        at each replay instead."""
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        if mode != GREEDY:
+            # each replay draws the generator's next numbers, as an eager
+            # call would
+            graph.register_generator_state(self._generator)
+        before = {k: k.launches for k in CudaKernel.INSTANCES}
+        with torch.cuda.graph(graph, pool=self._pool):
+            samples = self._step(inputs, n_pre, mode)
+        launches = {}
+        for k, n in before.items():
+            if k.launches != n:
+                launches[k] = k.launches - n
+                k.launches = n
+        return StepGraph(graph, samples, launches,
+                         time.perf_counter() - t0,
+                         current_scratch(self.device),
+                         inputs.token_ids.data_ptr())
+
+    @staticmethod
+    def replay(graph: StepGraph) -> torch.Tensor:
+        graph.graph.replay()
+        for k, n in graph.launches.items():
+            k.launches += n
+        return graph.samples
 
     # ------------------------------------------------------------------ #
     def _prepare_inputs(self, seq_metadata_list: List[SequenceMetadata]):
@@ -145,9 +280,13 @@ class ModelRunner:
         qt_run[:, 0] = K_max  # default: the empty run
         dec_seqlens = np.zeros(B, np.int32)
         sample_idx = np.full(B, -1, np.int32)
-        temperatures = np.ones(B, np.float32)
+        # a slot that samples nothing is greedy, so that an all-greedy
+        # batch takes the greedy mode whatever its idle slots (the JAX
+        # runner's 1.0 made the sampler draw for them)
+        temperatures = np.zeros(B, np.float32)
         top_p = np.ones(B, np.float32)
         top_k = np.full(B, -1, np.int32)
+        use_prev_tok = np.zeros(B, np.int32)
 
         seg_row_all, seg_tok_all = ce.get_batch_segments()
         for i, meta in enumerate(prefills):
@@ -178,7 +317,12 @@ class ModelRunner:
             seq = meta.seq
             slot = ce.slot_of(meta.seq_id)
             t = n_pre + slot
-            token_ids[t] = seq.get_last_token_id()
+            if seq.num_pending_tokens > 0:
+                # async execution: the token is still on the device; the
+                # step splices it in from the token buffer
+                use_prev_tok[slot] = 1
+            else:
+                token_ids[t] = seq.get_last_token_id()
             pos = seq.get_len() - 1
             positions[t] = pos
             append_rows[t] = ce.get_slot_rows(slot, pos, 1)[0]
@@ -208,44 +352,86 @@ class ModelRunner:
             if prefills:
                 pre_block_tables = pre_seg_row
 
-        inputs = StepInputs.from_host(
-            self.device, token_ids=token_ids, positions=positions,
+        inputs = self._stager.stage(
+            token_ids=token_ids, positions=positions,
             append_rows=append_rows, dec_seqlens=dec_seqlens,
             dec_tile_rows=dec_tile_rows, sample_idx=sample_idx,
             temperatures=temperatures, top_p=top_p, top_k=top_k,
             pre_qinfo=pre_qinfo if prefills else None,
             qt_run=qt_run if prefills else None,
             pre_tile_rows=pre_tile_rows, pre_block_tables=pre_block_tables,
+            use_prev_tok=use_prev_tok,
             pod=(isinstance(be, PodAttentionBackend) and bool(prefills)
                  and bool(decodes)))
-        return inputs, n_pre
+        mode = sampler_mode(temperatures, top_p, top_k,
+                            self.model.arch.vocab_size)
+        return inputs, n_pre, mode
 
     # ------------------------------------------------------------------ #
-    def run(self, seq_metadata_list: List[SequenceMetadata]
-            ) -> SamplerOutputs:
-        """One synchronous serving step: returns this step's samples."""
-        if not seq_metadata_list:
-            return []
+    def run_async(self, seq_metadata_list: List[SequenceMetadata]
+                  ) -> StepHandle:
+        """Dispatch one serving step without waiting for its results.
+
+        The sampled tokens stay on the device (the next step reads them
+        from the token buffer) and are copied to pinned host memory behind
+        the step, so ``resolve`` later finds them there."""
         t0 = time.perf_counter()
-        inputs, n_pre = self._prepare_inputs(seq_metadata_list)
+        inputs, n_pre, mode = self._prepare_inputs(seq_metadata_list)
         self._metrics_store.push_cpu_operation_time(
             CpuOperationMetrics.PREPARE_INPUTS, time.perf_counter() - t0)
-        samples = self._step(inputs, n_pre).cpu().numpy()
-        tokens, lps, top_ids, top_lps = unpack_samples(samples,
-                                                       self.logprobs_top)
+        samples = self._launch(inputs, n_pre, mode)
+        if inputs.pod:
+            self.backend.pod_steps += 1
+        event = None
+        if samples.is_cuda:
+            host = torch.empty(samples.shape, dtype=samples.dtype,
+                               pin_memory=True)
+            host.copy_(samples, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            samples = host
+
         ce = self.cache_engine
-        outputs = []
+        sampled = []
         for meta in seq_metadata_list:
             seq = meta.seq
             if meta.is_prompt:
                 processed = seq.get_num_prompt_tokens_processed()
                 if processed + meta.prompt_chunk_len < seq.get_prompt_len():
                     continue  # mid-prompt chunk: nothing sampled
-            slot = ce.slot_of(meta.seq_id)
-            outputs.append(SamplerOutput(
-                seq.seq_id, int(tokens[slot]), logprob=float(lps[slot]),
-                top_logprobs=(
-                    None if top_ids is None else
-                    [(int(i), float(p)) for i, p in
-                     zip(top_ids[slot], top_lps[slot])])))
-        return outputs
+            sampled.append((seq, ce.slot_of(meta.seq_id), seq.generation))
+        return StepHandle(seq_metadata_list, sampled, samples,
+                          self.logprobs_top, event)
+
+    @staticmethod
+    def resolve(handle: StepHandle) -> SamplerOutputs:
+        """The dispatched step's samples (waits for their copy to land)."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        tokens, lps, top_ids, top_lps = unpack_samples(
+            handle.samples.numpy(), handle.n_top)
+        return [SamplerOutput(
+                    seq.seq_id, int(tokens[slot]),
+                    logprob=float(lps[slot]),
+                    top_logprobs=(
+                        None if top_ids is None else
+                        [(int(i), float(p)) for i, p in
+                         zip(top_ids[slot], top_lps[slot])]))
+                for seq, slot, gen in handle.sampled
+                if seq.generation == gen]
+
+    def run(self, seq_metadata_list: List[SequenceMetadata]
+            ) -> SamplerOutputs:
+        """One synchronous serving step: returns this step's samples."""
+        if not seq_metadata_list:
+            return []
+        return self.resolve(self.run_async(seq_metadata_list))
+
+    def cleanup(self) -> None:
+        """Drop the device state: weights, graphs and their pool, the token
+        buffer and the staging buffers."""
+        self.params = None
+        self.graphs.clear()
+        self._pool = None
+        self._tok_buf = None
+        self._stager.cleanup()

@@ -16,23 +16,32 @@ The paged engine's prefill kernel reads the runs' block tables
 (``pre_block_tables``, the JAX step's ``pre_seg_row``) instead of
 ``pre_tile_rows``; its ``dec_tile_rows`` are its block tables times the
 block size, each entry clamped to the slot's last valid block.
+
+``InputStager`` moves a step's host arrays to the device.  The JAX runner
+hands XLA fresh arrays each step; a captured CUDA graph reads fixed
+addresses instead, so the stager keeps one persistent device buffer per
+layout (the arrays' names and shapes, which the step's signature fixes)
+and every step's tensors are views of it.  The arrays go through a ring
+of pinned host buffers, one ``non_blocking`` copy per step; each buffer
+is guarded by an event recorded after its copy, so the host never
+overwrites a buffer the device has not read yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 
 class StepInputs(NamedTuple):
-    token_ids: torch.Tensor      # [T] int64
+    token_ids: torch.Tensor      # [T] int32 (or int64)
     positions: torch.Tensor      # [T] int32
     append_rows: torch.Tensor    # [T] int32 arena row per token (-1 = skip)
     dec_seqlens: torch.Tensor    # [B] int32 (0 = not decoding this step)
     dec_tile_rows: Optional[torch.Tensor]  # [B, n_sub] int32 (None: no_op)
-    sample_idx: torch.Tensor     # [B] int64 index into [T] (-1 = none)
+    sample_idx: torch.Tensor     # [B] int32 index into [T] (-1 = none)
     temperatures: torch.Tensor   # [B] float32
     top_p: torch.Tensor          # [B] float32
     top_k: torch.Tensor          # [B] int32
@@ -42,36 +51,77 @@ class StepInputs(NamedTuple):
     pre_tile_rows: Optional[torch.Tensor] = None  # [K+1, n_sub] int32
     # paged only: [K+1, NB] int32 block ids of each run
     pre_block_tables: Optional[torch.Tensor] = None
+    # async execution: slots whose input token is the previous step's
+    # sample, still on the device (1) -- the step splices it in from the
+    # runner's token buffer ([B] int32; None: no slot waits)
+    use_prev_tok: Optional[torch.Tensor] = None
     # POD only (host-side, set by the runner): this step has both prefill
     # runs and decode slots, so attention runs fused (kernel F)
     pod: bool = False
 
-    @classmethod
-    def from_host(cls, device: torch.device, *, pod: bool = False,
-                  **arrays) -> "StepInputs":
-        """Move numpy arrays to ``device``: the int32 ones as ONE packed
-        host-to-device copy, split into views on the device (each view
-        starts 16-byte aligned, as the kernel wrappers require)."""
-        ints = {k: np.ascontiguousarray(a, np.int32)
-                for k, a in arrays.items()
-                if a is not None and a.dtype != np.float32}
-        floats = {k: a for k, a in arrays.items()
-                  if a is not None and a.dtype == np.float32}
-        offs, total = {}, 0
-        for k, a in ints.items():
-            offs[k] = total
-            total += -(-a.size // 4) * 4
-        flat = np.zeros(total, np.int32)
-        for k, a in ints.items():
-            flat[offs[k]:offs[k] + a.size] = a.reshape(-1)
-        flat = torch.from_numpy(flat).to(device)
-        out = {k: flat[offs[k]:offs[k] + a.size].view(a.shape)
-               for k, a in ints.items()}
-        for k, a in floats.items():
-            out[k] = torch.from_numpy(a).to(device)
-        out["token_ids"] = out["token_ids"].long()
-        out["sample_idx"] = out["sample_idx"].long()
-        for k in cls._fields:
-            out.setdefault(k, None)
-        out["pod"] = pod
-        return cls(**out)
+
+class InputStager:
+    """Host arrays -> ``StepInputs`` on ``device`` through persistent
+    buffers (see the module docstring).  ``ring`` host buffers: the
+    runner's ``max_inflight_steps + 1``."""
+
+    def __init__(self, device: torch.device, ring: int):
+        self.device = device
+        self._pinned = device.type == "cuda"
+        self._host: List[Optional[torch.Tensor]] = [None] * ring
+        self._events: List[Optional[torch.cuda.Event]] = [None] * ring
+        self._next = 0
+        # layout -> (device buffer, views by name)
+        self._layouts: Dict[tuple, tuple] = {}
+
+    def stage(self, *, pod: bool = False, **arrays) -> StepInputs:
+        """``arrays``: StepInputs fields as numpy arrays (None: absent);
+        float32 arrays travel as their bits in the one int32 copy."""
+        arrays = {k: a for k, a in arrays.items() if a is not None}
+        key = tuple((k, a.shape) for k, a in arrays.items())
+        layout = self._layouts.get(key)
+        if layout is None:
+            layout = self._layouts[key] = self._new_layout(arrays)
+        dev_buf, offsets, views = layout
+        total = dev_buf.numel()
+
+        slot = self._next
+        self._next = (slot + 1) % len(self._host)
+        if self._events[slot] is not None:
+            # the copy of ``ring`` steps ago; the in-flight bound means the
+            # device finished that step already, so this does not block
+            self._events[slot].synchronize()
+        host = self._host[slot]
+        if host is None or host.numel() < total:
+            host = self._host[slot] = torch.empty(
+                total, dtype=torch.int32, pin_memory=self._pinned)
+        flat = host.numpy()
+        for k, a in arrays.items():
+            a = np.ascontiguousarray(a)
+            bits = (a.view(np.int32) if a.dtype == np.float32
+                    else a.astype(np.int32, copy=False))
+            flat[offsets[k]:offsets[k] + a.size] = bits.reshape(-1)
+        dev_buf.copy_(host[:total], non_blocking=True)
+        if self._pinned:
+            event = torch.cuda.Event()
+            event.record()
+            self._events[slot] = event
+        return StepInputs(**views, pod=pod)
+
+    def _new_layout(self, arrays) -> tuple:
+        offsets, total = {}, 0
+        for k, a in arrays.items():
+            offsets[k] = total
+            total += -(-a.size // 4) * 4  # each view 16-byte aligned
+        dev_buf = torch.zeros(max(total, 4), dtype=torch.int32,
+                              device=self.device)
+        views = {k: None for k in StepInputs._fields if k != "pod"}
+        for k, a in arrays.items():
+            v = dev_buf[offsets[k]:offsets[k] + a.size].view(a.shape)
+            views[k] = v.view(torch.float32) if a.dtype == np.float32 else v
+        return dev_buf, offsets, views
+
+    def cleanup(self) -> None:
+        self._layouts.clear()
+        self._host = [None] * len(self._host)
+        self._events = [None] * len(self._events)

@@ -132,8 +132,13 @@ class CudaKernel:
 
     ``launches`` grows by one for each launch the kernel accepted, and for
     nothing else; callers that want to count a window of work set it to 0
-    first.
+    first.  A call under CUDA graph capture counts too; the model runner,
+    which captures the serving step, takes a graph's calls back off after
+    the capture and adds them again at each replay (``INSTANCES`` lists
+    every kernel for that).
     """
+
+    INSTANCES: List["CudaKernel"] = []
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
@@ -141,6 +146,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        CudaKernel.INSTANCES.append(self)
 
     def __call__(self, *args) -> None:
         if self._fn is None:

@@ -156,6 +156,13 @@ def decode_scratch(device: torch.device, batch: int, hkv: int, group: int,
     return part, tickets
 
 
+def current_scratch(device: torch.device):
+    """The (partials, tickets) pair launches on ``device`` use now, or None.
+    A CUDA graph keeps the pair it captured alive: a later, larger batch
+    replaces the pair here but never frees the graph's."""
+    return _scratch.get(device)
+
+
 def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
                      sub: int, sm_scale: float, window=None) -> torch.Tensor:
     """q: [B, Hq, D]; kv_cache: [L, 2, Hkv, R, D]; tile_rows: [B, n_sub]

@@ -1,16 +1,22 @@
 """Worker: owns the model runner and cache engine for one device.
 
-Counterpart of ``vattention_tpu/worker/base_worker.py`` for one device
-and synchronous execution.  KV memory comes from the architecture's
+Counterpart of ``vattention_tpu/worker/base_worker.py`` for one device,
+synchronous (``execute_model``) and asynchronous (``execute_model_async``:
+a queue of dispatched steps whose samples the host reads up to
+``max_inflight`` steps later).  KV memory comes from the architecture's
 parameter bytes and the device's memory: ``torch.cuda.mem_get_info`` on a
 GPU, a fixed 2 GiB on the CPU (the JAX package's CPU figure, so both
-packages size the same arena in the tests).
+packages size the same arena in the tests).  ``start_profiling`` and
+``stop_profiling`` trace through ``torch.profiler`` into a chrome trace,
+as the reference's worker does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -43,6 +49,8 @@ class BaseWorker:
         self.metrics_store = MetricsStore.get_or_create(config.metrics_config)
         self.cache_engine = None
         self.model_runner = None
+        # dispatched steps not yet resolved: [(scheduler_outputs, handle)]
+        self._inflight: List[tuple] = []
 
     # ------------------------------------------------------------------ #
     def _param_bytes(self) -> int:
@@ -132,13 +140,76 @@ class BaseWorker:
         self.metrics_store.on_batch_end(seq_metadata_list, scheduler_outputs)
         return sampler_outputs
 
+    # -- async execution ------------------------------------------------- #
+    def execute_model_async(self, scheduler_outputs: SchedulerOutputs,
+                            seq_metadata_list,
+                            max_inflight: int = 2) -> List[tuple]:
+        """Dispatch this step without waiting for its samples and return
+        the OLDER steps whose samples have landed: [(scheduler_outputs,
+        seq_metadata_list, sampler_outputs), ...].  At most
+        ``max_inflight`` steps stay unresolved, so the host's bookkeeping
+        runs one or two steps behind the device."""
+        for seq_id in scheduler_outputs.preempted_seq_ids:
+            self.cache_engine.free_seq(seq_id)
+        self._cache_step(seq_metadata_list)
+        handle = self.model_runner.run_async(seq_metadata_list)
+        self.metrics_store.on_batch_end(seq_metadata_list, scheduler_outputs)
+        self._inflight.append((scheduler_outputs, handle))
+        resolved = []
+        while self._inflight and (len(self._inflight) > max_inflight
+                                  or self._inflight[0][1].is_ready()):
+            resolved.append(self._resolve_oldest())
+        return resolved
+
+    def _resolve_oldest(self) -> tuple:
+        scheduler_outputs, handle = self._inflight.pop(0)
+        sampler_outputs = self.model_runner.resolve(handle)
+        return scheduler_outputs, handle.seq_metadata_list, sampler_outputs
+
+    def flush_inflight(self) -> List[tuple]:
+        """Resolve every dispatched step (waits for the last one)."""
+        resolved = []
+        while self._inflight:
+            resolved.append(self._resolve_oldest())
+        return resolved
+
+    def has_inflight_steps(self) -> bool:
+        return bool(self._inflight)
+
     def on_step_completed(self, seq_metadata_list) -> None:
         """Free finished sequences' cache slots."""
         self.cache_engine.on_step_completion(seq_metadata_list)
 
+    def profile_op_level(self, *, ctx: int = 1024, iters: int = 8) -> dict:
+        """Per-op times (OperationMetrics rows) at this worker's serving
+        shapes; see metrics/op_profiler.py."""
+        from vattention_tpu_torch.metrics.op_profiler import profile_operations
+
+        return profile_operations(self.model_runner, ctx=ctx, iters=iters)
+
+    # -- profiling: torch.profiler -> chrome trace ------------------------ #
+    def start_profiling(self, output_dir: str = "profiler_output") -> None:
+        from vattention_tpu_torch.metrics.timer import profile_session
+
+        self._profiling = contextlib.ExitStack()
+        self._profiling.enter_context(profile_session(
+            output_dir, cuda=self.device.type == "cuda"))
+        self._profiling_dir = output_dir
+
+    def stop_profiling(self) -> str:
+        """Stop the trace; returns the chrome trace's path."""
+        self._profiling.close()
+        path = os.path.join(self._profiling_dir, "trace.json")
+        logger.info("profiler trace written to %s", path)
+        return path
+
     def cleanup(self) -> None:
         if self.cache_engine is not None:
             self.cache_engine.cleanup()
+        # drop the device references (weights, graphs and their pool, the
+        # token buffer, the staging buffers): an A/B harness builds the
+        # next engine right after this one
         if self.model_runner is not None:
-            self.model_runner.params = None
+            self.model_runner.cleanup()
         self.model_runner = None
+        self._inflight.clear()

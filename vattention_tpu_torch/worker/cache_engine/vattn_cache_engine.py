@@ -120,12 +120,18 @@ class VAttnCacheEngine(BaseCacheEngine):
             self._apply_plan(plan)
 
     def _apply_plan(self, plan) -> None:
-        """Run the plan's ordered block moves in place (kernel D)."""
+        """Run the plan's ordered block moves in place (kernel D).  The
+        move tables go to the card from pinned memory without a host wait,
+        so a relocation does not stall the async engine."""
         n = len(plan.moves)
-        src = torch.tensor([mv.src for mv in plan.moves], dtype=torch.int32)
-        dst = torch.tensor([mv.dst for mv in plan.moves], dtype=torch.int32)
-        arena_relocate(self.kv_cache, src.to(self.device),
-                       dst.to(self.device), n, self.block_tokens)
+        # src and dst in one copy, each row 16-byte aligned
+        moves = torch.zeros((2, -(-n // 4) * 4), dtype=torch.int32)
+        moves[0, :n] = torch.tensor([mv.src for mv in plan.moves])
+        moves[1, :n] = torch.tensor([mv.dst for mv in plan.moves])
+        if self.device.type == "cuda":
+            moves = moves.pin_memory().to(self.device, non_blocking=True)
+        arena_relocate(self.kv_cache, moves[0], moves[1], n,
+                       self.block_tokens)
         self.pending_moves += n
 
     # ------------------------------------------------------------------ #
