@@ -194,6 +194,28 @@ same kernel with the rotation off, held and timed in (a) as before.
 (f w) kernel_sweep --window 4096 --check at Hkv 8 on the bf16, e4m3 and
     int8 arenas (ctx 4096, 16384; bf16 also 32768); G's and H's windowed
     launches are read there.
+(s) The serving entry points at full width
+    (``microbenchmarks/server_phase.py``): yi-6b-200k-l16 (yi-6b's widths,
+    16 layers, bf16, random weights from seed 0) written as a local HF
+    safetensors checkpoint (one file per layer plus one for the embeddings
+    and head, ~6.5 GB, with a word-level tokenizer whose token i is the
+    word t<i>) into a temporary directory, loaded back through
+    ``load_safetensors`` and held bit for bit (write and load seconds and
+    GB/s logged); then the port's OpenAI server on 127.0.0.1 at an
+    ephemeral port over AsyncLLMEngine (fa_vattn_2mb, the default native
+    allocator, sarathi chunk 512, batch 8, max_model_len 8192) answers 8
+    concurrent /v1/completions of seeded 1024-4096 token-id prompts (2
+    streamed, one with logprobs) and one /v1/chat/completions from one
+    aiohttp client, 32 greedy tokens each, the launch counts zeroed just
+    before and read just after (A, B and C must launch; E, F, G, H and A
+    without the rotation not; D once per planned relocation).  Each
+    completion's first token is held within 0.25 logits of a dense
+    reference in the model's bf16 arithmetic.  The same 8 prompts in
+    order through a synchronous-API LLMEngine on the checkpoint with
+    ``use_native_allocator=True`` and then False must give identical
+    tokens and extent tables after every step.  Requests/s, processed
+    tok/s, the streamed requests' TTFT p50 and max, and the checkpoint's
+    load GB/s are printed, each beside the card's name and power limit.
 
 Kernels G (single-run arena prefill, rows from the extent table) and H
 (single-run paged prefill) run only in (a), (a w), (f) and (f w).  In (a) each is held
@@ -2145,6 +2167,53 @@ def window_sweeps(kernels):
 
 
 # --------------------------------------------------------------------- #
+# (s) the serving entry points at full width
+# --------------------------------------------------------------------- #
+def server_phase(dev, kernels, required, idle, smi):
+    """(s): ``microbenchmarks/server_phase.run`` at yi-6b-200k-l16's width
+    (16 layers, bf16): the checkpoint's round trip, the OpenAI server over
+    AsyncLLMEngine on fa_vattn_2mb with the native allocator (sarathi chunk
+    512, batch 8, max_model_len 8192) answering 8 completions of 1024-4096
+    prompt tokens (2 streamed, one with logprobs) and a chat at once, 32
+    greedy tokens each, the first tokens within LOGIT_GAP_TOL of a dense
+    reference in the model's bf16 arithmetic, and the native and Python
+    allocators' identical tokens and extent tables.  The kernels in
+    ``required`` must launch while the server answers, those in ``idle``
+    not; D launches once per planned relocation.  Returns the launch
+    counts."""
+    from vattention_tpu_torch.microbenchmarks import server_phase as phase
+    from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
+
+    def reference(model, params, ids):
+        return dense_logits(model, params, ids, dev, dtype=torch.bfloat16)
+
+    fresh_metrics()
+    res = phase.run("yi-6b-200k-l16", dev, kernels=kernels,
+                    reference=reference, tol=LOGIT_GAP_TOL, log=log)
+    counts = res["counts"]
+    if any(counts[k.symbol] <= 0 for k in required):
+        raise AssertionError(f"(s) a kernel never launched: {counts}")
+    if any(counts[k.symbol] > 0 for k in idle):
+        raise AssertionError(f"(s) a kernel of another path launched: "
+                             f"{counts}")
+    relocate = ARENA_RELOCATE.symbol
+    if (counts[relocate] > 0) != (res["moves"] > 0):
+        raise AssertionError(f"(s) {res['moves']} block moves but {relocate} "
+                             f"launched {counts[relocate]} times")
+    log(f"(s) requests/s {res['requests_per_s']:.4f} ({res['requests']} "
+        f"requests in {res['wall_s']:.3f} s) on {smi}")
+    log(f"(s) processed tok/s {res['processed_tok_s']:.2f} "
+        f"({res['prompt_tokens']} prompt + {res['generated_tokens']} "
+        f"generated tokens) on {smi}")
+    log(f"(s) TTFT of the 2 streamed requests: p50 {res['ttft_p50_s']:.4f} s,"
+        f" max {res['ttft_max_s']:.4f} s on {smi}")
+    log(f"(s) checkpoint load {res['bytes'] / 1e9 / res['load_s']:.3f} GB/s "
+        f"({res['bytes'] / 1e9:.3f} GB in {res['load_s']:.3f} s), write "
+        f"{res['bytes'] / 1e9 / res['write_s']:.3f} GB/s on {smi}")
+    return counts
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2165,6 +2234,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -2303,6 +2376,13 @@ def main() -> int:
     counts_f = harness_phase(single)
     counts_f8 = quant_sweeps(single)
     counts_fw = window_sweeps(single)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (s): the serving entry points (checkpoint, OpenAI server, allocators)
+    counts_s = server_phase(
+        dev, kernels, smi=smi,
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
 
     # launches: E's from the paged run (d), F's from the POD run (e), G's
     # and H's from the harnesses (f), A-D's from the vattn run (c); on
@@ -2354,10 +2434,6 @@ def main() -> int:
         "the kernels' build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in results]}))
     print(smi)

@@ -47,6 +47,13 @@ eager step bit for bit; one graph per signature met, no device allocation
 in a replay, the decode scratch never replaced; and the sampling modes
 replaying with the generator registered.
 
+The serving entry points: the OpenAI server over AsyncLLMEngine answers
+on the card (plain, streamed, logprobs) with the tokens of the
+synchronous-API engine on the same weights, kernels A, B and C launched
+from the engine's own thread; the native allocator core is the default
+there; ``load_safetensors`` copies a checkpoint onto the card bit for bit
+(and casts a float32 checkpoint into a bf16 model as ``.to`` does).
+
 Sliding windows: every kernel of both bodies against its windowed plain
 version at windows 1-300 (the edge cases at 1, 63, 64, 65 and 300, also
 on 1-byte arenas), with the same bit-for-bit identities, C captured in a
@@ -1135,3 +1142,101 @@ def test_profile_op_level_on_the_card(dev, backend):
             torch.uint8), kv.view(torch.uint8))
     finally:
         _free(engine)
+
+
+def test_server_answers_on_the_card(dev):
+    """The port's OpenAI server over AsyncLLMEngine on the card: a greedy
+    completion, streamed and not, with logprobs, equal to the synchronous
+    engine's tokens on the same seeded weights; A, B and C launch."""
+    import asyncio
+    import json
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from vattention_tpu_torch import SamplingParams
+    from vattention_tpu_torch.engine.async_llm_engine import AsyncLLMEngine
+    from vattention_tpu_torch.entrypoints.openai_server.api_server import (
+        OpenAIServer)
+    from vattention_tpu_torch.memory.native import NativeVAttentionAllocator
+    from vattention_tpu_torch.ops.cache_append import ROPE_KV_APPEND
+    from vattention_tpu_torch.ops.flash_prefill import PREFILL_ATTENTION
+
+    prompt = list(range(5, 300))
+    sync = _engine()
+    try:
+        assert type(sync.worker.cache_engine.allocator) is \
+            NativeVAttentionAllocator
+        sync.add_request(None, SamplingParams(temperature=0.0, max_tokens=6,
+                                              ignore_eos=True),
+                         prompt_token_ids=prompt, seq_id="s")
+        expect = None
+        while sync.has_unfinished_requests():
+            for o in sync.step():
+                if o.finished:
+                    expect = o.token_ids
+    finally:
+        _free(sync)
+
+    eng = AsyncLLMEngine(_engine(max_logprobs=2))
+    kernels = (ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION)
+    before = [k.launches for k in kernels]
+
+    async def body():
+        client = TestClient(TestServer(OpenAIServer(eng, "tiny",
+                                                    max_logprobs=2).app()))
+        await client.start_server()
+        try:
+            req = {"model": "tiny", "prompt": prompt, "max_tokens": 6,
+                   "temperature": 0.0, "ignore_eos": True, "logprobs": 2}
+            r = await client.post("/v1/completions", json=req)
+            plain = await r.json()
+            r = await client.post("/v1/completions",
+                                  json={**req, "stream": True})
+            raw = (await r.read()).decode()
+            return plain, raw
+        finally:
+            await client.close()
+
+    try:
+        plain, raw = asyncio.new_event_loop().run_until_complete(body())
+    finally:
+        eng.shutdown()
+        _free(eng.engine)
+    choice = plain["choices"][0]
+    assert json.loads(choice["text"]) == expect
+    lps = choice["logprobs"]["token_logprobs"]
+    assert len(lps) == 6 and all(x <= 0 for x in lps)
+    chunks = [json.loads(line[6:]) for line in raw.splitlines()
+              if line.startswith("data: {")]
+    assert chunks[-1]["choices"][0]["finish_reason"] == "length"
+    assert all(k.launches > b for k, b in zip(kernels, before))
+
+
+def test_load_safetensors_copies_onto_the_card(dev, tmp_path):
+    """A checkpoint written from seeded bf16 params on the card loads back
+    onto the card bit for bit; a float32 checkpoint loads into a bf16
+    model as ``.to(torch.bfloat16)`` of the same values."""
+    from vattention_tpu_torch.config import ModelConfig, get_model_arch
+    from vattention_tpu_torch.microbenchmarks.checkpoint import (
+        write_checkpoint)
+    from vattention_tpu_torch.model_executor.models import get_model_class
+    from vattention_tpu_torch.model_executor.weight_utils import (
+        load_safetensors)
+
+    arch = get_model_arch("tiny-llama-debug")
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        model = get_model_class("llama")(arch, dtype=dtype)
+        params = model.init_params(dev, seed=3)
+        write_checkpoint(model, params, tmp_path / name)
+        bf16 = get_model_class("llama")(arch, dtype=torch.bfloat16)
+        cfg = ModelConfig(model=str(tmp_path / name),
+                          load_format="safetensors", dtype="bfloat16")
+        loaded = load_safetensors(bf16, cfg, dev)
+        assert loaded["embed"].is_cuda
+        for k in ("qkv_w", "gate_up_w", "down_w", "post_norm"):
+            got = loaded["layers"][k]
+            assert got.is_cuda and got.dtype == torch.bfloat16
+            assert torch.equal(got, params["layers"][k].to(torch.bfloat16)), k
+        assert torch.equal(loaded["lm_head"],
+                           params["lm_head"].to(torch.bfloat16))

@@ -118,7 +118,6 @@ def test_engine_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(use_native_allocator=True),
     dict(model="falcon-7b-32k-l8"),
     dict(tensor_parallel_size=2),
     dict(model="falcon-7b"),

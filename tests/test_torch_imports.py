@@ -62,3 +62,43 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+# the serving entry points a user runs, and the modules under them
+ENTRY_POINTS = ["vattention_tpu_torch.entrypoints.openai_server.api_server",
+                "vattention_tpu_torch.examples.offline_inference"]
+SERVING_MODULES = ["vattention_tpu_torch.engine.async_llm_engine",
+                   "vattention_tpu_torch.entrypoints.openai_server.protocol",
+                   "vattention_tpu_torch.memory.native",
+                   "vattention_tpu_torch.model_executor.weight_utils",
+                   "vattention_tpu_torch.microbenchmarks.checkpoint"]
+
+
+@pytest.mark.parametrize("module", ENTRY_POINTS)
+def test_entry_point_runs_with_jax_blocked(module):
+    """``python -m <module> --help`` with jax and vattention_tpu blocked:
+    the parser comes up, and nothing forbidden was imported on the way."""
+    script = (
+        "import runpy, sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.argv = [{module!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"for m in {SERVING_MODULES!r}:\n"
+        "    __import__(m)\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
+        "assert not loaded, loaded\n")
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "--device" in res.stdout
+
+
+def test_serving_modules_exist():
+    for m in SERVING_MODULES + ENTRY_POINTS:
+        path = ROOT / (m.replace(".", "/") + ".py")
+        assert path.exists(), path

@@ -285,8 +285,8 @@ class CacheConfig:
     megacache: bool = False
     # FP8/INT8 KV quantization ("none" | "fp8" | "int8")
     kv_quant: str = "none"
-    # native C++ allocator: its binding is not ported yet, so None and
-    # False both mean the Python allocator and True raises
+    # the allocator's core: None (the default) and True take the native
+    # C++ core (memory/native.py, built at first use), False the Python one
     use_native_allocator: Optional[bool] = None
 
 

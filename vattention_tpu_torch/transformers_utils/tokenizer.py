@@ -33,6 +33,8 @@ def get_tokenizer(model: str, **kwargs):
         return None
     from transformers import AutoTokenizer
 
+    # the files are local: never ask a hub
+    kwargs.setdefault("local_files_only", True)
     return AutoTokenizer.from_pretrained(model, **kwargs)
 
 

@@ -5,7 +5,9 @@ Owns the arena tensor ``[L, 2, Hkv, R + block_tokens, Dp]`` on the device
 (row R is the scratch row; Dp is the head dim rounded up to 128) in the
 model's dtype, or e4m3 or int8 under ``kv_quant`` (``arena_dtype``: 1-byte
 elements, so a page holds twice the tokens of a bf16 arena), maps
-sequences to batch slots through the Python allocator, calls
+sequences to batch slots through the allocator (the native C++ core by
+default, as the JAX package's auto default takes it whenever it is built;
+``use_native_allocator=False`` takes the Python one), calls
 ``step_async`` once per iteration, and applies any relocation plan in
 place through kernel D (``ops/arena_copy.arena_relocate``) before the
 step's forward pass, on the same stream.
@@ -22,6 +24,7 @@ from vattention_tpu_torch.config import SystemConfig
 from vattention_tpu_torch.core.datatypes.sequence import SequenceMetadata
 from vattention_tpu_torch.logger import init_logger
 from vattention_tpu_torch.memory.allocator import VAttentionAllocator
+from vattention_tpu_torch.memory.native import NativeVAttentionAllocator
 from vattention_tpu_torch.model_executor.attention import AttentionBackend
 from vattention_tpu_torch.ops.arena_copy import arena_relocate
 from vattention_tpu_torch.worker.cache_engine.base_cache_engine import (
@@ -38,10 +41,6 @@ class VAttnCacheEngine(BaseCacheEngine):
         model_config = config.model_config
         cache_config = config.cache_config
         parallel_config = config.parallel_config
-        if cache_config.use_native_allocator:
-            raise NotImplementedError(
-                "the native allocator binding is not ported yet "
-                "(ROADMAP Queue 1 item 2)")
         self.device = device
         self.dtype, self.kv_scale = arena_dtype(config)
         self.num_layers = model_config.get_num_layers(parallel_config)
@@ -54,7 +53,12 @@ class VAttnCacheEngine(BaseCacheEngine):
         backend = AttentionBackend.resolve(model_config.attention_backend)
         self.sync_mode = AttentionBackend.is_sync(backend)
 
-        self.allocator = VAttentionAllocator()
+        # None and True take the native core; a core that does not build
+        # raises (the JAX package warns and falls back)
+        if cache_config.use_native_allocator is False:
+            self.allocator = VAttentionAllocator()
+        else:
+            self.allocator = NativeVAttentionAllocator()
         self.allocator.init_kvcache(
             num_layers=self.num_layers,
             num_kv_heads=self.num_kv_heads,
