@@ -194,6 +194,40 @@ same kernel with the rotation off, held and timed in (a) as before.
 (f w) kernel_sweep --window 4096 --check at Hkv 8 on the bf16, e4m3 and
     int8 arenas (ctx 4096, 16384; bf16 also 32768); G's and H's windowed
     launches are read there.
+(a falcon), (a falcon e4m3), (a falcon int8) (a)'s phase at Falcon-7B's
+    attention geometry (71 query heads on 1 kv head, head dim 64 padded to
+    the arena's 128, sm_scale of 64, the arena's 8192-token blocks): A, B,
+    C (depths 0..2048), E, F, G, H and D each held and timed as in (a),
+    the prefill and decode bodies' edge cases at G = 71 (71 q heads on one
+    kv head; the decode edges at G 1, 2, 4, 8 and 71), and with the bf16
+    arena G and H at chunk 2048 at kv_len 32768 and C at B = 4 at depths
+    16384-32768 beside SDPA.  Each row adds ``bound_real_ms``, the bound
+    at the real head dim 64 (half the padded bytes and operations); the
+    JSON rows are ``<name>[falcon]``, ``<name>[falcon e4m3]``, ...
+(b falcon) (b)'s exact greedy tokens through a tiny f32 falcon (a
+    config.json in a temporary directory: 2 layers, 71 query heads, 1 kv
+    head, head dim 64, hidden 256) on fa_vattn, fa_paged_16 and fa_pod,
+    then on e4m3 and int8 arenas, against a dense reference with
+    falcon's own layer written in ``dense_logits`` (one LayerNorm,
+    attention and a tanh-GELU MLP in parallel); the 1-byte falcon
+    instances' launches are read here.
+(k) falcon-7b at full width (32 layers, 71 query heads on 1 kv head,
+    hidden 4544, vocab 65024, bf16, seed-0 weights) through LLMEngine on
+    fa_vattn_2mb, sarathi chunk 512, max_model_len 2048, batch 8: 8
+    requests of 512-1900 prompt tokens and 32 greedy tokens (A, B, C must
+    launch; E, F, G, H not), then (k paged) fa_paged_256 and (k pod)
+    fa_pod on the same requests (F's launches plus B's equal B's in (k),
+    and F's plus C's C's); each request's first token within 0.25 logits
+    of a dense reference in the model's bf16 arithmetic; tok/s and the
+    graphs captured are printed.
+(k long) falcon-7b-32k-l8 (falcon's widths, 8 layers) written as a
+    safetensors checkpoint in falcon's ``transformer.h.*`` layout (4.5 GB,
+    a temporary directory, deleted after), loaded back bit for bit (load
+    GB/s printed), then served from that directory on fa_vattn_2mb: 4
+    requests of 16K-30K prompt tokens, 16 greedy tokens, first tokens
+    held as in (k).
+(f falcon) kernel_sweep --check at falcon's heads on bf16, e4m3 and int8
+    arenas (ctx 1024, 4096); the falcon G and H rows' launches.
 (s) The serving entry points at full width
     (``microbenchmarks/server_phase.py``): yi-6b-200k-l16 (yi-6b's widths,
     16 layers, bf16, random weights from seed 0) written as a local HF
@@ -229,8 +263,12 @@ Prints the phase results, then ``{"kernels": [...]}`` (A-H, then their
 e4m3 and int8 instances, ``<name>[e4m3]``, then the windowed instances,
 ``<name>[w4096]`` and ``<name>[e4m3 w4096]``, with launches from (g) and
 (g') for bf16 B, C, E, F, (b w) for the 1-byte ones and (f w) for G and
-H, then ``rope_kv_append`` and its ``[e4m3]``, ``[int8]``, ``[f32]`` and
-``[mistral]`` instances with launches from (c), (c8), (b) and (g);
+H, then the falcon instances ``<name>[falcon]`` with launches from (k),
+(k paged), (k pod) and (f falcon), and ``<name>[falcon e4m3]`` and
+``[falcon int8]`` from (b falcon) and (f falcon), each with
+``bound_real_ms``; then ``rope_kv_append`` and its ``[e4m3]``,
+``[int8]``, ``[f32]``, ``[mistral]`` and falcon instances with launches
+from (c), (c8), (b), (g), (k) and (b falcon);
 ``kv_append``, which serving no longer runs, shows 0), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -250,7 +288,7 @@ import torch
 
 try:
     from vattention_tpu_torch.microbenchmarks.decode_edges import (
-        EDGE_DEPTHS, check_decode_edges, edge_depths)
+        EDGE_DEPTHS, EDGE_GROUPS, check_decode_edges, edge_depths)
     from vattention_tpu_torch.microbenchmarks.prefill_edges import (
         check_prefill_edges)
     from vattention_tpu_torch.microbenchmarks.captured_step import (
@@ -267,22 +305,27 @@ MISTRAL = dict(HQ=32, HKV=8, D=128)   # mistral-7b's attention geometry
 WINDOW = 4096                 # mistral-7b's sliding window
 EDGE_WINDOWS = (1, 63, 64, 65, WINDOW)
 LOGIT_GAP_TOL = 0.25          # engine token's logit vs the reference top
-YI = dict(L=32, HQ=32, HKV=4, D=128)
+# a kernel phase's geometry: layers, heads, the arena's head dim D and the
+# model's DR (Falcon-7B's 64, padded to 128), decode depths of the batch of
+# 8, and the instance tag
+YI = dict(L=32, HQ=32, HKV=4, D=128, DR=128,
+          DEC=[0, 1, 17, 512, 1000, 2048, 3000, 4096], tag="")
+FALCON = dict(L=32, HQ=71, HKV=1, D=128, DR=64,
+              DEC=[0, 1, 17, 300, 512, 1000, 1500, 2048], tag="falcon")
 INT8_STEP = 0.04              # KV_INT8_SCALE's default
 # the 1-byte arenas: kv_quant name, instance tag
 QUANT = {torch.float8_e4m3fn: ("fp8", "e4m3"), torch.int8: ("int8", "int8")}
 
 
-def arena_setup(arena):
-    """(name suffix, log label, sm_scale, int8 step) of phase (a) on an
-    arena of dtype ``arena``: an int8 arena's step folds into sm_scale, as
-    the backends fold it."""
-    D = YI["D"]
-    if arena == torch.bfloat16:
-        return "", "(a)", D ** -0.5, None
-    tag = QUANT[arena][1]
+def arena_setup(arena, geo=YI):
+    """(name suffix, log label, sm_scale, int8 step) of phase (a) at
+    ``geo`` on an arena of dtype ``arena``: sm_scale from the model's head
+    dim, an int8 arena's step folded into it, as the backends fold it."""
+    tag = "" if arena == torch.bfloat16 else QUANT[arena][1]
     step = INT8_STEP if arena == torch.int8 else None
-    return f"[{tag}]", f"(a {tag})", D ** -0.5 * (step or 1.0), step
+    words = " ".join(w for w in (geo["tag"], tag) if w)
+    return (f"[{words}]" if words else "", f"(a {words})" if words else "(a)",
+            geo["DR"] ** -0.5 * (step or 1.0), step)
 
 
 def log(*args):
@@ -307,13 +350,17 @@ def host_us(fn, n: int = 200) -> float:
 # --------------------------------------------------------------------- #
 # (a) kernels
 # --------------------------------------------------------------------- #
-def kernel_phase(dev, arena=torch.bfloat16):
-    """Phase (a) over an arena of dtype ``arena``: bf16 (the main path), or
-    1-byte e4m3 or int8 (instances named ``<kernel>[e4m3]``, ...), whose
-    values are the seeded bf16 arena's quantized as kernel A writes them
-    and whose library yardsticks read K/V widened to bf16 once, outside the
-    timed call (twice the bytes the kernel reads).  The 1-byte runs skip
-    the host-time, 5-pass and long-context extras."""
+def kernel_phase(dev, arena=torch.bfloat16, geo=YI):
+    """Phase (a) at ``geo`` (Yi-6B's heads, or Falcon-7B's: instances
+    named ``<kernel>[falcon]``) over an arena of dtype ``arena``: bf16 (the
+    main path), or 1-byte e4m3 or int8 (instances named
+    ``<kernel>[e4m3]``, ``<kernel>[falcon e4m3]``, ...), whose values are
+    the seeded bf16 arena's quantized as kernel A writes them and whose
+    library yardsticks read K/V widened to bf16 once, outside the timed
+    call (twice the bytes the kernel reads).  The 1-byte runs skip the
+    host-time and long-context extras, and the falcon runs the 5 passes
+    and the widening check (Yi's kv heads hold every 1-byte value; one kv
+    head of 128 lanes cannot)."""
     from vattention_tpu_torch.memory.allocator import VAttentionAllocator
     from vattention_tpu_torch.ops import (arena_copy, cache_append,
                                           flash_decode, flash_prefill,
@@ -321,11 +368,10 @@ def kernel_phase(dev, arena=torch.bfloat16):
     from vattention_tpu_torch.ops.utils import (quantize_kv, select_kv_tile,
                                                 tile_rows_from_segments)
 
-    L, HQ, HKV, D = YI["L"], YI["HQ"], YI["HKV"], YI["D"]
-    G = HQ // HKV
+    L, HQ, HKV, D = geo["L"], geo["HQ"], geo["HKV"], geo["D"]
     dt = torch.bfloat16
     es = 2                                    # q, outputs, the model's K/V
-    suffix, lbl, sm, step = arena_setup(arena)
+    suffix, lbl, sm, step = arena_setup(arena, geo)
     main = arena == dt
     out_scale = step or 1.0   # an int8 arena's outputs count in its steps
     check = functools.partial(check_attention, scale=out_scale)
@@ -409,13 +455,14 @@ def kernel_phase(dev, arena=torch.bfloat16):
         shape=f"T={T} ({nvalid} valid) Hkv={HKV} D={D} bf16 -> "
               f"{cache.dtype}"))
     host = {}
-    if main:
+    if main and geo is YI:
         passes = [(timer(lambda: cache_append.kv_append(got, k, v, rows_d,
                                                         layer)),
                    timer(lambda: got[layer].index_copy_(2, rv, kv_src)))
                   for _ in range(5)]
         log("(a) kv_append against index_copy_, 5 passes in turns: "
             + "; ".join(f"{a:.4f} / {b:.4f}" for a, b in passes) + " ms")
+    if main:
         host = {"kv_append": host_us(lambda: cache_append.kv_append(
             got, k, v, rows_d, layer)),
                 "index_copy_": host_us(lambda: got[layer].index_copy_(
@@ -485,8 +532,9 @@ def kernel_phase(dev, arena=torch.bfloat16):
               f"{cache.dtype} K/V"))
     del kg, vg
 
-    # -- C: decode, B=8 at depths 0..4096
-    seqlens_l = [0, 1, 17, 512, 1000, 2048, 3000, 4096]
+    # -- C: decode, B=8 at depths 0..4096 (falcon 0..2048)
+    seqlens_l = geo["DEC"]
+    deepest = max(seqlens_l)
     ext_d = [[], [(0, bt)], [(bt, bt)], [(2 * bt, bt)], [(3 * bt, bt)],
              [(4 * bt, bt)], [(5 * bt, bt), (15 * bt, bt)],
              [(7 * bt, 2 * bt)]]
@@ -509,7 +557,7 @@ def kernel_phase(dev, arena=torch.bfloat16):
             err = max(err, e)
     log(f"{lbl} decode_attention max abs err per slot: "
         + "; ".join(checks))
-    kpad = torch.zeros((8, HKV, 4096, D), dtype=dt, device=dev)
+    kpad = torch.zeros((8, HKV, deepest, D), dtype=dt, device=dev)
     vpad = torch.zeros_like(kpad)
     for b, n in enumerate(seqlens_l):
         if n:
@@ -517,7 +565,7 @@ def kernel_phase(dev, arena=torch.bfloat16):
                 torch.arange(n, device=dev) % sub
             kpad[b, :, :n] = cache[layer, 0][:, r]
             vpad[b, :, :n] = cache[layer, 1][:, r]
-    dmask = (torch.arange(4096, device=dev)[None, :]
+    dmask = (torch.arange(deepest, device=dev)[None, :]
              < seqlens[:, None])[:, None, None, :]
     b_ms, b_by = bound(sum(seqlens_l) * 2 * HKV * D * kv_es
                        + 2 * 8 * HQ * D * es + 8 * 4,
@@ -549,17 +597,18 @@ def kernel_phase(dev, arena=torch.bfloat16):
             "SDPA (decode)": host_us(lambda: sdpa(
                 qd[:, :, None], kpad, vpad, attn_mask=dmask,
                 enable_gqa=True))})
-        log("(a) host us per call (200 enqueues, no sync): " + ", ".join(
+        log(f"{lbl} host us per call (200 enqueues, no sync): " + ", ".join(
             f"{name} {us:.1f}" for name, us in host.items()))
     del kpad, vpad
     results.append(pod_kernel(timer, args, args2, dargs, seqlens_l, sub,
                               results[-2]["library_ms"]
                               + results[-1]["library_ms"], sm, suffix, lbl,
-                              out_scale))
+                              out_scale, geo))
     results.append(paged_kernels(dev, cache, R, timer, randn, layer, sm,
-                                 suffix, lbl, out_scale))
+                                 suffix, lbl, out_scale, geo))
     results += single_run_kernels(dev, cache, R, bt, sub, n_sub, timer,
-                                  randn, layer, sm, suffix, lbl, out_scale)
+                                  randn, layer, sm, suffix, lbl, out_scale,
+                                  geo)
     err, rel = check_prefill_edges(cache, HQ, layer, sm_scale=sm,
                                    out_scale=out_scale)
     log(f"{lbl} prefill body edge cases (kv_len 1, 63, 64, 65, 200, 4133; "
@@ -570,11 +619,11 @@ def kernel_phase(dev, arena=torch.bfloat16):
     err, rel = check_decode_edges(cache, layer, sm_scale=sm,
                                   out_scale=out_scale)
     log(f"{lbl} decode body edge cases (depths {EDGE_DEPTHS}, tables "
-        "32768 positions deep, sub 256 and 16, G 1, 2, 4, 8): max abs err "
-        f"{err} (row worst {rel:.5f}); idle slots exactly zero")
+        f"32768 positions deep, sub 256 and 16, G {EDGE_GROUPS}, Hkv {HKV}): "
+        f"max abs err {err} (row worst {rel:.5f}); idle slots exactly zero")
     if main:
-        long_context(dev, cache, R, bt, timer, randn, layer)
-    else:
+        long_context(dev, cache, R, bt, timer, randn, layer, geo, lbl)
+    elif geo is YI:
         widening_check(dev, arena, sm, lbl)
 
     # -- D: a chained plan from the allocator in strict mode (the bf16
@@ -626,10 +675,20 @@ def kernel_phase(dev, arena=torch.bfloat16):
     del cache
     torch.cuda.empty_cache()
     for r in results:
+        if geo["DR"] != D:
+            # every byte and operation counted is proportional to the head
+            # dim but for a few bytes of int32 tables
+            r["bound_real_ms"] = r["bound_ms"] * geo["DR"] / D
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        real = ("" if "bound_real_ms" not in r else
+                f", at head dim {geo['DR']} {r['bound_real_ms']:.5f} "
+                f"({100 * r['bound_real_ms'] / r['ms']:.1f}%)")
         log(f"{lbl} {r['name']}: {r['shape']}: max_abs_err {r['max_abs_err']}"
             f" ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library {lib} "
-            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"bound {r['bound_ms']:.5f} ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}%){real}"
+            + (f"; host us per call {host[r['name'].split('[')[0]]:.1f}"
+               if r["name"].split("[")[0] in host else ""))
     return results
 
 
@@ -637,13 +696,17 @@ def kernel_phase(dev, arena=torch.bfloat16):
 # (a rope) kernel A with the rotation
 # --------------------------------------------------------------------- #
 # instance suffix -> (model, model dtype, arena dtype); launches from (c),
-# (c8), (b) (the f32 tiny model) and (g)
+# (c8), (b) (the f32 tiny model), (g), (k) (falcon, bf16) and (b falcon)
+# (falcon on 1-byte arenas)
 ROPE_INSTANCES = {
     "": ("yi-6b-200k", torch.bfloat16, torch.bfloat16),
     "[e4m3]": ("yi-6b-200k", torch.bfloat16, torch.float8_e4m3fn),
     "[int8]": ("yi-6b-200k", torch.bfloat16, torch.int8),
     "[f32]": ("yi-6b-200k", torch.float32, torch.float32),
     "[mistral]": ("mistral-7b", torch.bfloat16, torch.bfloat16),
+    "[falcon]": ("falcon-7b", torch.bfloat16, torch.bfloat16),
+    "[falcon e4m3]": ("falcon-7b", torch.bfloat16, torch.float8_e4m3fn),
+    "[falcon int8]": ("falcon-7b", torch.bfloat16, torch.int8),
 }
 
 
@@ -651,7 +714,9 @@ def rope_append_phase(dev):
     """(a rope): kernel A with the rotation (``rope_kv_append``) at (a)'s
     step of 520 tokens (two prefill runs, 32 padding tokens, 6 decode
     slots at positions to 199999 and 2 idle ones) on Yi-6B's heads (bf16
-    into bf16, e4m3 and int8 arenas; f32 into f32) and Mistral-7B's (bf16):
+    into bf16, e4m3 and int8 arenas; f32 into f32), Mistral-7B's (bf16)
+    and Falcon-7B's (71 query heads, 1 kv head, head dim 64 into the
+    arena's 128 lanes; bf16 into bf16, e4m3 and int8):
     q and the arena bit for bit against the plain version (the port's rope,
     then kv_append_plain), V carrying the quantization's edges; each timed
     beside the plain version and the eager sequence it replaces (the rope
@@ -663,7 +728,7 @@ def rope_append_phase(dev):
         get_rope)
     from vattention_tpu_torch.ops import cache_append
     from vattention_tpu_torch.ops.cache_append import split_qkv
-    from vattention_tpu_torch.ops.utils import quantize_kv
+    from vattention_tpu_torch.ops.utils import pad_heads, quantize_kv
 
     layer, L, bt = 5, 8, 2048
     T = 512 + 8
@@ -683,13 +748,14 @@ def rope_append_phase(dev):
     for suffix, (model, dt, arena) in ROPE_INSTANCES.items():
         a = get_model_arch(model)
         HQ, HKV, D = a.num_q_heads, a.num_kv_heads, a.head_dim
+        Dp = -(-D // 128) * 128   # the arena pads the head dim to 128
         rope = get_rope(D, D, a.max_position_embeddings, a.rope_theta,
                         a.rope_scaling)
         step = INT8_STEP if arena == torch.int8 else None
         gen = torch.Generator(device=dev).manual_seed(9)
         qkv = (torch.randn(T, (HQ + 2 * HKV) * D, generator=gen, device=dev)
                * 3).to(dt)
-        cache = torch.randn(L, 2, HKV, 24 * bt, D, generator=gen,
+        cache = torch.randn(L, 2, HKV, 24 * bt, Dp, generator=gen,
                             device=dev)
         cache = quantize_kv(cache, arena, step)
         if arena != dt:
@@ -720,17 +786,19 @@ def rope_append_phase(dev):
         def eager():
             # the serving path before kernel A rotated: the rope, which
             # copied inv_freq to the card at every call (a wait), K and V
-            # made contiguous, then kernel A without the rotation
+            # made contiguous (padded to the arena's head dim), then
+            # kernel A without the rotation
             rope.inv_freq.to(dev)
             q_, k_, v_ = split_qkv(qkv, HKV, D)
             q_, k_ = rope(pos_d, q_, k_)
-            cache_append.kv_append(got, k_.contiguous(), v_.contiguous(),
-                                   rows_d, layer, kv_scale=step)
+            cache_append.kv_append(got, pad_heads(k_, Dp).contiguous(),
+                                   pad_heads(v_, Dp).contiguous(), rows_d,
+                                   layer, kv_scale=step)
             return q_
 
         es = qkv.element_size()
         b_ms, b_by = bound(T * (2 * HQ + 2 * HKV) * D * es + T * 8 + D * 2
-                          + nvalid * 2 * HKV * D * got.element_size(), 0)
+                          + nvalid * 2 * HKV * Dp * got.element_size(), 0)
         fused = functools.partial(cache_append.rope_kv_append, got, *args)
         r = dict(
             name="rope_kv_append" + suffix, route="cuda",
@@ -816,7 +884,7 @@ def widening_check(dev, arena, sm, lbl):
 
 
 def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms, sm, suffix,
-               lbl, out_scale):
+               lbl, out_scale, geo=YI):
     """(a) for kernel F: each of kernel B's two cases (``pre1``: chunk 512
     at kv_len 4096; ``pre2``: 3 runs and the empty run) fused with kernel
     C's batch (``dec``) in one launch, held against F's plain version and
@@ -825,7 +893,7 @@ def pod_kernel(timer, pre1, pre2, dec, depths, sub, sdpa_ms, sm, suffix,
     C's SDPA times."""
     from vattention_tpu_torch.ops import flash_decode, flash_prefill, pod_fused
 
-    HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
+    HQ, HKV, D = geo["HQ"], geo["HKV"], geo["D"]
     es = 2
     qd, cache, trows_d, seqlens, layer = dec
     kv_es = cache.element_size()
@@ -988,7 +1056,7 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
 
 
 def paged_kernels(dev, cache, pool_rows, timer, randn, layer, sm, suffix,
-                  lbl, out_scale):
+                  lbl, out_scale, geo=YI):
     """(a) for the paged engine: kernel E at blocks of 16 and 256 tokens
     over the first ``pool_rows`` rows of ``cache``, E against B on the
     same rows, and kernel C over 16-token blocks.  Returns E's result at
@@ -997,7 +1065,7 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer, sm, suffix,
                                           paged_attention)
     from vattention_tpu_torch.ops.utils import cdiv
 
-    HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
+    HQ, HKV, D = geo["HQ"], geo["HKV"], geo["D"]
     es = 2
     kv_es = cache.element_size()
     check = functools.partial(check_attention, scale=out_scale)
@@ -1097,9 +1165,10 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer, sm, suffix,
             f"{res['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
         out = res
 
-    # kernel C over 16-token blocks: B=8 at depths 0..4096
+    # kernel C over 16-token blocks: B=8 at (a)'s depths
     bs = 16
-    seqlens_l = [0, 1, 17, 512, 1000, 2048, 3000, 4096]
+    seqlens_l = geo["DEC"]
+    deepest = max(seqlens_l)
     seqlens = torch.tensor(seqlens_l, dtype=torch.int32, device=dev)
     tables = tables_for(seqlens_l, bs)
     qd = randn(8, HQ, D)
@@ -1119,14 +1188,15 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer, sm, suffix,
             e, _ = check(f"paged decode slot {b} at depth {n}",
                                    got[b:b + 1], ref[b:b + 1], DECODE_TOL)
             err = max(err, e)
-    kpad = torch.zeros((8, HKV, 4096, D), dtype=torch.bfloat16, device=dev)
+    kpad = torch.zeros((8, HKV, deepest, D), dtype=torch.bfloat16,
+                       device=dev)
     vpad = torch.zeros_like(kpad)
     for b, n in enumerate(seqlens_l):
         if n:
             r = paged_attention.block_rows(tables[b], n, bs)
             kpad[b, :, :n] = cache[layer, 0][:, r]
             vpad[b, :, :n] = cache[layer, 1][:, r]
-    dmask = (torch.arange(4096, device=dev)[None, :]
+    dmask = (torch.arange(deepest, device=dev)[None, :]
              < seqlens[:, None])[:, None, None, :]
     c_bound, c_by = bound(sum(seqlens_l) * 2 * HKV * D * kv_es
                           + 2 * 8 * HQ * D * es + 8 * 4,
@@ -1144,7 +1214,7 @@ def paged_kernels(dev, cache, pool_rows, timer, randn, layer, sm, suffix,
 
 
 def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
-                       layer, sm, suffix, lbl, out_scale):
+                       layer, sm, suffix, lbl, out_scale, geo=YI):
     """(a) for kernels G and H at kernel B's shape (chunk 512 at kv_len
     4096): G over 8 extents of 512 tokens starting at 2048-token block
     starts, held against its plain version and against B on the same rows;
@@ -1155,7 +1225,7 @@ def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
     from vattention_tpu_torch.ops import flash_prefill, paged_attention
     from vattention_tpu_torch.ops.utils import cdiv, tile_rows_from_segments
 
-    HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
+    HQ, HKV, D = geo["HQ"], geo["HKV"], geo["D"]
     es = 2
     kv_es = cache.element_size()
     check = functools.partial(check_attention, scale=out_scale)
@@ -1257,19 +1327,23 @@ def single_run_kernels(dev, cache, pool_rows, bt, sub, n_sub, timer, randn,
     return out + [res]
 
 
-def long_context(dev, cache, pool_rows, bt, timer, randn, layer):
+def long_context(dev, cache, pool_rows, bt, timer, randn, layer, geo=YI,
+                 lbl="(a)"):
     """(a) the prefill body at the sweep's deepest prefill, chunk 2048 at
     kv_len 32768: G over 8 extents of 4096 tokens at 2048-token block
     starts, H over a seeded permutation of the pool's 16-token blocks with
     its tail poisoned; each held against its plain version (256 query
     tokens at a time) and timed beside one SDPA call on the same gathered
-    K/V and beside its bound.  Logged only: the JSON line keeps (a)'s
-    512@4096 shape."""
-    from vattention_tpu_torch.ops import flash_prefill, paged_attention
+    K/V and beside its bound.  At falcon's geometry also kernel C at depth:
+    4 slots at 16384-32768 positions over permuted 256-row blocks, held and
+    timed the same way.  Logged only: the JSON line keeps (a)'s 512@4096
+    shape."""
+    from vattention_tpu_torch.ops import (flash_decode, flash_prefill,
+                                          paged_attention)
 
-    HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
+    HQ, HKV, D = geo["HQ"], geo["HKV"], geo["D"]
     es = 2
-    sm = D ** -0.5
+    sm = geo["DR"] ** -0.5
     n, chunk, bs = 32768, 2048, 16
     q = randn(chunk, HQ, D)
     qinfo = torch.tensor([n - chunk, n], dtype=torch.int32, device=dev)
@@ -1314,10 +1388,46 @@ def long_context(dev, cache, pool_rows, bt, timer, randn, layer):
         lib = timer(lambda: sdpa(qg, kg, vg, attn_mask=mask,
                                  enable_gqa=True))
         del kg, vg
-        log(f"(a) {what}: chunk {chunk} at kv_len {n}, Hq={HQ} Hkv={HKV} "
+        log(f"{lbl} {what}: chunk {chunk} at kv_len {n}, Hq={HQ} Hkv={HKV} "
             f"D={D} bf16: max abs err {err} (row worst {rel:.5f}) ms "
             f"{ms:.4f} library {lib:.4f} (SDPA, gathered K/V) bound "
-            f"{b_ms:.4f} ({b_by})")
+            f"{b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}%)")
+    if geo is YI:
+        return
+    # kernel C at depth: 4 slots at 16K-32K over permuted 256-row blocks
+    depths = [16384, 24576, 30000, 32768]
+    sub = 256
+    rows = np.stack([np.random.default_rng(4 + b).permutation(
+        pool_rows // sub)[:n // sub] * sub for b in range(4)]).astype(np.int32)
+    tile_rows = torch.from_numpy(rows).to(dev)
+    seqlens = torch.tensor(depths, dtype=torch.int32, device=dev)
+    qd = randn(4, HQ, D)
+    dargs = (qd, cache, tile_rows, seqlens, layer)
+    got = flash_decode.decode_attention(*dargs, sub=sub, sm_scale=sm)
+    ref = flash_decode.decode_attention_plain(*dargs, sub=sub, sm_scale=sm)
+    torch.cuda.synchronize()
+    err, rel = check_attention("decode at depth 16K-32K", got, ref,
+                               DECODE_TOL)
+    kpad = torch.zeros((4, HKV, n, D), dtype=torch.bfloat16, device=dev)
+    vpad = torch.zeros_like(kpad)
+    for b, d in enumerate(depths):
+        r = flash_decode.gather_rows(tile_rows[b], d, sub)
+        kpad[b, :, :d] = cache[layer, 0][:, r]
+        vpad[b, :, :d] = cache[layer, 1][:, r]
+    dmask = (torch.arange(n, device=dev)[None, :]
+             < seqlens[:, None])[:, None, None, :]
+    c_ms, c_by = bound(sum(depths) * 2 * HKV * D * es + 2 * 4 * HQ * D * es,
+                       4 * HQ * D * sum(depths))
+    ms = timer(lambda: flash_decode.decode_attention(*dargs, sub=sub,
+                                                     sm_scale=sm))
+    lib = timer(lambda: sdpa(qd[:, :, None], kpad, vpad, attn_mask=dmask,
+                             enable_gqa=True))
+    del kpad, vpad
+    log(f"{lbl} decode_attention at depth, B=4 depths {depths}, Hq={HQ} "
+        f"Hkv={HKV} D={D} bf16: max abs err {err} (row worst {rel:.5f}) ms "
+        f"{ms:.4f} library {lib:.4f} (SDPA, gathered K/V) bound {c_ms:.5f} "
+        f"({c_by}, {100 * c_ms / ms:.1f}%), at head dim {geo['DR']} "
+        f"{c_ms * geo['DR'] / D:.5f}")
 
 
 # --------------------------------------------------------------------- #
@@ -1587,12 +1697,15 @@ def window_phase(dev, arena=torch.bfloat16):
 def strict_relocation_plan(L, HKV, D, es, seed=0, blocks=14):
     """A relocation plan with chained moves from the allocator in strict
     contiguity (max_segments=1) on a seeded dynamic workload, plus the
-    arena rows of every live slot's tokens before and after the plan."""
+    arena rows of every live slot's tokens before and after the plan.
+    Lengths scale with the block (2048 tokens at Yi's kv heads, 8192 at
+    falcon's one), so requests cross blocks as often at any geometry."""
     from vattention_tpu_torch.memory.allocator import VAttentionAllocator
 
+    scale = max(1, 2 * 2**20 // (HKV * D * es) // 2048)
     a = VAttentionAllocator()
     a.init_kvcache(num_layers=L, num_kv_heads=HKV, head_size=D,
-                   max_batch_size=8, max_context_length=8192,
+                   max_batch_size=8, max_context_length=8192 * scale,
                    dtype_bytes=es, page_size=2 * 2**20, max_segments=1)
     a.reserve_physical_pages(blocks * a.kvblock_bytes)
     rng = np.random.default_rng(seed)
@@ -1608,7 +1721,7 @@ def strict_relocation_plan(L, HKV, D, es, seed=0, blocks=14):
 
     for _ in range(5000):
         if len(active) < 7 and rng.random() < 0.5:
-            prompt = int(rng.integers(10, 6000))
+            prompt = int(rng.integers(10, 6000)) * scale
             if a.tokens_to_blocks(prompt) < a.num_free_kvblocks():
                 sid = a.alloc_new_batch_idx(prompt)
                 if sid >= 0:
@@ -1619,7 +1732,7 @@ def strict_relocation_plan(L, HKV, D, es, seed=0, blocks=14):
             del active[victim]
         old_lens = a.seq_lens.copy()
         for sid in list(active):
-            a.seq_lens[sid] += 1
+            a.seq_lens[sid] += scale
             active[sid] -= 1
         before = a.get_batch_segments()
         plan = a.step_async(a.seq_lens.copy())
@@ -1658,12 +1771,15 @@ def attend_blocked(q, k, v, sm_scale, window, block=1024):
 
 
 def dense_logits(model, params, ids, dev, arena=None, dtype=torch.float32,
-                 unwindowed=False):
+                 unwindowed=False, block=1024):
     """Last-position logits of a full-recompute forward in ``dtype``
     (float32, or the model's bfloat16 arithmetic), attention in float32
-    under the model's sliding window (none with ``unwindowed``); with a
-    1-byte ``arena`` dtype, K and V go through the arena's round trip
-    (quantized as kernel A stores them, widened, times the int8 step)."""
+    (by blocks of ``block`` queries) under the model's sliding window
+    (none with ``unwindowed``); with a 1-byte ``arena`` dtype, K and V go
+    through the arena's round trip (quantized as kernel A stores them,
+    widened, times the int8 step).  Falcon's layer (``parallel_attn``) is
+    written here from torch's own layer_norm and tanh GELU: attention and
+    the MLP from one LayerNorm, ``x + (o + mlp)``."""
     from vattention_tpu_torch.model_executor.layers.activation import (
         silu_and_mul)
     from vattention_tpu_torch.model_executor.layers.layernorm import rms_norm
@@ -1682,8 +1798,17 @@ def dense_logits(model, params, ids, dev, arena=None, dtype=torch.float32,
     T = len(ids)
     x = params["embed"][torch.tensor(ids, device=dev)].to(dtype)
     positions = torch.arange(T, device=dev)
+    F = torch.nn.functional
+
+    def ln(x, w, b):   # falcon's LayerNorm: float32, eps 1e-5
+        return F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(),
+                            1e-5).to(dtype)
+
     for l in range(a.num_layers):
-        h = rms_norm(x, lp["input_norm"][l].to(dtype), a.rms_norm_eps)
+        if a.parallel_attn:
+            h = ln(x, lp["input_norm"][l], lp["input_norm_b"][l])
+        else:
+            h = rms_norm(x, lp["input_norm"][l].to(dtype), a.rms_norm_eps)
         qkv = h @ lp["qkv_w"][l].to(dtype)
         q = qkv[:, :model.hq * D].reshape(T, model.hq, D)
         k = qkv[:, model.hq * D:(model.hq + model.hkv) * D].reshape(
@@ -1691,12 +1816,25 @@ def dense_logits(model, params, ids, dev, arena=None, dtype=torch.float32,
         v = qkv[:, (model.hq + model.hkv) * D:].reshape(T, model.hkv, D)
         q, k = model.rope(positions, q, k)
         k, v = round_trip(k), round_trip(v)
-        attn = attend_blocked(q, k, v, model.sm_scale, window).to(dtype)
-        x = x + attn.reshape(T, model.hq * D) @ lp["o_w"][l].to(dtype)
+        attn = attend_blocked(q, k, v, model.sm_scale, window,
+                              block).to(dtype)
+        o = attn.reshape(T, model.hq * D) @ lp["o_w"][l].to(dtype)
+        if a.parallel_attn:
+            up = (h @ lp["up_w"][l].to(dtype)).float()
+            mlp = F.gelu(up, approximate="tanh").to(dtype) \
+                @ lp["down_w"][l].to(dtype)
+            x = x + (o + mlp)
+            continue
+        x = x + o
         h2 = rms_norm(x, lp["post_norm"][l].to(dtype), a.rms_norm_eps)
         x = x + silu_and_mul(h2 @ lp["gate_up_w"][l].to(dtype)) \
             @ lp["down_w"][l].to(dtype)
-    x = rms_norm(x.float(), params["final_norm"].float(), a.rms_norm_eps)
+    if a.parallel_attn:
+        x = F.layer_norm(x.float(), (x.shape[-1],),
+                         params["final_norm"].float(),
+                         params["final_norm_b"].float(), 1e-5)
+    else:
+        x = rms_norm(x.float(), params["final_norm"].float(), a.rms_norm_eps)
     return x[-1] @ params["lm_head"].float()
 
 
@@ -2134,6 +2272,226 @@ def mistral_phase(dev, kernels, backend, tag, required, idle,
     return counts, reference
 
 
+# --------------------------------------------------------------------- #
+# (k) falcon-7b at full width, (k long) its long-context geometry
+# --------------------------------------------------------------------- #
+# the tiny f32 falcon of (b falcon): falcon-7b's attention heads at a
+# narrow width
+TINY_FALCON = dict(model_type="falcon", num_hidden_layers=2,
+                   num_attention_heads=71, num_key_value_heads=1,
+                   head_dim=64, hidden_size=256, intermediate_size=1024,
+                   vocab_size=2048, max_position_embeddings=2048,
+                   parallel_attn=True)
+
+
+def tiny_falcon(root) -> str:
+    """TINY_FALCON's config.json in a directory under ``root``."""
+    import os
+
+    path = os.path.join(root, "tiny-falcon")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(TINY_FALCON, f)
+    return path
+
+
+def falcon_phase(dev, kernels, backend, tag, required, idle, smi,
+                 reference=None):
+    """(k): falcon-7b at full width (32 layers, 71 query heads on 1 kv
+    head, head dim 64, vocab 65024, bf16, seed-0 weights) through a fresh
+    LLMEngine on ``backend`` (sarathi chunk 512, max_model_len 2048, batch
+    8): 8 requests of 512-1900 prompt tokens and 32 greedy tokens, the
+    launch counts zeroed just before and read just after; the kernels in
+    ``required`` must launch, those in ``idle`` not.  Each request's first
+    token is held within LOGIT_GAP_TOL of a dense reference in the model's
+    bf16 arithmetic (computed on the first backend and passed on as
+    ``reference``).  Returns (launch counts, reference)."""
+    from vattention_tpu_torch import LLMEngine
+    from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
+
+    fresh_metrics()
+    engine = LLMEngine.from_engine_args(
+        model="falcon-7b", dtype="bfloat16", attention_backend=backend,
+        scheduler_type="sarathi", chunk_size=512, max_model_len=2048,
+        max_batch_size=8, max_num_seqs=8, seed=0)
+    runner = engine.worker.model_runner
+    vocab = runner.model.arch.vocab_size
+    rng = np.random.default_rng(12)
+    lens = rng.integers(512, 1901, 8)
+    requests = [(f"k{i}", rng.integers(1, vocab, int(n)).tolist(), 32)
+                for i, n in enumerate(lens)]
+    cache_engine = engine.worker.cache_engine
+    stats = {}
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = serve(engine, requests, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.symbol: k.launches for k in kernels}
+    moves = getattr(cache_engine, "pending_moves", 0)
+    n_gen = sum(len(v) for v in out.values())
+    n_prompt = int(lens.sum())
+    if len(out) != 8 or n_gen != 8 * 32:
+        raise AssertionError(f"({tag}) served {len(out)} requests, "
+                             f"{n_gen} tokens")
+    log(f"({tag}) falcon-7b, {backend}: served {len(out)} requests in "
+        f"{stats['steps']} steps: prompt tokens {n_prompt} (lengths "
+        f"{lens.tolist()}), generated tokens {n_gen}, wall {wall:.3f} s, "
+        f"{n_gen / wall:.2f} generated tok/s, "
+        f"{(n_prompt + n_gen) / wall:.2f} processed tok/s; arena "
+        f"{tuple(cache_engine.kv_cache.shape)} {cache_engine.kv_cache.dtype}"
+        f"; {len(runner.graphs)} step graphs captured; on {smi}")
+    log(f"({tag}) launches in the 8-request run: "
+        + ", ".join(f"{s_} {n}" for s_, n in counts.items())
+        + f"; the allocator planned {moves} block moves")
+    if any(counts[k.symbol] <= 0 for k in required):
+        raise AssertionError(f"({tag}) a kernel never launched: {counts}")
+    if any(counts[k.symbol] > 0 for k in idle):
+        raise AssertionError(f"({tag}) a kernel of another path launched: "
+                             f"{counts}")
+    relocate = ARENA_RELOCATE.symbol
+    if (counts[relocate] > 0) != (moves > 0):
+        raise AssertionError(f"({tag}) {moves} block moves but {relocate} "
+                             f"launched {counts[relocate]} times")
+    if not runner.graphs:
+        raise AssertionError(f"({tag}) no step was captured")
+    if reference is None:
+        with torch.no_grad():
+            reference = {s_: dense_logits(runner.model, runner.params, ids,
+                                          dev, dtype=torch.bfloat16)
+                         for s_, ids, _ in requests}
+    top = 0
+    for seq_id, ids, _ in requests:
+        tok, w = out[seq_id][0], reference[seq_id]
+        gap = float(w.max() - w[tok])
+        top += tok == int(w.argmax())
+        log(f"({tag}) {seq_id} ({len(ids)} tokens): engine token {tok}, "
+            f"dense bf16 top {int(w.argmax())}, logit gap {gap:.5f} "
+            f"(tolerance {LOGIT_GAP_TOL})")
+        if not gap <= LOGIT_GAP_TOL:
+            raise AssertionError(f"({tag}) {seq_id}: logit gap {gap}")
+    log(f"({tag}) first tokens equal to the reference's argmax: {top} of 8")
+    engine.cleanup()
+    return counts, reference
+
+
+def falcon_long_phase(dev, kernels, required, idle, smi):
+    """(k long): falcon-7b-32k-l8 (falcon-7b's widths, 8 layers, bf16,
+    seed-0 weights) written as a safetensors checkpoint in falcon's
+    ``transformer.h.*`` layout into a temporary directory and loaded back
+    bit for bit (``server_phase.round_trip``; load GB/s logged), then
+    served from that directory (load_format safetensors) on fa_vattn_2mb:
+    4 requests of 16K-30K prompt tokens and 16 greedy tokens, sarathi chunk
+    512, max_model_len 32768, the launch counts zeroed just before and read
+    just after (``required`` must launch, ``idle`` not); each first token
+    within LOGIT_GAP_TOL of a dense reference in the model's bf16
+    arithmetic (attention by blocks of 256 queries).  The directory is
+    deleted after.  Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    from vattention_tpu_torch import LLMEngine
+    from vattention_tpu_torch.config import get_model_arch
+    from vattention_tpu_torch.microbenchmarks.server_phase import round_trip
+    from vattention_tpu_torch.model_executor.models import get_model_class
+
+    name = "falcon-7b-32k-l8"
+    arch = get_model_arch(name)
+    model = get_model_class(arch.model_type)(arch, dtype=torch.bfloat16)
+    path = tempfile.mkdtemp(prefix="vattn-falcon-")
+    try:
+        res = round_trip(model, dev, path, seed=0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"(k long) checkpoint of {name} in falcon's layout: "
+            f"{res['hf_tensors']} tensors, {res['bytes'] / 1e9:.3f} GB, "
+            f"written in {res['write_s']:.3f} s "
+            f"({res['bytes'] / 1e9 / res['write_s']:.3f} GB/s), loaded in "
+            f"{res['load_s']:.3f} s ({res['bytes'] / 1e9 / res['load_s']:.3f}"
+            f" GB/s, file to cuda); every tensor bit for bit; on {smi}")
+        fresh_metrics()
+        engine = LLMEngine.from_engine_args(
+            model=path, load_format="safetensors", dtype="bfloat16",
+            attention_backend="fa_vattn_2mb", scheduler_type="sarathi",
+            chunk_size=512, max_model_len=32768, max_batch_size=4,
+            max_num_seqs=4, gpu_memory_utilization=0.5)
+        runner = engine.worker.model_runner
+        rng = np.random.default_rng(13)
+        lens = rng.integers(16384, 30001, 4)
+        requests = [(f"l{i}", rng.integers(1, arch.vocab_size,
+                                           int(n)).tolist(), 16)
+                    for i, n in enumerate(lens)]
+        stats = {}
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = serve(engine, requests, stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.symbol: k.launches for k in kernels}
+        n_gen = sum(len(v) for v in out.values())
+        n_prompt = int(lens.sum())
+        if len(out) != 4 or n_gen != 4 * 16:
+            raise AssertionError(f"(k long) served {len(out)} requests, "
+                                 f"{n_gen} tokens")
+        log(f"(k long) {name} from the checkpoint, fa_vattn_2mb: served "
+            f"{len(out)} requests in {stats['steps']} steps: prompt tokens "
+            f"{n_prompt} (lengths {lens.tolist()}), generated tokens "
+            f"{n_gen}, wall {wall:.3f} s, {n_gen / wall:.2f} generated "
+            f"tok/s, {(n_prompt + n_gen) / wall:.2f} processed tok/s; "
+            f"{len(runner.graphs)} step graphs captured; on {smi}")
+        log("(k long) launches: " + ", ".join(
+            f"{s_} {n}" for s_, n in counts.items()))
+        if any(counts[k.symbol] <= 0 for k in required):
+            raise AssertionError(f"(k long) a kernel never launched: "
+                                 f"{counts}")
+        if any(counts[k.symbol] > 0 for k in idle):
+            raise AssertionError(f"(k long) a kernel of another path "
+                                 f"launched: {counts}")
+        with torch.no_grad():
+            for seq_id, ids, _ in requests:
+                tok = out[seq_id][0]
+                w = dense_logits(runner.model, runner.params, ids, dev,
+                                 dtype=torch.bfloat16, block=256)
+                gap = float(w.max() - w[tok])
+                log(f"(k long) {seq_id} ({len(ids)} tokens): engine token "
+                    f"{tok}, dense bf16 top {int(w.argmax())}, logit gap "
+                    f"{gap:.5f} (tolerance {LOGIT_GAP_TOL})")
+                if not gap <= LOGIT_GAP_TOL:
+                    raise AssertionError(f"(k long) {seq_id}: logit gap "
+                                         f"{gap}")
+        engine.cleanup()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return counts
+
+
+def falcon_sweeps(kernels):
+    """(f falcon) kernel_sweep --check at falcon's attention heads (71 on 1
+    kv head, the arena's 128 lanes) on the bf16, e4m3 and int8 arenas at
+    ctx 1024 and 4096: G, H and C against their plain versions, G = H bit
+    for bit.  Returns the launches of ``kernels`` (G, H) per arena tag."""
+    from vattention_tpu_torch.microbenchmarks import kernel_sweep
+
+    out = {}
+    for kv in ("bf16", "fp8", "int8"):
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        argv = ["--q-heads", "71", "--kv-heads", "1", "--kv-dtype", kv,
+                "--ctx", "1024", "4096", "--batch", "8", "--check"]
+        log(f"(f falcon) kernel_sweep {' '.join(argv)}")
+        kernel_sweep.sweep(kernel_sweep.parser().parse_args(argv))
+        torch.cuda.synchronize()
+        arena = kernel_sweep.KV_DTYPES[kv]
+        out["" if arena is None else QUANT[arena][1]] = {
+            k.symbol: k.launches for k in kernels}
+    return out
+
+
 def window_sweeps(kernels):
     """(f w) kernel_sweep --window 4096 --check at mistral-7b's attention
     geometry (Hkv 8) on the bf16, e4m3 and int8 arenas, ctx 4096 and 16384
@@ -2257,6 +2615,9 @@ def main() -> int:
         results += kernel_phase(dev, arena)
     for arena in (torch.bfloat16, *QUANT):
         results += window_phase(dev, arena)
+    # (a falcon): every kernel at falcon-7b's heads (71 on 1 kv head)
+    for arena in (torch.bfloat16, *QUANT):
+        results += kernel_phase(dev, arena, FALCON)
     results += rope_append_phase(dev)
     counts_b = parity_phase(dev, "fa_vattn", "b", kernels=kernels)
     if counts_b[ROPE_KV_APPEND.symbol] <= 0:
@@ -2302,6 +2663,35 @@ def main() -> int:
                 if counts[k.symbol] <= 0:
                     raise AssertionError(f"(b w {tag}) {k.symbol} never "
                                          f"launched on {backend}")
+    # (b falcon): the tiny f32 falcon (71 query heads on 1 kv head) on the
+    # three backends, f32 and 1-byte arenas; the 1-byte falcon instances'
+    # launches come from here (A-D from fa_vattn, E from fa_paged_16, F
+    # from fa_pod)
+    import shutil
+    import tempfile
+
+    falcon_dir = tempfile.mkdtemp(prefix="vattn-tiny-falcon-")
+    counts_bf = {}
+    try:
+        for arena in (None, *QUANT):
+            tag = "" if arena is None else QUANT[arena][1]
+            for backend, used in (
+                    ("fa_vattn", None),
+                    ("fa_paged_16", PAGED_PREFILL_ATTENTION),
+                    ("fa_pod", POD_ATTENTION)):
+                counts = parity_phase(dev, backend,
+                                      f"b falcon {tag}".strip(), arena,
+                                      kernels, model=tiny_falcon(falcon_dir))
+                if used is None:
+                    counts_bf[tag] = dict(counts)
+                else:
+                    counts_bf[tag][used.symbol] = counts[used.symbol]
+                k = used or PREFILL_ATTENTION
+                if counts[k.symbol] <= 0:
+                    raise AssertionError(f"(b falcon {tag}) {k.symbol} "
+                                         f"never launched on {backend}")
+    finally:
+        shutil.rmtree(falcon_dir, ignore_errors=True)
     counts_c, tokens_c = serving_phase(
         dev, kernels, "fa_vattn_2mb", "c",
         required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
@@ -2373,9 +2763,47 @@ def main() -> int:
                              "(g)'s")
     gc.collect()
     torch.cuda.empty_cache()
+    # (k): falcon-7b at full width on the three backends; (k long): its
+    # long-context geometry from a checkpoint in falcon's layout
+    counts_k, ref_k = falcon_phase(
+        dev, kernels, "fa_vattn_2mb", "k", smi=smi,
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_kp, _ = falcon_phase(
+        dev, kernels, "fa_paged_256", "k paged", smi=smi,
+        required=[ROPE_KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[KV_APPEND, PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION,
+              *single],
+        reference=ref_k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_kf, _ = falcon_phase(
+        dev, kernels, "fa_pod", "k pod", smi=smi,
+        required=[POD_ATTENTION, ROPE_KV_APPEND, PREFILL_ATTENTION,
+                  DECODE_ATTENTION],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, *single], reference=ref_k)
+    del ref_k
+    log(f"(k pod) F + B = {counts_kf[f]} + {counts_kf[b]} against B in (k) "
+        f"{counts_k[b]}; F + C = {counts_kf[f]} + {counts_kf[c]} against C "
+        f"in (k) {counts_k[c]}")
+    if (counts_kf[f] + counts_kf[b] != counts_k[b]
+            or counts_kf[f] + counts_kf[c] != counts_k[c]):
+        raise AssertionError("(k pod) the fused launches do not add up to "
+                             "(k)'s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    falcon_long_phase(
+        dev, kernels, smi=smi,
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+    gc.collect()
+    torch.cuda.empty_cache()
     counts_f = harness_phase(single)
     counts_f8 = quant_sweeps(single)
     counts_fw = window_sweeps(single)
+    counts_ff = falcon_sweeps(single)
     gc.collect()
     torch.cuda.empty_cache()
     # (s): the serving entry points (checkpoint, OpenAI server, allocators)
@@ -2423,6 +2851,21 @@ def main() -> int:
                         if k_ is k and "[" not in n)
             launches[f"{name}[{tag + ' ' if tag else ''}w{WINDOW}]"] = (
                 k, counts)
+    # falcon's instances: bf16 A-D from (k) on fa_vattn_2mb, E from (k
+    # paged), F from (k pod); on 1-byte arenas A-F from (b falcon); G and H
+    # from (f falcon)
+    for tag in ("", *(t_ for _, t_ in QUANT.values())):
+        for name, (k, _) in [(n, v) for n, v in launches.items()
+                             if "[" not in n]:
+            if k in single:
+                counts = counts_ff[tag]
+            elif tag:
+                counts = counts_bf[tag]
+            else:
+                counts = {PAGED_PREFILL_ATTENTION: counts_kp,
+                          POD_ATTENTION: counts_kf}.get(k, counts_k)
+            launches[f"{name}[falcon{' ' + tag if tag else ''}]"] = (
+                k, counts)
     # kernel A with the rotation in float32 from (b), at mistral's heads
     # from (g)
     launches["rope_kv_append[f32]"] = (ROPE_KV_APPEND, counts_b)
@@ -2434,8 +2877,11 @@ def main() -> int:
         "the kernels' build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in results]}))
+    # falcon's rows add the bound at the real head dim (bound_real_ms)
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys},
+         **{k: r[k] for k in ("bound_real_ms",) if k in r}}
+        for r in results]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

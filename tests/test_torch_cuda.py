@@ -30,6 +30,13 @@ on 1-byte arenas are held against their plain versions as above, with
 G = B, H = E and F = B then C bit for bit; D moves 1-byte rows.  An int8
 arena's scores take sm_scale * 0.04, as the backends fold its step.
 
+Falcon-7B's attention geometry (71 query heads on 1 kv head, head dim 64
+in the arena's 128 lanes): B, C, E, F, G and H on arenas of the model's
+dtype, e4m3 and int8 against their plain versions, with G = B, H = E and
+F = B then C bit for bit; C at G = 71 joins every decode case above, and
+the prefill body's edge cases run at G = 71; a tiny falcon's captured
+steps replay equal to the eager steps.
+
 Kernel A with the rotation (``rope_kv_append``): every rope variant
 (plain, linear by 4 and by 3, dynamic NTK, YaRN), float32 and bfloat16
 models, arenas of the model's dtype, e4m3 and int8, head_dim 128 and 64
@@ -184,7 +191,7 @@ def _decode_case(case, dtype, group, sub, device):
 
 @pytest.mark.parametrize("case", ["edges", "idle", "deep"])
 @pytest.mark.parametrize("sub", [16, 256])
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 71])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_matches_plain(dev, dtype, group, sub, case):
     """Kernel C against its plain version at tile and split edges, with
@@ -467,9 +474,10 @@ def test_paged_prefill_single_matches_plain_and_e(dev, dtype, bs):
                                rtol=tol)
 
 
-@pytest.mark.parametrize("hq", [8, 16])
+@pytest.mark.parametrize("hq", [8, 16, 142])
 def test_prefill_body_edge_cases(dev, hq):
-    """The bf16 prefill body at G = 4 and 8 (32- and 16-token q tiles):
+    """The bf16 prefill body at G = 4, 8 and 71 (32- and 16-token q tiles;
+    at 71, 128-row blocks that end inside a token):
     kv_len 1, 63, 64, 65, 200 and 4133, q_start 40, 56 and 60 mod 64 (a
     key tile above a whole warpgroup, or above some of its rows) and the
     empty run in one multi-run launch; B against its plain version over
@@ -480,6 +488,111 @@ def test_prefill_body_edge_cases(dev, hq):
         rng.standard_normal((1, 2, HKV, 8192, D)).astype(np.float32)
     ).to(device=dev, dtype=torch.bfloat16)
     check_prefill_edges(cache, hq, 0)
+
+
+# ---------------------------------------------------------------------- #
+# Falcon-7B's attention geometry: G = 71
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("arena", [None, torch.float8_e4m3fn, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_falcon_kernels_match_plain(dev, dtype, arena):
+    """71 query heads on 1 kv head (the arena's 128 lanes, sm_scale of head
+    dim 64), over an arena of the model's dtype (``arena`` None), e4m3 or
+    int8: B over two runs and the empty run (the flattened (token, head)
+    rows end inside tokens), E over poisoned 16-token block tables, C over
+    a batch with an idle slot, F on B's and C's inputs (= B then C), G over
+    unaligned extents (= B on the same rows) and H (= E on one run), each
+    against its plain version."""
+    hq = 71
+    rng = np.random.default_rng(13)
+    cache = torch.from_numpy(rng.standard_normal(
+        (1, 2, 1, R, D)).astype(np.float32)).to(dev)
+    cache = cache.to(dtype) if arena is None else _quant(cache, arena)
+    cpu = cache.cpu()
+    sm = 64 ** -0.5 * _step(arena)
+    pad = 128
+    extents = [[(256, 256), (1024, 512)], [(2048, 256)], []]
+    qinfo = torch.tensor([[300, 500], [0, 60], [0, 0]], dtype=torch.int32)
+    qt_run = torch.tensor([[0, 0], [0, 1], [1, 0], [2, 0]],
+                          dtype=torch.int32)
+    tile_rows = torch.from_numpy(_tables(extents, R // SUB))
+    q = torch.from_numpy(
+        rng.standard_normal((4 * pad, hq, D)).astype(np.float32)).to(dtype)
+    kw = dict(sub=SUB, pad_tile=pad, sm_scale=sm)
+    expect = prefill_attention_plain(q, cpu, qt_run, qinfo, tile_rows, 0,
+                                     **kw)
+    b_args = (q.to(dev), cache, qt_run.to(dev), qinfo.to(dev),
+              tile_rows.to(dev), 0)
+    got_b = prefill_attention(*b_args, **kw)
+    torch.cuda.synchronize()
+    assert not got_b[3 * pad:].float().any()
+    for lo, hi in ((0, 200), (2 * pad, 2 * pad + 60)):
+        _close("B", got_b[lo:hi], expect[lo:hi], dtype, arena)
+
+    bs = 16
+    n = -(-500 // bs)
+    tables = torch.full((3, n + 2), 2 ** 30, dtype=torch.int32)
+    perm = torch.from_numpy(rng.permutation(R // bs).astype(np.int32))
+    tables[0, :n], tables[1, :4] = perm[:n], perm[n:n + 4]
+    ekw = dict(block_size=bs, pad_tile=pad, sm_scale=sm)
+    expect = paged_prefill_attention_plain(q, cpu, qt_run, qinfo, tables, 0,
+                                           **ekw)
+    got = paged_prefill_attention(q.to(dev), cache, qt_run.to(dev),
+                                  qinfo.to(dev), tables.to(dev), 0, **ekw)
+    for lo, hi in ((0, 200), (2 * pad, 2 * pad + 60)):
+        _close("E", got[lo:hi], expect[lo:hi], dtype, arena)
+
+    dec_extents = [[(0, 512)], [(512, 256), (1280, 768)], [(2048, 256)],
+                   [(3072, 512)]]
+    seqlens = torch.tensor([500, 1000, 0, 3], dtype=torch.int32)
+    dec_rows = torch.from_numpy(_tables(dec_extents, R // SUB))
+    qd = torch.from_numpy(
+        rng.standard_normal((4, hq, D)).astype(np.float32)).to(dtype)
+    expect_d = decode_attention_plain(qd, cpu, dec_rows, seqlens, 0, sub=SUB,
+                                      sm_scale=sm)
+    got_c = decode_attention(qd.to(dev), cache, dec_rows.to(dev),
+                             seqlens.to(dev), 0, sub=SUB, sm_scale=sm)
+    f_p, f_d = pod_attention(q.to(dev), qd.to(dev), cache, qt_run.to(dev),
+                             qinfo.to(dev), tile_rows.to(dev),
+                             dec_rows.to(dev), seqlens.to(dev), 0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c[2], torch.zeros_like(got_c[2]))
+    for b in (0, 1, 3):
+        _close(f"C slot {b}", got_c[b:b + 1], expect_d[b:b + 1], dtype,
+               arena)
+    assert torch.equal(f_p, got_b) and torch.equal(f_d, got_c)
+
+    seg_row = np.zeros(8, np.int32)
+    seg_cum = np.zeros(9, np.int32)
+    for j, (row, k) in enumerate([(2051, 300), (517, 77), (3601, 123)]):
+        seg_row[j], seg_cum[j + 1] = row, seg_cum[j] + k
+    seg_cum[4:] = seg_cum[3]
+    info = torch.tensor([300, 500], dtype=torch.int32)
+    q2 = q[:256]
+    sr, sc = torch.from_numpy(seg_row), torch.from_numpy(seg_cum)
+    expect = segment_prefill_attention_plain(q2, cpu, sr, sc, info, 0,
+                                             sm_scale=sm)
+    got = segment_prefill_attention(q2.to(dev), cache, sr.to(dev),
+                                    sc.to(dev), info.to(dev), 0, sm_scale=sm)
+    rows = torch.from_numpy(tile_rows_from_segments(
+        seg_row[None], seg_cum[None], 1, 500)).to(dev)
+    qt2 = torch.tensor([[0, 0], [0, 1]], dtype=torch.int32, device=dev)
+    got_g_b = prefill_attention(q2.to(dev), cache, qt2, info.to(dev)[None],
+                                rows, 0, sub=1, pad_tile=pad, sm_scale=sm)
+    _close("G", got, expect, dtype, arena)
+    table = tables[0].to(dev)
+    got_h = paged_prefill_attention_single(q2.to(dev), cache, table,
+                                           info.to(dev), 0, block_size=bs,
+                                           sm_scale=sm)
+    got_e = paged_prefill_attention(q2.to(dev), cache, qt2,
+                                    info.to(dev)[None], table[None], 0,
+                                    **ekw)
+    expect = paged_prefill_attention_single_plain(q2, cpu, tables[0], info,
+                                                  0, block_size=bs,
+                                                  sm_scale=sm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_g_b) and torch.equal(got_h, got_e)
+    _close("H", got_h, expect, dtype, arena)
 
 
 # ---------------------------------------------------------------------- #
@@ -580,7 +693,7 @@ def test_every_body_widens_every_pattern_exactly(dev, dtype, arena):
 
 @pytest.mark.parametrize("arena", QUANT)
 @pytest.mark.parametrize("sub", [16, 256])
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 71])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantized_decode_attention_matches_plain(dev, dtype, group, sub,
                                                   arena):
@@ -1026,6 +1139,38 @@ def test_replay_equals_the_eager_step(dev, backend, model):
         pod = backend == "fa_pod"
         assert (0, False, "greedy") in checked
         assert any(n > 0 and p == pod for n, p, _ in checked), checked
+    finally:
+        _free(engine)
+
+
+TINY_FALCON = dict(model_type="falcon", num_hidden_layers=2,
+                   num_attention_heads=71, num_key_value_heads=1,
+                   head_dim=64, hidden_size=256, intermediate_size=1024,
+                   vocab_size=2048, max_position_embeddings=2048,
+                   parallel_attn=True)
+
+
+@pytest.mark.parametrize("backend", ["fa_vattn", "fa_paged_16", "fa_pod"])
+def test_falcon_replay_equals_the_eager_step(dev, backend, tmp_path):
+    """A tiny falcon (71 query heads on 1 kv head, bf16, a config.json
+    directory): the first replay of each signature equals the eager step
+    bit for bit, as for llama."""
+    import json
+
+    from vattention_tpu_torch.microbenchmarks.captured_step import (
+        check_replays)
+    from vattention_tpu_torch.microbenchmarks.serving_profile import serve
+
+    (tmp_path / "config.json").write_text(json.dumps(TINY_FALCON))
+    engine = _engine(str(tmp_path), backend)
+    try:
+        assert engine.worker.model_runner.model.hq == 71
+        checked = check_replays(engine, _GRAPH_REQUESTS, serve)
+        assert checked and all(all(v.values()) for v in checked.values()), \
+            checked
+        assert (0, False, "greedy") in checked
+        assert any(n > 0 and p == (backend == "fa_pod")
+                   for n, p, _ in checked), checked
     finally:
         _free(engine)
 

@@ -118,9 +118,7 @@ def test_engine_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(model="falcon-7b-32k-l8"),
     dict(tensor_parallel_size=2),
-    dict(model="falcon-7b"),
 ])
 def test_unported_options_raise(kwargs):
     fresh_metrics()

@@ -9,8 +9,11 @@ concatenated, projections transposed to [in, out]), equal after
 both packages read the same checkpoint.  Both engines, loading that one
 checkpoint, must give the same greedy tokens.  The qkv-bias family
 (qwen2) and tied embeddings load too; a bf16 checkpoint, which the JAX
-loader's numpy reader cannot read, loads bit for bit into a bf16 model;
-falcon's layout raises naming ROADMAP item 12.
+loader's numpy reader cannot read, loads bit for bit into a bf16 model.
+Falcon's layout (``transformer.h.*``) loads through
+``load_safetensors_falcon`` as the JAX loader places it, with or without
+``lm_head.weight``, in float32 and in bf16, and both engines serve a
+falcon checkpoint alike.
 """
 
 import json
@@ -31,10 +34,10 @@ from vattention_tpu.model_executor.models import \
 from vattention_tpu.model_executor.weight_utils import \
     load_weights as jax_load_weights
 from vattention_tpu_torch import LLMEngine, SamplingParams
-from vattention_tpu_torch.config import ModelConfig, get_model_arch
+from vattention_tpu_torch.config import ModelConfig
 from vattention_tpu_torch.model_executor.models import get_model_class
 from vattention_tpu_torch.model_executor.weight_utils import (
-    load_safetensors, load_weights, params_from_jax)
+    load_weights, params_from_jax)
 
 from test_torch_engine import fresh_metrics, serve
 
@@ -241,45 +244,122 @@ def test_a_missing_tensor_raises(tmp_path):
         port_load(tmp_path)
 
 
-def write_falcon_checkpoint(path):
-    """Falcon's fused-MQA layout (transformer.h.*), as the JAX package's
-    test of it writes it."""
+FALCON = dict(model_type="falcon", num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=1, head_dim=64,
+              hidden_size=256, intermediate_size=1024, vocab_size=512,
+              max_position_embeddings=2048, parallel_attn=True)
+
+
+def write_falcon_checkpoint(path, *, head=False, bf16=False, seed=4):
+    """Falcon's fused-MQA layout (transformer.h.*) with the tensors the JAX
+    package's test of it writes (tests/test_weight_loading.py), plus
+    ``lm_head.weight`` if ``head``; float32, or bf16 through
+    safetensors.torch.  Returns its tensors by name."""
     path.mkdir(parents=True, exist_ok=True)
-    H, D, hq, L, inter, V = 256, 64, 4, 2, 1024, 512
-    (path / "config.json").write_text(json.dumps({
-        "model_type": "falcon", "num_hidden_layers": L,
-        "num_attention_heads": hq, "num_key_value_heads": 1,
-        "head_dim": D, "hidden_size": H, "intermediate_size": inter,
-        "vocab_size": V, "max_position_embeddings": 2048,
-        "parallel_attn": True}))
-    rng = np.random.default_rng(4)
+    (path / "config.json").write_text(json.dumps(FALCON))
+    H, D, hq, L = 256, 64, 4, 2
+    inter, V = FALCON["intermediate_size"], FALCON["vocab_size"]
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return (rng.standard_normal(shape) * 0.05).astype(np.float32)
+
     raw = {}
     for l in range(L):
         p = f"transformer.h.{l}."
-        raw[p + "self_attention.query_key_value.weight"] = \
-            rng.standard_normal(((hq + 2) * D, H)).astype(np.float32)
-        raw[p + "self_attention.dense.weight"] = rng.standard_normal(
-            (H, hq * D)).astype(np.float32)
-        raw[p + "input_layernorm.weight"] = np.ones(H, np.float32)
-    raw["transformer.word_embeddings.weight"] = rng.standard_normal(
-        (V, H)).astype(np.float32)
-    save_file(raw, str(path / "model.safetensors"))
+        raw[p + "self_attention.query_key_value.weight"] = w((hq + 2) * D, H)
+        raw[p + "self_attention.dense.weight"] = w(H, hq * D)
+        raw[p + "mlp.dense_h_to_4h.weight"] = w(inter, H)
+        raw[p + "mlp.dense_4h_to_h.weight"] = w(H, inter)
+        raw[p + "input_layernorm.weight"] = 1 + w(H)
+        raw[p + "input_layernorm.bias"] = w(H)
+    raw["transformer.word_embeddings.weight"] = w(V, H)
+    raw["transformer.ln_f.weight"] = 1 + w(H)
+    raw["transformer.ln_f.bias"] = w(H)
+    if head:
+        raw["lm_head.weight"] = w(V, H)
+    if bf16:
+        raw = {k: torch.from_numpy(v).to(torch.bfloat16)
+               for k, v in raw.items()}
+        save_torch_file(raw, str(path / "model.safetensors"))
+    else:
+        save_file(raw, str(path / "model.safetensors"))
+    return raw
 
 
-@pytest.mark.parametrize("through", ["engine", "loader"])
-def test_safetensors_falcon_layout_raises(tmp_path, through):
-    """Falcon is ROADMAP item 12: its config.json stops the engine, and its
-    tensor names stop the loader whatever the model."""
-    write_falcon_checkpoint(tmp_path / "falcon")
-    if through == "engine":
-        with pytest.raises(NotImplementedError, match="item 12"):
-            LLMEngine.from_engine_args(
-                model=str(tmp_path / "falcon"), load_format="safetensors",
-                dtype="float32", device="cpu", max_model_len=256)
-        return
-    arch = get_model_arch("tiny-llama-debug")
-    model = get_model_class("llama")(arch, dtype=torch.float32)
-    cfg = ModelConfig(model=str(tmp_path / "falcon"),
-                      load_format="safetensors", dtype="float32", arch=arch)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        load_safetensors(model, cfg, torch.device("cpu"))
+@pytest.mark.parametrize("head", [False, True])
+def test_falcon_loader_matches_jax(tmp_path, head):
+    """``load_safetensors_falcon`` places every tensor where the JAX loader
+    does, bit for bit: [out, in] weights as [in, out], the LayerNorm
+    weights and biases, and ``lm_head`` from ``lm_head.weight`` or, where
+    the checkpoint has none, the word embeddings transposed."""
+    write_falcon_checkpoint(tmp_path, head=head)
+    model, params = port_load(tmp_path)
+    assert type(model).__name__ == "FalconForCausalLM"
+    expect = params_from_jax(jax_load(tmp_path))
+    assert params.keys() == expect.keys()
+    assert params["layers"].keys() == expect["layers"].keys()
+    for name, want in expect.items():
+        if name != "layers":
+            assert torch.equal(params[name], want), name
+    for name, want in expect["layers"].items():
+        assert torch.equal(params["layers"][name], want), name
+
+
+def test_falcon_lm_head_falls_back_to_the_embeddings(tmp_path):
+    """Without ``lm_head.weight`` the head is the word embeddings
+    transposed; with it, the head is its own tensor."""
+    raw = write_falcon_checkpoint(tmp_path / "tied")
+    _, params = port_load(tmp_path / "tied")
+    emb = torch.from_numpy(raw["transformer.word_embeddings.weight"])
+    assert torch.equal(params["lm_head"], emb.T)
+    assert torch.equal(params["embed"], emb)
+    raw = write_falcon_checkpoint(tmp_path / "head", head=True)
+    _, params = port_load(tmp_path / "head")
+    assert torch.equal(params["lm_head"],
+                       torch.from_numpy(raw["lm_head.weight"]).T)
+    qkv = raw["transformer.h.1.self_attention.query_key_value.weight"]
+    assert torch.equal(params["layers"]["qkv_w"][1], torch.from_numpy(qkv).T)
+
+
+def test_bf16_falcon_checkpoint_loads_bit_for_bit(tmp_path):
+    """A bf16 falcon checkpoint lands in a bf16 falcon model unchanged."""
+    raw = write_falcon_checkpoint(tmp_path, bf16=True)
+    _, params = port_load(tmp_path, torch.bfloat16)
+    lp = params["layers"]
+    assert params["embed"].dtype == torch.bfloat16
+    for l in range(2):
+        p = f"transformer.h.{l}."
+        assert torch.equal(
+            lp["qkv_w"][l], raw[p + "self_attention.query_key_value.weight"].T)
+        assert torch.equal(lp["o_w"][l], raw[p + "self_attention.dense.weight"].T)
+        assert torch.equal(lp["up_w"][l], raw[p + "mlp.dense_h_to_4h.weight"].T)
+        assert torch.equal(lp["down_w"][l],
+                           raw[p + "mlp.dense_4h_to_h.weight"].T)
+        assert torch.equal(lp["input_norm"][l], raw[p + "input_layernorm.weight"])
+        assert torch.equal(lp["input_norm_b"][l], raw[p + "input_layernorm.bias"])
+    assert torch.equal(params["final_norm_b"], raw["transformer.ln_f.bias"])
+    assert torch.equal(params["lm_head"],
+                       raw["transformer.word_embeddings.weight"].T)
+
+
+def test_port_and_jax_engines_serve_one_falcon_checkpoint_alike(tmp_path):
+    """A falcon config.json directory builds and serves: both engines load
+    the checkpoint (load_format safetensors) and give the same greedy
+    tokens."""
+    write_falcon_checkpoint(tmp_path, head=True, seed=6)
+    kw = dict(model=str(tmp_path), dtype="float32", load_format="safetensors",
+              attention_backend="fa_vattn", scheduler_type="sarathi",
+              max_model_len=512, max_batch_size=4, max_num_seqs=4,
+              chunk_size=128, gpu_memory_utilization=0.9)
+    rng = np.random.default_rng(6)
+    prompts = {f"r{i}": rng.integers(1, 512, int(n)).tolist()
+               for i, n in enumerate([150, 37])}
+    jax_engine = JaxLLMEngine.from_engine_args(**kw)
+    expect = serve(jax_engine, JaxSamplingParams, prompts, 6)
+    jax_engine.cleanup()
+
+    fresh_metrics()
+    engine = LLMEngine.from_engine_args(**kw, device="cpu")
+    assert serve(engine, SamplingParams, prompts, 6) == expect
+    engine.cleanup()

@@ -179,7 +179,11 @@ def _arch_from_hf_config(cfg: Dict[str, Any]) -> ModelArch:
         model_type=model_type,
         num_layers=cfg.get("num_hidden_layers", cfg.get("n_layer")),
         num_q_heads=n_heads,
-        num_kv_heads=cfg.get("num_key_value_heads", n_heads),
+        # falcon-7b's config.json states "multi_query": true and no
+        # num_key_value_heads: one kv head (the JAX package reads
+        # num_attention_heads there; ROADMAP Queue 3)
+        num_kv_heads=cfg.get("num_key_value_heads",
+                             1 if cfg.get("multi_query") else n_heads),
         head_dim=head_dim,
         hidden_size=hidden,
         intermediate_size=cfg.get("intermediate_size", 4 * hidden),

@@ -32,20 +32,21 @@ __global__ void __launch_bounds__(decode::kThreads) decode_attention_kernel(
     const T* __restrict__ q, const KV* __restrict__ cache, T* __restrict__ out,
     float* __restrict__ part, int* __restrict__ tickets,
     const int* __restrict__ tile_rows, const int* __restrict__ seqlens,
-    int batch, int hkv, int n_sub, int sub, long long rows_total, int layer,
-    float sm_scale, int window) {
+    int batch, int hkv, int group, int n_sub, int sub, long long rows_total,
+    int layer, float sm_scale, int window) {
   extern __shared__ __align__(128) unsigned char dec_smem[];
   decode::decode_blocks<T, KV, G>(q, cache, out, part, tickets, tile_rows,
-                              seqlens, batch, hkv, n_sub, sub, rows_total,
-                              layer, sm_scale, window, blockIdx.x, gridDim.x,
-                              dec_smem);
+                                  seqlens, batch, hkv, group, n_sub, sub,
+                                  rows_total, layer, sm_scale, window,
+                                  blockIdx.x, gridDim.x, dec_smem);
 }
 
 template <typename T, typename KV, int G>
 int launch(const void* q, const void* cache, void* out, float* part,
            int* tickets, const int* tile_rows, const int* seqlens, int batch,
-           int hkv, int n_sub, int sub, long long rows_total, int layer,
-           float sm_scale, int window, int nblocks, cudaStream_t stream) {
+           int hkv, int group, int n_sub, int sub, long long rows_total,
+           int layer, float sm_scale, int window, int nblocks,
+           cudaStream_t stream) {
   constexpr int smem = decode::kSmemBytes<T, KV>;
   const cudaError_t attr = cudaFuncSetAttribute(
       decode_attention_kernel<T, KV, G>,
@@ -54,7 +55,7 @@ int launch(const void* q, const void* cache, void* out, float* part,
   decode_attention_kernel<T, KV, G><<<nblocks, decode::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), part, tickets, tile_rows, seqlens, batch, hkv,
-      n_sub, sub, rows_total, layer, sm_scale, window);
+      group, n_sub, sub, rows_total, layer, sm_scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -64,15 +65,17 @@ int dispatch_group(int group, const void* q, const void* cache, void* out,
                    const int* seqlens, int batch, int hkv, int n_sub, int sub,
                    long long rows_total, int layer, float sm_scale,
                    int window, int nblocks, cudaStream_t s) {
-  switch (group) {
-    case 1:
-      return launch<T, KV, 1>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, window, nblocks, s);
-    case 2:
-      return launch<T, KV, 2>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, window, nblocks, s);
-    case 4:
-      return launch<T, KV, 4>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, window, nblocks, s);
-    case 8:
-      return launch<T, KV, 8>(q, cache, out, part, tickets, tile_rows, seqlens, batch, hkv, n_sub, sub, rows_total, layer, sm_scale, window, nblocks, s);
+  switch (decode::chunk_width(group)) {
+#define VATTN_DECODE_CHUNK(C)                                                 \
+  case C:                                                                     \
+    return launch<T, KV, C>(q, cache, out, part, tickets, tile_rows, seqlens, \
+                            batch, hkv, group, n_sub, sub, rows_total, layer, \
+                            sm_scale, window, nblocks, s);
+    VATTN_DECODE_CHUNK(1)
+    VATTN_DECODE_CHUNK(2)
+    VATTN_DECODE_CHUNK(4)
+    VATTN_DECODE_CHUNK(8)
+#undef VATTN_DECODE_CHUNK
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -83,12 +86,13 @@ int dispatch_group(int group, const void* q, const void* cache, void* out,
 // q, out: [batch, Hkv*group, 128] of dtype; cache: [L, 2, Hkv, rows_total,
 // 128] of kv_dtype (dtype, e4m3 or int8);
 // tile_rows: [batch, n_sub] int32 (each slot's table as deep as its
-// seqlen); seqlens: [batch] int32; part: float32 scratch, 16-byte
-// aligned, of (nblocks + batch * Hkv) * decode::kPartFloats<group>
-// (group * 130, rounded up to a multiple of 4) elements; tickets: batch *
-// Hkv int32 counters, 0 before the launch and 0 after it; window: the
-// sliding window (0: none).  group (Hq/Hkv) must be 1, 2, 4 or 8, batch at
-// most 1024 and nblocks at most 1024.
+// seqlen); seqlens: [batch] int32; group (Hq/Hkv) >= 1, in chunks of C =
+// decode::chunk_width(group) heads, NC = cdiv(group, C) per kv head; part:
+// float32 scratch, 16-byte aligned, of (nblocks + batch * Hkv * NC) *
+// decode::kPartFloats<C> (C * 130, rounded up to a multiple of 4)
+// elements; tickets: batch * Hkv * NC int32 counters, 0 before the launch
+// and 0 after it; window: the sliding window (0: none).  batch at most 1024
+// and nblocks at most 1024.
 extern "C" int vattn_decode_attention(const void* q, const void* cache,
                                       void* out, void* part, int* tickets,
                                       const int* tile_rows,
@@ -98,7 +102,7 @@ extern "C" int vattn_decode_attention(const void* q, const void* cache,
                                       float sm_scale, int window, int nblocks,
                                       int dtype, int kv_dtype, void* stream) {
   if (batch <= 0) return 0;
-  if (batch > decode::kMaxSlots || nblocks <= 0 ||
+  if (batch > decode::kMaxSlots || nblocks <= 0 || group <= 0 ||
       nblocks > decode::kMaxGrid || sub <= 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

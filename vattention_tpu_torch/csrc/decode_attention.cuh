@@ -14,19 +14,28 @@
 // Bound: bytes.  Every live K and V row is read once (2*Hkv*D elements per
 // position) for G = Hq/Hkv heads: ~2G FLOPs per byte, far below the ridge.
 //
+// Heads: the G = Hq/Hkv query heads of a kv head go through the tensor
+// cores in chunks of C = chunk_width(G) heads (G rounded up to 1, 2, 4 or
+// 8, at most 8: the N of the tile), so a kv head is NC = cdiv(G, C) plan
+// heads.  Falcon-7B's G = 71 is 9 chunks of 8 heads, the last 7 live
+// (the eighth is a zero query, computed and never written); each chunk
+// streams its kv head's rows itself, so an MQA slot's K/V is read 9 times,
+// from L2 after the first.
+//
 // Split plan (`make_plan`, the same in every block; tests/test_torch_decode.py
 // has a plain Python twin).  Work is counted in tiles of kTile = 64
 // positions: slot b walks tiles [f_b, cdiv(seqlens[b], 64)), f_b =
 // floor(lo_b / 64) (`first_tile`), so t_b = cdiv(seqlens[b], 64) - f_b
-// tiles per kv head (`live_tiles`: a window sizes the plan, not the depth;
+// tiles per plan head (`live_tiles`: a window sizes the plan, not the depth;
 // only a slot's first tile holds positions below lo_b, masked there), W =
-// Hkv * sum t_b in all, and SH = Hkv * #{b : t_b > 0} live (slot, head)
-// pairs.  With P blocks (the wrapper gives a fixed multiple of the SM count,
-// whatever the table's depth), a split takes at least c = max(kMinTiles,
-// cdiv(W, max(P - SH, P / 2, 1))) tiles, so (slot, head) (b, h) has n_b =
+// H * sum t_b in all with H = Hkv * NC plan heads, and SH = H * #{b : t_b >
+// 0} live (slot, head) pairs.  With P blocks (the wrapper gives a fixed
+// multiple of the SM count, whatever the table's depth), a split takes at
+// least c = max(kMinTiles, cdiv(W, max(P - SH, P / 2, 1))) tiles, so
+// (slot, head) (b, h) has n_b =
 // cdiv(t_b, c) splits, split i covering tiles f_b + [i*t_b/n_b,
 // (i+1)*t_b/n_b).
-// Ranges are numbered slot-major, then head, then split; at most P + B*Hkv
+// Ranges are numbered slot-major, then head, then split; at most P + B*H
 // exist (at most P when SH <= P/2), and block j runs ranges j, j + P, ...
 // No range crosses a slot, idle slots get none.  Each block reads seqlens
 // itself: nothing is read back to the host, and slots may be as deep as
@@ -43,8 +52,8 @@
 // unswizzled 256-byte rows put ldmatrix's eight rows on the same banks; the
 // widening step of a 1-byte ring sits between the ring and the ldmatrix
 // reads (below).
-//   bfloat16: the G heads of the group are one tensor-core tile.  Per tile a
-//     warp computes S^T = K Q^T (positions on M, heads on N = 8, G < 8 padded
+//   bfloat16: a chunk's C heads are one tensor-core tile.  Per tile a
+//     warp computes S^T = K Q^T (positions on M, heads on N = 8, C < 8 padded
 //     with zero queries) with 8 mma.sync m16n8k16 whose A is K through
 //     ldmatrix and whose B is Q, held in registers for the whole range;
 //     updates an online softmax per head once per tile (column maxima over
@@ -71,7 +80,7 @@
 // The 4 warps' states merge through shared memory into the range's
 // unnormalised (max, sum, output).  A slot-head with one split writes O / l
 // at once; otherwise each split writes its partial to `part` at its range
-// index, fences and takes a ticket on its (slot, head) counter, and the
+// index, fences and takes a ticket on its (slot, plan head) counter, and the
 // split that takes the last ticket merges the n_b partials in a fixed
 // order (so the result does not depend on which split finishes last; n_b
 // is at most P, the merge's weights live in the rings) and resets the
@@ -93,8 +102,14 @@ constexpr int kTile = 64;                 // positions per plan tile
 constexpr int kWarpPos = kTile / kWarps;  // positions per warp per tile
 constexpr int kMinTiles = 4;              // a split's least tiles
 constexpr int kMaxSlots = 1024;           // batch limit of the plan's prefix
-constexpr int kMaxGroup = 8;              // N of the tensor-core tile
+constexpr int kMaxGroup = 8;              // N of the tensor-core tile: a chunk's most heads
 constexpr int kMaxGrid = 1024;            // blocks (bounds a merge's splits)
+
+// the chunk width C for `group` query heads per kv head: the group rounded
+// up to 1, 2, 4 or 8, at most 8 (the body's template argument G)
+constexpr int chunk_width(int group) {
+  return group <= 1 ? 1 : group <= 2 ? 2 : group <= 4 ? 4 : kMaxGroup;
+}
 
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -247,7 +262,7 @@ __device__ __forceinline__ int block_scan(int v, int* red, int& total) {
 // the number of ranges, which it returns.  Every thread of the body calls
 // it.
 __device__ __forceinline__ int make_plan(const int* __restrict__ seqlens,
-                                          int batch, int hkv, int window,
+                                          int batch, int heads, int window,
                                           int nblocks, int* cum, int* red) {
   const int per_thread = (batch + kThreads - 1) / kThreads;
   const int b0 = min(batch, static_cast<int>(threadIdx.x) * per_thread);
@@ -261,19 +276,19 @@ __device__ __forceinline__ int make_plan(const int* __restrict__ seqlens,
   int total_w, total_live;
   block_scan(w, red, total_w);
   block_scan(live, red, total_live);
-  const long long W = static_cast<long long>(total_w) * hkv;
-  const int SH = total_live * hkv;
+  const long long W = static_cast<long long>(total_w) * heads;
+  const int SH = total_live * heads;
   const int share = max(max(nblocks - SH, nblocks / 2), 1);
   const int per = static_cast<int>(max(static_cast<long long>(kMinTiles),
                                        (W + share - 1) / share));
   int mine = 0;
   for (int b = b0; b < b1; ++b)
-    mine += (live_tiles(seqlens[b], window) + per - 1) / per * hkv;
+    mine += (live_tiles(seqlens[b], window) + per - 1) / per * heads;
   int ranges;
   int at = block_scan(mine, red, ranges);
   for (int b = b0; b < b1; ++b) {
     cum[b] = at;
-    at += (live_tiles(seqlens[b], window) + per - 1) / per * hkv;
+    at += (live_tiles(seqlens[b], window) + per - 1) / per * heads;
   }
   if (threadIdx.x == 0) cum[batch] = ranges;
   sync();
@@ -281,14 +296,14 @@ __device__ __forceinline__ int make_plan(const int* __restrict__ seqlens,
 }
 
 struct Range {
-  int b, h;    // slot, kv head
+  int b, h;    // slot, the plan's head (a kv head's chunk of query heads)
   int i, n;    // split i of the slot-head's n
   int lo, hi;  // its tiles (absolute: first_tile is already added)
   int first;   // range index of split 0 of (b, h)
 };
 
 __device__ __forceinline__ Range find_range(int r, const int* cum, int batch,
-                                            int hkv, int window,
+                                            int heads, int window,
                                             const int* __restrict__ seqlens) {
   // the last slot whose first range is at or before r (idle slots own no
   // range, so ties resolve to the live slot after them)
@@ -302,7 +317,7 @@ __device__ __forceinline__ Range find_range(int r, const int* cum, int batch,
   }
   Range g;
   g.b = lo;
-  g.n = (cum[lo + 1] - cum[lo]) / hkv;
+  g.n = (cum[lo + 1] - cum[lo]) / heads;
   const int within = r - cum[lo];
   g.h = within / g.n;
   g.i = within - g.h * g.n;
@@ -315,22 +330,23 @@ __device__ __forceinline__ Range find_range(int r, const int* cum, int batch,
 }
 
 // ---- one range: each warp's online softmax over its positions ---------- //
-// Writes the warp's state (o[kMaxGroup][kD], m[kMaxGroup], l[kMaxGroup], o
+// The range's chunk: the gn <= G query heads from `qg` (heads past gn are
+// zero queries, computed and never written) on kv head `kvh`.  Writes the
+// warp's state (o[kMaxGroup][kD], m[kMaxGroup], l[kMaxGroup], o
 // unnormalised) over the warp's own ring at `ring_ptr`.
 template <typename T, typename KV, int G>
 __device__ __forceinline__ void warp_range(
-    const T* __restrict__ q, const KV* __restrict__ cache,
+    const T* __restrict__ qg, int gn, int kvh, const KV* __restrict__ cache,
     const int* __restrict__ tile_rows, int hkv, int n_sub, int sub,
     long long rows_total, int layer, float sm_scale, const Range& rg, int lo,
     int n, unsigned char* ring_ptr, float* qs, float* pw) {
   constexpr int S = kStages;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int hq = hkv * G;
   const uint32_t ring = sm90::smem_addr(ring_ptr);
   const long long head_stride = rows_total * kD;
-  const KV* kbase = cache + (static_cast<long long>(layer * 2) * hkv + rg.h) * head_stride;
-  const KV* vbase = cache + (static_cast<long long>(layer * 2 + 1) * hkv + rg.h) * head_stride;
+  const KV* kbase = cache + (static_cast<long long>(layer * 2) * hkv + kvh) * head_stride;
+  const KV* vbase = cache + (static_cast<long long>(layer * 2 + 1) * hkv + kvh) * head_stride;
   const int* trow = tile_rows + static_cast<long long>(rg.b) * n_sub;
   const int ntiles = rg.hi - rg.lo;
   const int pos0 = rg.lo * kTile + kWarpPos * warp;  // the warp's first position
@@ -430,16 +446,15 @@ __device__ __forceinline__ void warp_range(
 
   if constexpr (kBf16<T>) {
     // Q as mma's B, one pair of registers per 16 of D: head lane/4 (zero
-    // past G), elements 2*(lane%4) (+1) (+8)
+    // past gn), elements 2*(lane%4) (+1) (+8)
     uint32_t qb[kD / 16][2];
     {
       const int g = lane >> 2;
-      const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-          q + (static_cast<long long>(rg.b) * hq + rg.h * G + min(g, G - 1)) * kD);
+      const uint32_t* qrow = reinterpret_cast<const uint32_t*>(qg + min(g, gn - 1) * kD);
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        qb[kk][0] = g < G ? qrow[8 * kk + (lane & 3)] : 0u;
-        qb[kk][1] = g < G ? qrow[8 * kk + 4 + (lane & 3)] : 0u;
+        qb[kk][0] = g < gn ? qrow[8 * kk + (lane & 3)] : 0u;
+        qb[kk][1] = g < gn ? qrow[8 * kk + 4 + (lane & 3)] : 0u;
       }
     }
     float o[kD / 16][4];  // O^T: d = 16mt + lane/4 (+8), heads 2*(lane%4) (+1)
@@ -655,17 +670,18 @@ __device__ __forceinline__ void warp_range(
   }
 }
 
-// The merge of one (slot, head)'s n split partials at `src` into its
-// output `o`, by the body's threads, with `wsm` (2*n*G + G floats of
-// shared memory) for the splits' maxima and sums: per head a warp finds
-// the maximum and turns each split's maximum into its weight and the sum
+// The merge of one (slot, chunk)'s n split partials at `src` into its
+// output `o` (the chunk's first gn heads), by the body's threads, with
+// `wsm` (2*n*G + G floats of shared memory) for the splits' maxima and
+// sums: per head a warp finds the maximum and turns each split's maximum
+// into its weight and the sum
 // of weighted sums (a fixed lane order), then every thread adds the
 // weighted outputs of 4 consecutive elements over the splits in split
 // order.  Partials are read through L2 (__ldcg): other blocks wrote them
 // during this launch.
 template <typename T, int G>
 __device__ __forceinline__ void merge_splits(const float* __restrict__ src,
-                                             T* __restrict__ o, int n,
+                                             T* __restrict__ o, int n, int gn,
                                              float* wsm) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -695,7 +711,7 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ src,
     if (lane == 0) inv[g] = l;
   }
   sync();
-  for (int v = tid; v < G * kD / 4; v += kThreads) {
+  for (int v = tid; v < gn * kD / 4; v += kThreads) {
     const int g = 4 * v / kD;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
@@ -718,24 +734,30 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ src,
 // ---- the body: plan, idle zeros, ranges, merges ------------------------ //
 // Run by the kThreads threads 0..kThreads-1 of block `blk` of `nblocks`
 // over `smem` (kSmemBytes<T, KV>, 128-byte aligned), nblocks <= kMaxGrid.
-// `part` (16-byte aligned) holds kPartFloats<G> floats for each of
-// nblocks + batch*hkv ranges; `tickets` batch*hkv counters, 0 before the
-// launch and 0 after it; `window` the sliding window (0: none).
+// `group` heads share each kv head; G is the chunk width (chunk_width:
+// `group` rounded up to 1, 2, 4 or 8, at most 8), and the plan's heads are
+// the hv = hkv * cdiv(group, G) (kv head, chunk) pairs.  `part` (16-byte
+// aligned) holds kPartFloats<G> floats for each of nblocks + batch*hv
+// ranges; `tickets` batch*hv counters, 0 before the launch and 0 after
+// it; `window` the sliding window (0: none).
 template <typename T, typename KV, int G>
 __device__ __forceinline__ void decode_blocks(
     const T* __restrict__ q, const KV* __restrict__ cache, T* __restrict__ out,
     float* __restrict__ part, int* __restrict__ tickets,
     const int* __restrict__ tile_rows, const int* __restrict__ seqlens,
-    int batch, int hkv, int n_sub, int sub, long long rows_total, int layer,
-    float sm_scale, int window, int blk, int nblocks, unsigned char* smem) {
-  static_assert(G >= 1 && G <= kMaxGroup, "group");
+    int batch, int hkv, int group, int n_sub, int sub, long long rows_total,
+    int layer, float sm_scale, int window, int blk, int nblocks,
+    unsigned char* smem) {
+  static_assert(G >= 1 && G <= kMaxGroup, "chunk width");
   static_assert(kStateFloats * 4 <= kWarpRing<T, KV>,
                 "a warp's state fits in its ring");
   static_assert((2 * kMaxGrid + 1) * kMaxGroup * 4 <= kWarps * kWarpRing<T, KV>,
                 "a merge's weights fit in the rings");
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int hq = hkv * G;
+  const int hq = hkv * group;
+  const int chunks = (group + G - 1) / G;  // head chunks per kv head
+  const int hv = hkv * chunks;             // the plan's (kv head, chunk) pairs
   int* cum = reinterpret_cast<int*>(smem + kPlanOffset<T, KV>);
   int* red = cum + kMaxSlots + 1;
   int* flag = red + kWarps;
@@ -746,23 +768,28 @@ __device__ __forceinline__ void decode_blocks(
   // idle slots: zeros, spread over the blocks
   for (int bh = blk; bh < batch * hkv; bh += nblocks) {
     if (seqlens[bh / hkv] > 0) continue;
-    T* o = out + static_cast<long long>(bh) * G * kD;
-    for (int idx = tid; idx < G * kD; idx += kThreads) o[idx] = from_float<T>(0.f);
+    T* o = out + static_cast<long long>(bh) * group * kD;
+    for (int idx = tid; idx < group * kD; idx += kThreads) o[idx] = from_float<T>(0.f);
   }
-  const int ranges = make_plan(seqlens, batch, hkv, window, nblocks, cum, red);
+  const int ranges = make_plan(seqlens, batch, hv, window, nblocks, cum, red);
 
   for (int r = blk; r < ranges; r += nblocks) {
-    const Range rg = find_range(r, cum, batch, hkv, window, seqlens);
+    const Range rg = find_range(r, cum, batch, hv, window, seqlens);
     const int n = seqlens[rg.b];
     const int lo = window > 0 ? max(0, n - window) : 0;
-    T* o = out + (static_cast<long long>(rg.b) * hq + rg.h * G) * kD;
+    const int kvh = rg.h / chunks;
+    const int g0 = (rg.h - kvh * chunks) * G;  // the chunk's first head
+    const int gn = min(G, group - g0);         // and its heads
+    const long long head0 = (static_cast<long long>(rg.b) * hq + kvh * group + g0) * kD;
+    T* o = out + head0;
+    const T* qg = q + head0;
     if constexpr (!kBf16<T>) {
-      const T* qg = q + (static_cast<long long>(rg.b) * hq + rg.h * G) * kD;
-      for (int idx = tid; idx < G * kD; idx += kThreads) qs[idx] = qg[idx];
+      for (int idx = tid; idx < G * kD; idx += kThreads)
+        qs[idx] = idx < gn * kD ? qg[idx] : 0.f;
       sync();
     }
-    warp_range<T, KV, G>(q, cache, tile_rows, hkv, n_sub, sub, rows_total, layer,
-                     sm_scale, rg, lo, n, ring, qs, pw);
+    warp_range<T, KV, G>(qg, gn, kvh, cache, tile_rows, hkv, n_sub, sub,
+                         rows_total, layer, sm_scale, rg, lo, n, ring, qs, pw);
     sync();
     // merge the warps' states, in warp order; warps that saw no position
     // (max -inf) add nothing; some warp saw one (every range holds a
@@ -787,7 +814,7 @@ __device__ __forceinline__ void decode_blocks(
         osum += st[idx] * c;
       }
       if (rg.n == 1) {
-        o[idx] = from_float<T>(osum / lsum);
+        if (idx < gn * kD) o[idx] = from_float<T>(osum / lsum);
       } else {
         dst[idx] = osum;
         if (idx % kD == 0) {
@@ -801,7 +828,7 @@ __device__ __forceinline__ void decode_blocks(
       __threadfence();
       sync();
       if (tid == 0) {
-        int* ticket = tickets + rg.b * hkv + rg.h;
+        int* ticket = tickets + rg.b * hv + rg.h;
         const int last = atomicAdd(ticket, 1) == rg.n - 1;
         if (last) atomicExch(ticket, 0);  // every split has taken its ticket
         *flag = last;
@@ -810,7 +837,7 @@ __device__ __forceinline__ void decode_blocks(
       if (*flag) {
         __threadfence();
         merge_splits<T, G>(part + static_cast<long long>(rg.first) * kPartFloats<G>,
-                           o, rg.n, reinterpret_cast<float*>(smem));
+                           o, rg.n, gn, reinterpret_cast<float*>(smem));
       }
     }
     sync();  // the rings, the queries and the flag are free for the next range

@@ -20,9 +20,9 @@
 // q, out: [num_tokens, hq, 128]; cache: [L, 2, hkv, rows_total, 128] of
 // kv_dtype (dtype, e4m3 or int8);
 // qt_run: [num_tokens / pad_tile, 2]; qinfo: [K, 2]; block_tables: [K, nb]
-// block ids (all int32); window: the sliding window (0: none).  hq/hkv
-// must divide R (128 in bf16, 64 in f32), and R/(hq/hkv) must divide
-// pad_tile, which must divide num_tokens.
+// block ids (all int32); window: the sliding window (0: none).
+// min_q_tile(dtype, hq/hkv) (128 / gcd(128, hq/hkv) in bf16, 64 / gcd(64,
+// hq/hkv) in f32) must divide pad_tile, and pad_tile num_tokens.
 extern "C" int vattn_paged_prefill_attention(
     const void* q, const void* cache, void* out, const int* qt_run,
     const int* qinfo, const int* block_tables, int num_tokens, int hq,
@@ -41,20 +41,18 @@ extern "C" int vattn_paged_prefill_attention(
 // q, out: [num_tokens, hq, 128] at positions qinfo[0] + [0, num_tokens);
 // cache: [L, 2, hkv, rows_total, 128] of kv_dtype (dtype, e4m3 or int8);
 // block_table: [nb] block ids; qinfo: [2] = (q_start, kv_len) (all int32);
-// window: the sliding window (0: none).  hq/hkv must divide R (128 in bf16,
-// 64 in f32), and R/(hq/hkv) must divide num_tokens.
+// window: the sliding window (0: none).  min_q_tile(dtype, hq/hkv) must
+// divide num_tokens.
 extern "C" int vattn_paged_prefill_single(
     const void* q, const void* cache, void* out, const int* block_table,
     int nb, int block_size, const int* qinfo, int num_tokens, int hq,
     int hkv, long long rows_total, int layer, float sm_scale, int window,
     int dtype, int kv_dtype, void* stream) {
   using namespace vattn::prefill;
-  const int rows = block_rows(dtype);
-  if (nb <= 0 || block_size <= 0 || hkv <= 0 || hq % hkv != 0 || hq < hkv ||
-      rows == 0 || rows % (hq / hkv) != 0)
+  if (nb <= 0 || block_size <= 0 || hkv <= 0 || hq % hkv != 0 || hq < hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, cache, out, OneRun{}, qinfo,
                 BlockTables{block_table, nb, block_size}, num_tokens, hq, hkv,
-                rows / (hq / hkv), rows_total, layer, sm_scale, window, dtype,
-                kv_dtype, stream);
+                min_q_tile(dtype, hq / hkv), rows_total, layer, sm_scale,
+                window, dtype, kv_dtype, stream);
 }

@@ -18,9 +18,9 @@
 // bound, the decode part bandwidth bound; the larger of the two times
 // bounds the launch (bytes / 3.35 TB/s against FLOPs / 989 TF/s).
 // Design: one grid of n_pre + n_dec blocks.  Blocks [0, n_pre) cover B's
-// grid (q tiles x kv heads, one q tile per block: in bf16 128 rows on two
-// consumer warpgroups fed by a producer warpgroup, so bf16 blocks are 384
-// threads), blocks [n_pre, n_pre + n_dec) are C's fixed grid of n_dec
+// grid (row blocks x kv heads: in bf16 128 flattened (token, head) rows on
+// two consumer warpgroups fed by a producer warpgroup, so bf16 blocks are
+// 384 threads), blocks [n_pre, n_pre + n_dec) are C's fixed grid of n_dec
 // blocks (decode_attention.cuh on the first 128 threads: the same split
 // plan over the slots' live depths, the same per-warp K/V rings and
 // tensor-core tiles, the same ticket merge inside the launch, so F's
@@ -78,16 +78,16 @@ __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
     const int* __restrict__ qt_run, const int* __restrict__ qinfo,
     const int* __restrict__ pre_rows, int pre_n_sub,
     const int* __restrict__ dec_rows, int dec_n_sub,
-    const int* __restrict__ seqlens, int hkv, int sub, int pad_tile,
-    long long rows_total, int layer, float sm_scale, int window, int n_tiles,
-    int batch, int n_dec) {
+    const int* __restrict__ seqlens, int hkv, int group, int sub,
+    int pad_tile, long long rows_total, int layer, float sm_scale, int window,
+    int n_tiles, int batch, int n_dec) {
   extern __shared__ __align__(128) unsigned char pod_smem[];
-  const int hq = hkv * G;
+  const int hq = hkv * group;
   const long long n_pre = static_cast<long long>(n_tiles) * hkv;
   const long long t = blockIdx.x;
 
   if (t < n_pre) {
-    // prefill: block t of B's grid, in B's order (q tiles fastest)
+    // prefill: block t of B's grid, in B's order (row blocks fastest)
     const int pi = static_cast<int>(t);
     const int h = pi / n_tiles;
     const int tile = pi - h * n_tiles;
@@ -106,10 +106,10 @@ __global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
 
   // decode: block t - n_pre of C's grid
   if (threadIdx.x >= decode::kThreads) return;
-  decode::decode_blocks<T, KV, G>(qd, cache, od, part, tickets, dec_rows, seqlens,
-                              batch, hkv, dec_n_sub, sub, rows_total, layer,
-                              sm_scale, window, static_cast<int>(t - n_pre),
-                              n_dec, pod_smem);
+  decode::decode_blocks<T, KV, G>(qd, cache, od, part, tickets, dec_rows,
+                                  seqlens, batch, hkv, group, dec_n_sub, sub,
+                                  rows_total, layer, sm_scale, window,
+                                  static_cast<int>(t - n_pre), n_dec, pod_smem);
 }
 
 template <typename T, typename KV, int G>
@@ -117,9 +117,9 @@ int launch(const void* qp, const void* qd, const void* cache, void* op,
            void* od, float* part, int* tickets, const int* qt_run,
            const int* qinfo, const int* pre_rows, int pre_n_sub,
            const int* dec_rows, int dec_n_sub, const int* seqlens, int n_tiles,
-           int batch, int hkv, int sub, int pad_tile, long long rows_total,
-           int layer, float sm_scale, int window, int n_dec,
-           cudaStream_t stream) {
+           int batch, int hkv, int group, int sub, int pad_tile,
+           long long rows_total, int layer, float sm_scale, int window,
+           int n_dec, cudaStream_t stream) {
   constexpr int smem = smem_bytes<T, KV>();
   const cudaError_t attr = cudaFuncSetAttribute(
       pod_attention_kernel<T, KV, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -131,8 +131,8 @@ int launch(const void* qp, const void* qd, const void* cache, void* op,
       static_cast<const T*>(qp), static_cast<const T*>(qd),
       static_cast<const KV*>(cache), static_cast<T*>(op), static_cast<T*>(od),
       part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub,
-      seqlens, hkv, sub, pad_tile, rows_total, layer, sm_scale, window, n_tiles,
-      batch, n_dec);
+      seqlens, hkv, group, sub, pad_tile, rows_total, layer, sm_scale, window,
+      n_tiles, batch, n_dec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -145,15 +145,19 @@ int dispatch_group(int group, const void* qp, const void* qd,
                    int hkv, int sub, int pad_tile, long long rows_total,
                    int layer, float sm_scale, int window, int n_dec,
                    cudaStream_t s) {
-  switch (group) {
-    case 1:
-      return launch<T, KV, 1>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, window, n_dec, s);
-    case 2:
-      return launch<T, KV, 2>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, window, n_dec, s);
-    case 4:
-      return launch<T, KV, 4>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, window, n_dec, s);
-    case 8:
-      return launch<T, KV, 8>(qp, qd, cache, op, od, part, tickets, qt_run, qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub, seqlens, n_tiles, batch, hkv, sub, pad_tile, rows_total, layer, sm_scale, window, n_dec, s);
+  switch (decode::chunk_width(group)) {
+#define VATTN_POD_CHUNK(C)                                                    \
+  case C:                                                                     \
+    return launch<T, KV, C>(qp, qd, cache, op, od, part, tickets, qt_run,     \
+                            qinfo, pre_rows, pre_n_sub, dec_rows, dec_n_sub,  \
+                            seqlens, n_tiles, batch, hkv, group, sub,         \
+                            pad_tile, rows_total, layer, sm_scale, window,    \
+                            n_dec, s);
+    VATTN_POD_CHUNK(1)
+    VATTN_POD_CHUNK(2)
+    VATTN_POD_CHUNK(4)
+    VATTN_POD_CHUNK(8)
+#undef VATTN_POD_CHUNK
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -168,10 +172,11 @@ int dispatch_group(int group, const void* qp, const void* qd,
 // [K, pre_n_sub]; dec_tile_rows: [batch, dec_n_sub]; seqlens: [batch]
 // (all int32).  n_dec: the decode blocks (kernel C's grid; 0 when batch
 // is 0; at most 1024).  part: float32 scratch as kernel C's, of (n_dec +
-// batch * hkv) partials; tickets: batch * hkv int32 counters, 0 before the launch and 0
-// after it; window: the sliding window of both roles (0: none).  group
-// must be 1, 2, 4 or 8 and batch at most 1024; R/group (R = 128 in bf16, 64
-// in f32) must divide pad_tile, which must divide num_tokens.
+// batch * hkv * NC) partials (NC = cdiv(group, decode::chunk_width(group)));
+// tickets: batch * hkv * NC int32 counters, 0 before the launch and 0 after
+// it; window: the sliding window of both roles (0: none).  group >= 1 and
+// batch at most 1024; prefill::min_q_tile(dtype, group) must divide
+// pad_tile, and pad_tile num_tokens.
 extern "C" int vattn_pod_attention(
     const void* q_prefill, const void* q_decode, const void* cache,
     void* out_prefill, void* out_decode, void* part, int* tickets,
@@ -180,14 +185,15 @@ extern "C" int vattn_pod_attention(
     const int* seqlens, int num_tokens, int batch, int hkv, int group,
     int sub, int pad_tile, long long rows_total, int layer, float sm_scale,
     int window, int n_dec, int dtype, int kv_dtype, void* stream) {
-  const int rows = prefill::block_rows(dtype);
-  if (group <= 0 || rows == 0 || rows % group != 0 || pad_tile <= 0 ||
-      pad_tile % (rows / group) != 0 || num_tokens < 0 ||
+  const int q_tile = prefill::min_q_tile(dtype, group);
+  if (q_tile == 0 || pad_tile <= 0 || pad_tile % q_tile != 0 || num_tokens < 0 ||
       num_tokens % pad_tile != 0 || batch < 0 || batch > decode::kMaxSlots ||
       n_dec < 0 || n_dec > decode::kMaxGrid || (batch > 0 && n_dec == 0) ||
       window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = num_tokens / (rows / group);
+  // row blocks of the prefill role (prefill::launch's grid)
+  const int n_tiles = static_cast<int>(static_cast<long long>(num_tokens) * group /
+                                       prefill::block_rows(dtype));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
 #define VATTN_POD(T, KV)                                                     \

@@ -27,9 +27,16 @@
 // pair against 2*Hkv*D K/V elements per key row read): a 512-token chunk
 // at depth 4096 (Yi-6B: Hq 32, Hkv 4) is 0.033 ms of bf16 tensor-core
 // work on an H100 and 0.0016 ms of HBM traffic.
-// Design: one block per (q tile, kv head): its query rows are the G heads
-// of one GQA group for each token of the tile, so every K/V row staged in
-// shared memory serves G heads.  The block walks 64-key tiles only up to
+// Design: one block per (row block, kv head).  A kv head's query rows are
+// flattened in (token, head) order, row t*G + g for head g of the GQA group
+// at token t, and a block takes R consecutive rows (R = 128 in bf16, 64 in
+// f32), so every K/V row staged in shared memory serves R query rows
+// whatever G is: R/G whole tokens where G divides R, else rows of up to
+// cdiv(R, G) + 1 tokens (Falcon-7B's G = 71: a 128-row block holds parts of
+// 2 or 3 tokens, and no row is idle).  Each row's causal and window limits
+// come from its own token.  A block never straddles a pad tile (the
+// launcher asks that pad_tile * G be a multiple of R), so its tokens share
+// one run.  The block walks 64-key tiles only up to
 // its causal diagonal, and under a window only from the first tile that
 // its first row sees (floor(max(0, pos0 - window + 1) / 64)): tiles wholly
 // before the window are neither copied nor multiplied, so at depth a
@@ -37,9 +44,9 @@
 // softmax per row in float32.
 // Each key position resolves its own row, so a key tile may span several
 // table entries (blocks of 16 tokens under a 64-key tile).
-//   bfloat16 (prefill_tile_tc, 384 threads, 128 query rows = 128/G
-//     tokens): two consumer warpgroups own 64 rows each, wgmma's M, and
-//     a producer warpgroup fills a ring of kTcStages K/V tiles by cp.async
+//   bfloat16 (prefill_tile_tc, 384 threads, 128 query rows): two
+//     consumer warpgroups own 64 rows each, wgmma's M, and a producer
+//     warpgroup fills a ring of kTcStages K/V tiles by cp.async
 //     (16-byte copies into the 128B-swizzled layout, zero-filled past the
 //     keys a tile needs; each key's row resolved once per tile, one tile
 //     ahead).  Copies report to a per-stage "full" mbarrier, consumers
@@ -190,7 +197,7 @@ constexpr int kKStride = kD + 1;
 constexpr int kSmemBytes =
     (kRows * kQStride + kKeys * kKStride + kKeys * kD) * static_cast<int>(sizeof(float));
 
-// The float32 body: q tile `tile` (kRows/G tokens) of kv head `h`, run by
+// The float32 body: row block `tile` (kRows rows) of kv head `h`, run by
 // kThreads threads (local index `tid`) over `smem` (kSmemBytes).
 template <typename T, typename KV, typename QMap, typename Rows>
 __device__ __forceinline__ void prefill_tile(
@@ -203,8 +210,9 @@ __device__ __forceinline__ void prefill_tile(
   float* vs = ks + kKeys * kKStride;      // [kKeys][kD]
 
   const int group = hq / hkv;
-  const int qtok = kRows / group;         // tokens per block
-  const int tok0 = tile * qtok;
+  const int row0 = tile * kRows;          // the block's first flattened row
+  const int tok0 = row0 / group;          // the block's first token
+  const int ntok = (row0 + kRows - 1) / group - tok0 + 1;  // tokens it holds
   const int pt = tok0 / pad_tile;
   const int2 qt = qmap(pt);
   const int run = qt.x;
@@ -216,8 +224,8 @@ __device__ __forceinline__ void prefill_tile(
   const int lane = tid & 31;
   const int r = tid >> 2;                 // this thread's query row
   const int part = tid & 3;               // its quarter of the 32 keys / D lanes
-  const int t = r / group;
-  const int g = r - t * group;
+  const int t = (row0 + r) / group - tok0;  // its token, from tok0
+  const int g = row0 + r - (tok0 + t) * group;
   const long long tok_stride = static_cast<long long>(hq) * kD;
   T* orow = out + static_cast<long long>(tok0 + t) * tok_stride +
             static_cast<long long>(h * group + g) * kD;
@@ -227,20 +235,21 @@ __device__ __forceinline__ void prefill_tile(
     return;
   }
 
-  // stage the block's queries: row rr = (token rr/group, head h*group + rr%group)
+  // stage the block's queries: row rr = flattened row row0 + rr, token
+  // (row0 + rr) / group, head h*group + (row0 + rr) % group
   for (int i = tid; i < kRows * kD; i += kThreads) {
     const int rr = i / kD;
     const int d = i - rr * kD;
-    const int tt = rr / group;
-    const int gg = rr - tt * group;
+    const int tt = (row0 + rr) / group;
+    const int gg = row0 + rr - tt * group;
     qs[rr * kQStride + d] = to_float(
-        q[static_cast<long long>(tok0 + tt) * tok_stride +
+        q[static_cast<long long>(tt) * tok_stride +
           static_cast<long long>(h * group + gg) * kD + d]);
   }
 
   const int q_pos = pos0 + t;
   const int q_low = window > 0 ? q_pos - window + 1 : 0;  // the row's first key
-  const int n_keys = min(kv_len, pos0 + qtok);  // causal diagonal of the tile
+  const int n_keys = min(kv_len, pos0 + ntok);  // causal diagonal of the tile
   // the first key tile that the block's first row sees
   const int k_first = window > 0 ? max(0, pos0 - window + 1) / kKeys * kKeys : 0;
   const long long head_stride = rows_total * kD;
@@ -431,7 +440,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The bfloat16 body: q tile `tile` (kTcRows/G tokens) of kv head `h`, run
+// The bfloat16 body: row block `tile` (kTcRows rows) of kv head `h`, run
 // by all kTcThreads threads of the block over `smem` (kTcSmemBytesFor<KV>).
 // Threads 0..255 are the two consumer warpgroups, the last warpgroup the
 // producer; the roles meet only at the ring's mbarriers.
@@ -450,8 +459,9 @@ __device__ __forceinline__ void prefill_tile_tc(
   const uint32_t empty = full + 8 * kTcStages;             // [kTcStages] mbarriers
 
   const int group = hq / hkv;
-  const int qtok = kTcRows / group;
-  const int tok0 = tile * qtok;
+  const int row0 = tile * kTcRows;        // the block's first flattened row
+  const int tok0 = row0 / group;          // the block's first token
+  const int ntok = (row0 + kTcRows - 1) / group - tok0 + 1;  // tokens it holds
   const int pt = tok0 / pad_tile;
   const int2 qt = qmap(pt);
   const int run = qt.x;
@@ -460,15 +470,16 @@ __device__ __forceinline__ void prefill_tile_tc(
   const int kv_len = qinfo[2 * run + 1];
   const int pos0 = q_start + lqt * pad_tile + (tok0 - pt * pad_tile);
   const long long tok_stride = static_cast<long long>(hq) * kD;
-  // block row rr = (token rr / group, head h*group + rr % group)
-  const long long head0 = static_cast<long long>(tok0) * tok_stride +
-                          static_cast<long long>(h * group) * kD;
+  // block row rr = flattened row row0 + rr: token (row0 + rr) / group, head
+  // h*group + (row0 + rr) % group; row_token gives its token from tok0
+  auto row_token = [&](int rr) { return (row0 + rr) / group - tok0; };
   auto row_offset = [&](int rr) {
-    const int t = rr / group;
-    return head0 + t * tok_stride + static_cast<long long>(rr - t * group) * kD;
+    const int r = row0 + rr;
+    const int t = r / group;
+    return t * tok_stride + static_cast<long long>(h * group + r - t * group) * kD;
   };
 
-  const int n_keys = min(kv_len, pos0 + qtok);  // causal diagonal of the tile
+  const int n_keys = min(kv_len, pos0 + ntok);  // causal diagonal of the tile
   // the walk: key tiles j0 .. j0 + n_tiles - 1, j0 the first tile that the
   // block's first row sees under a window; local tile j is key tile j0 + j
   const int j0 = window > 0 ? max(0, pos0 - window + 1) / kTcKeys : 0;
@@ -612,14 +623,14 @@ __device__ __forceinline__ void prefill_tile_tc(
   const int wg = tid >> 7;
   const int lane = tid & 31;
   const int r_a = 64 * wg + 16 * ((tid & 127) >> 5) + (lane >> 2);
-  const int lim_a = min(kv_len, pos0 + r_a / group + 1);       // keys < lim
-  const int lim_b = min(kv_len, pos0 + (r_a + 8) / group + 1);
+  const int lim_a = min(kv_len, pos0 + row_token(r_a) + 1);     // keys < lim
+  const int lim_b = min(kv_len, pos0 + row_token(r_a + 8) + 1);
   // keys >= low under a window (0 without one)
-  const int low_a = window > 0 ? pos0 + r_a / group - window + 1 : 0;
-  const int low_b = window > 0 ? pos0 + (r_a + 8) / group - window + 1 : 0;
-  const int wg_first = pos0 + (64 * wg) / group;  // first row's position
+  const int low_a = window > 0 ? pos0 + row_token(r_a) - window + 1 : 0;
+  const int low_b = window > 0 ? pos0 + row_token(r_a + 8) - window + 1 : 0;
+  const int wg_first = pos0 + row_token(64 * wg);  // first row's position
   // the least key that every row of the warpgroup sees
-  const int wg_low = window > 0 ? pos0 + (64 * wg + 63) / group - window + 1 : 0;
+  const int wg_low = window > 0 ? pos0 + row_token(64 * wg + 63) - window + 1 : 0;
   const float scale = sm_scale * 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
   const uint32_t qwg = qs + 64 * wg * kTcHalf;
 
@@ -751,7 +762,7 @@ inline int block_rows(int dtype) {
 }
 
 template <typename T, typename KV, typename Kernel, typename QMap, typename Rows>
-int launch_one(Kernel kernel, int threads, int smem_bytes, int qtok,
+int launch_one(Kernel kernel, int threads, int smem_bytes, int blocks,
                const void* q, const void* cache, void* out, QMap qmap,
                const int* qinfo, Rows rows, int num_tokens, int hq, int hkv,
                int pad_tile, long long rows_total, int layer, float sm_scale,
@@ -759,7 +770,7 @@ int launch_one(Kernel kernel, int threads, int smem_bytes, int qtok,
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(num_tokens / qtok, hkv);
+  const dim3 grid(blocks, hkv);
   kernel<<<grid, threads, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), qmap, qinfo, rows, hq, hkv, pad_tile,
@@ -770,45 +781,61 @@ int launch_one(Kernel kernel, int threads, int smem_bytes, int qtok,
 // The body of compute type T over storage KV: its kernel, threads and
 // shared memory.
 template <typename T, typename KV, typename QMap, typename Rows>
-int launch_body(int qtok, const void* q, const void* cache, void* out,
+int launch_body(int blocks, const void* q, const void* cache, void* out,
                 QMap qmap, const int* qinfo, Rows rows, int num_tokens,
                 int hq, int hkv, int pad_tile, long long rows_total,
                 int layer, float sm_scale, int window, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value)
     return launch_one<T, KV>(prefill_attention_kernel<T, KV, QMap, Rows>,
-                             kThreads, kSmemBytes, qtok, q, cache, out, qmap,
+                             kThreads, kSmemBytes, blocks, q, cache, out, qmap,
                              qinfo, rows, num_tokens, hq, hkv, pad_tile,
                              rows_total, layer, sm_scale, window, s);
   else
     return launch_one<T, KV>(prefill_attention_tc_kernel<KV, QMap, Rows>,
-                             kTcThreads, kTcSmemBytesFor<KV>, qtok, q, cache, out,
+                             kTcThreads, kTcSmemBytesFor<KV>, blocks, q, cache, out,
                              qmap, qinfo, rows, num_tokens, hq, hkv, pad_tile,
                              rows_total, layer, sm_scale, window, s);
+}
+
+// the least q tile, in tokens, of the body for `dtype` at `group` heads
+// per kv head: R / gcd(R, group) (R = block_rows(dtype)), so that a tile's
+// tile * group flattened rows fill whole blocks (0 if no body)
+inline int min_q_tile(int dtype, int group) {
+  const int r = block_rows(dtype);
+  if (r == 0 || group <= 0) return 0;
+  int a = r, b = group;
+  while (b != 0) {
+    const int c = a % b;
+    a = b;
+    b = c;
+  }
+  return r / a;
 }
 
 // q, out: [num_tokens, hq, 128] of `dtype`; cache: [L, 2, hkv, rows_total,
 // 128] of `kv_dtype` (dtype, e4m3 or int8); qinfo: [K, 2] (int32); `qmap`
 // maps each pad_tile-row tile to (run, local tile) and `rows` each run's
-// key positions to arena rows; window: the sliding window (0: none).  With
-// R = block_rows(dtype) (128 in bf16, 64 in f32), hq/hkv must divide R, and
-// R/(hq/hkv) must divide pad_tile, which must divide num_tokens.
+// key positions to arena rows; window: the sliding window (0: none).  hkv
+// must divide hq, min_q_tile(dtype, hq/hkv) must divide pad_tile, and
+// pad_tile num_tokens; the grid is num_tokens * (hq/hkv) / R blocks of R =
+// block_rows(dtype) flattened (token, head) rows by hkv, and no block
+// straddles a pad tile.
 template <typename QMap, typename Rows>
 int launch(const void* q, const void* cache, void* out, QMap qmap,
            const int* qinfo, Rows rows, int num_tokens, int hq, int hkv,
            int pad_tile, long long rows_total, int layer, float sm_scale,
            int window, int dtype, int kv_dtype, void* stream) {
   if (num_tokens <= 0) return 0;
-  const int group = hkv > 0 ? hq / hkv : 0;
-  const int rows_per_block = block_rows(dtype);
-  if (group <= 0 || rows_per_block == 0 || rows_per_block % group != 0 ||
-      window < 0 ||
-      pad_tile <= 0 || pad_tile % (rows_per_block / group) != 0 ||
+  const int group = hkv > 0 && hq % hkv == 0 ? hq / hkv : 0;
+  const int q_tile = min_q_tile(dtype, group);
+  if (q_tile == 0 || window < 0 || pad_tile <= 0 || pad_tile % q_tile != 0 ||
       num_tokens % pad_tile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int qtok = rows_per_block / group;
+  const int blocks = static_cast<int>(static_cast<long long>(num_tokens) * group /
+                                      block_rows(dtype));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VATTN_PREFILL_BODY(T, KV)                                            \
-  launch_body<T, KV>(qtok, q, cache, out, qmap, qinfo, rows, num_tokens, hq, \
+  launch_body<T, KV>(blocks, q, cache, out, qmap, qinfo, rows, num_tokens, hq, \
                      hkv, pad_tile, rows_total, layer, sm_scale, window, s)
   const bool f32 = dtype == kFloat32;
   if (kv_dtype == dtype)

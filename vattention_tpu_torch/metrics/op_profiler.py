@@ -63,8 +63,9 @@ def profile_operations(runner, *, ctx: int = 1024,
     from vattention_tpu_torch.model_executor.attention.paged_backend import (
         PagedAttentionBackend)
     from vattention_tpu_torch.model_executor.layers.activation import (
-        silu_and_mul)
-    from vattention_tpu_torch.model_executor.layers.layernorm import rms_norm
+        gelu_new, silu_and_mul)
+    from vattention_tpu_torch.model_executor.layers.layernorm import (
+        layer_norm, rms_norm)
     from vattention_tpu_torch.model_executor.layers.sampler import (
         GREEDY, sample_tokens)
     from vattention_tpu_torch.ops.cache_append import rope_kv_append
@@ -94,18 +95,25 @@ def profile_operations(runner, *, ctx: int = 1024,
         results[op.value] = seconds = _time(fn, iters, dev)
         store.push_operation_time(op, seconds)
 
-    # projections, MLP and norm of one layer at the decode batch
+    # projections, MLP and norm of one layer at the decode batch (falcon:
+    # an ungated GELU MLP and a LayerNorm with a bias)
     x = randn(B, arch.hidden_size)
-    up = randn(B, lp["gate_up_w"].shape[1])
-    act = silu_and_mul(up)
+    up_w = lp["up_w"] if model.parallel_attn else lp["gate_up_w"]
+    activation = gelu_new if model.parallel_attn else silu_and_mul
+    up = randn(B, up_w.shape[1])
+    act = activation(up)
     attn = randn(B, Hq * D)
     rec(OperationMetrics.ATTN_PRE_PROJ, lambda: x @ lp["qkv_w"])
     rec(OperationMetrics.ATTN_POST_PROJ, lambda: attn @ lp["o_w"])
-    rec(OperationMetrics.MLP_UP_PROJ, lambda: x @ lp["gate_up_w"])
-    rec(OperationMetrics.MLP_ACTIVATION, lambda: silu_and_mul(up))
+    rec(OperationMetrics.MLP_UP_PROJ, lambda: x @ up_w)
+    rec(OperationMetrics.MLP_ACTIVATION, lambda: activation(up))
     rec(OperationMetrics.MLP_DOWN_PROJ, lambda: act @ lp["down_w"])
-    rec(OperationMetrics.INPUT_LAYERNORM,
-        lambda: rms_norm(x, lp["input_norm"], arch.rms_norm_eps))
+    if model.parallel_attn:
+        rec(OperationMetrics.INPUT_LAYERNORM,
+            lambda: layer_norm(x, lp["input_norm"], lp["input_norm_b"]))
+    else:
+        rec(OperationMetrics.INPUT_LAYERNORM,
+            lambda: rms_norm(x, lp["input_norm"], arch.rms_norm_eps))
 
     if not isinstance(backend, NoOpAttentionBackend):
         # kernel A at the decode batch, positions at ctx - 1; the rows it

@@ -7,8 +7,9 @@ split edges: 1, 63, 64, 65, 255, 256, 257 and 4133; two idle slots, which
 must be exactly zero; and two shallow slots (5 and 100 positions) whose
 tables are 32768 positions deep, as deep as every other slot's.  Each
 slot's table is a seeded permutation of the arena's blocks.  The batch runs
-at ``sub`` 256 and 16 (the arena's tiles and vLLM's block) and at every
-group size the kernel takes (G = 1, 2, 4, 8: Hq = G * Hkv query heads).
+at ``sub`` 256 and 16 (the arena's tiles and vLLM's block) and at group
+sizes G = 1, 2, 4 and 8 (each a chunk width of the body) and 71
+(Falcon-7B's: 9 chunks, the last one partial), Hq = G * Hkv query heads.
 With a sliding ``window`` the kernel and the plain version take it, and
 slots at depths ``window - 1``, ``window``, ``window + 1``, ``window + 64``
 and ``3 * window + 100`` join the batch: the first tile a slot walks, and
@@ -23,13 +24,13 @@ import numpy as np
 import torch
 
 from vattention_tpu_torch.microbenchmarks.timing import check_attention
-from vattention_tpu_torch.ops.flash_decode import (KERNEL_GROUPS,
-                                                   decode_attention,
+from vattention_tpu_torch.ops.flash_decode import (decode_attention,
                                                    decode_attention_plain)
 
 EDGE_DEPTHS = [1, 63, 64, 65, 255, 256, 257, 0, 4133, 0, 5, 100]
 TABLE_DEPTH = 32768
 SUBS = (256, 16)
+EDGE_GROUPS = (1, 2, 4, 8, 71)
 
 
 def edge_depths(window=None):
@@ -63,7 +64,7 @@ def check_decode_edges(cache: torch.Tensor, layer: int, seed: int = 0,
         rows = np.stack([rng.permutation(R // sub)[:width] * sub
                          for _ in depths]).astype(np.int32)
         tile_rows = torch.from_numpy(rows).to(dev)
-        for g in KERNEL_GROUPS:
+        for g in EDGE_GROUPS:
             q = torch.randn((len(depths), g * Hkv, D), generator=gen,
                             device=dev).to(qdt)
             args = (q, cache, tile_rows, seqlens, layer)

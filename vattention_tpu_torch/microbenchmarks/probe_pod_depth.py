@@ -116,8 +116,8 @@ def probe(args) -> bool:
     dec_rows = i32(tile_rows_from_segments(dec_seg_row, dec_seg_cum, sub,
                                            cdiv(ctx_pad, sub)))
 
-    # F's grid: B's (q tile, kv head) blocks and C's fixed decode grid
-    n_pre = sum(pads) // (KERNEL_ROWS[qp.dtype] // (Hq // Hkv)) * Hkv
+    # F's grid: B's (row block, kv head) blocks and C's fixed decode grid
+    n_pre = sum(pads) * (Hq // Hkv) // KERNEL_ROWS[qp.dtype] * Hkv
     n_dec = decode_grid(dev) if dev.type == "cuda" and B else 0
     print(f"depth={args.depth} K={K} sched={n_pre + n_dec} "
           f"(pre {n_pre} dec {n_dec})", flush=True)

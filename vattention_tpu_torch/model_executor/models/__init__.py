@@ -2,8 +2,7 @@
 
 llama, yi, mistral, qwen, qwen2, internlm and opt share the llama-family
 body (their differences are ModelArch data: a sliding window, a qkv bias);
-falcon's parallel-attention body is not ported and raises
-NotImplementedError (ROADMAP Queue 1 item 12).
+falcon has its own parallel-attention layer on the same serving path.
 """
 
 from __future__ import annotations
@@ -12,6 +11,8 @@ from vattention_tpu_torch.model_executor.models.llama import LlamaForCausalLM
 
 
 def get_model_class(model_type: str):
+    from vattention_tpu_torch.model_executor.models.falcon import (
+        FalconForCausalLM)
     from vattention_tpu_torch.model_executor.models.internlm import (
         InternLMForCausalLM)
     from vattention_tpu_torch.model_executor.models.mistral import (
@@ -28,9 +29,10 @@ def get_model_class(model_type: str):
         "qwen2": Qwen2ForCausalLM,
         "internlm": InternLMForCausalLM,
         "opt": LlamaForCausalLM,
+        "falcon": FalconForCausalLM,
     }
     if model_type not in registry:
         raise NotImplementedError(
-            f"model type {model_type!r} is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+            f"model type {model_type!r} is not ported (known: "
+            f"{sorted(registry)})")
     return registry[model_type]

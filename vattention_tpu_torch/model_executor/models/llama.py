@@ -9,8 +9,9 @@ rms_norm -> qkv -> rope + KV append (one launch of kernel A) ->
 attention (kernels B/C) -> o-proj -> SwiGLU, one kernel launch per layer
 and op, and no host wait.  The arena is updated in place.  A sliding
 window (``ModelArch.sliding_window``, mistral) is the attention
-backend's, and a qkv bias (qwen, internlm) is a weight; falcon's
-parallel attention is not ported (ROADMAP Queue 1 item 12).
+backend's, and a qkv bias (qwen, internlm) is a weight.  Falcon's
+parallel attention is its own subclass (``models/falcon.py``), which
+reuses this class's constructor, parameter drawing and logits.
 """
 
 from __future__ import annotations
@@ -31,11 +32,15 @@ Params = Dict[str, object]
 class LlamaForCausalLM:
     """Model definition + forward; weights live in a separate dict."""
 
+    # whether this class computes attention and the MLP in parallel from
+    # one norm (falcon's subclass); ModelArch.parallel_attn must agree
+    parallel_attn = False
+
     def __init__(self, arch: ModelArch, *, dtype: torch.dtype = torch.bfloat16):
-        if arch.parallel_attn:
+        if arch.parallel_attn != self.parallel_attn:
             raise NotImplementedError(
-                f"{arch.model_type}: parallel attention is not ported yet "
-                "(ROADMAP Queue 1 item 12)")
+                f"{arch.model_type}: parallel_attn={arch.parallel_attn} "
+                f"does not fit {type(self).__name__}'s layer")
         self.arch = arch
         self.dtype = dtype
         self.hq = arch.num_q_heads
@@ -72,8 +77,9 @@ class LlamaForCausalLM:
     def init_params(self, device: torch.device, *, seed: int = 0,
                     zero: bool = False) -> Params:
         """Random (load_format=dummy) or zero weights, drawn on ``device``
-        one layer at a time from a seeded generator: norms are ones, qkv
-        biases zeros, every other weight N(0, 0.02^2)."""
+        one layer at a time from a seeded generator: norms are ones, biases
+        (``*_b``: qkv and norm biases) zeros, every other weight
+        N(0, 0.02^2)."""
         gen = None if zero else torch.Generator(device=device).manual_seed(seed)
         params: Params = {"layers": {}}
         for name, shape in self.param_shapes().items():
@@ -81,7 +87,7 @@ class LlamaForCausalLM:
             short = name.split(".")[-1]
             if short.endswith("norm"):
                 t.fill_(1.0)
-            elif zero or short == "qkv_b":
+            elif zero or short.endswith("_b"):
                 t.zero_()
             else:
                 for part in (t if name.startswith("layers.") else [t]):
@@ -121,8 +127,14 @@ class LlamaForCausalLM:
     def head(self, params: Params, x: torch.Tensor,
              sample_idx: torch.Tensor) -> torch.Tensor:
         """Logits [B, V] in float32 for the rows ``sample_idx`` (clamped)."""
+        x = rms_norm(x, params["final_norm"], self.arch.rms_norm_eps)
+        return self.logits(params, x, sample_idx)
+
+    def logits(self, params: Params, x: torch.Tensor,
+               sample_idx: torch.Tensor) -> torch.Tensor:
+        """The LM head on the normalized rows ``sample_idx`` (clamped) ->
+        [B, V] float32."""
         a = self.arch
-        x = rms_norm(x, params["final_norm"], a.rms_norm_eps)
         hs = x[sample_idx.clamp(0, x.shape[0] - 1)]  # [B, H]
         head = (params["embed"].T if a.tie_word_embeddings
                 else params["lm_head"])

@@ -1,8 +1,9 @@
 """Weight loading (counterpart of vattention_tpu/model_executor/weight_utils.py).
 
 Formats: "dummy" (seeded random weights drawn on the target device, one
-layer at a time), "zero", and "safetensors" (a local HF llama-family
-checkpoint directory).  ``params_from_jax`` carries a JAX parameter
+layer at a time), "zero", and "safetensors" (a local HF checkpoint
+directory: the llama family's ``model.layers.*`` names or falcon's
+``transformer.h.*``).  ``params_from_jax`` carries a JAX parameter
 pytree, converted to numpy by the caller, across unchanged: the port keeps
 the JAX layout.
 """
@@ -59,19 +60,9 @@ def _hf_layer_names(model) -> Dict[str, tuple]:
     return names
 
 
-def load_safetensors(model, model_config: ModelConfig,
-                     device: torch.device) -> Dict[str, Any]:
-    """Load the ``*.safetensors`` files under ``model_config.model`` (HF
-    llama-family names) into the port's stacked params on ``device``.
-
-    The JAX loader at tp_rank 0, in another memory shape: each stacked
-    tensor is allocated once on ``device``, and the checkpoint is read one
-    tensor at a time and copied into its place, so the host holds about
-    one tensor.  q/k/v (and their biases) fill ``qkv_w`` (``qkv_b``),
-    gate/up fill ``gate_up_w``, [out, in] projections land as [in, out],
-    and ``lm_head`` is read unless the embeddings are tied.  Tensors of any
-    dtype torch reads (bf16 included) are cast to the model's.
-    """
+def _checkpoint_keys(model_config: ModelConfig) -> Dict[str, str]:
+    """Tensor name -> the ``*.safetensors`` file under
+    ``model_config.model`` that holds it."""
     from safetensors import safe_open
 
     files = sorted(glob.glob(os.path.join(model_config.model,
@@ -83,11 +74,11 @@ def load_safetensors(model, model_config: ModelConfig,
     for f in files:
         with safe_open(f, framework="pt") as sf:
             keys.update(dict.fromkeys(sf.keys(), f))
-    if any(k.startswith("transformer.h.") for k in keys):
-        raise NotImplementedError(
-            "falcon's checkpoint layout (transformer.h.*) is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+    return keys
 
+
+def _empty_params(model, device: torch.device) -> Dict[str, Any]:
+    """The model's params, allocated once on ``device`` and unfilled."""
     params: Dict[str, Any] = {"layers": {}}
     for name, shape in model.param_shapes().items():
         t = torch.empty(shape, dtype=model.dtype, device=device)
@@ -95,21 +86,19 @@ def load_safetensors(model, model_config: ModelConfig,
             params["layers"][name[len("layers."):]] = t
         else:
             params[name] = t
-    # HF name -> the view of a port param it fills
-    targets = {"model.embed_tokens.weight": params["embed"],
-               "model.norm.weight": params["final_norm"]}
-    if "lm_head" in params:
-        targets["lm_head.weight"] = params["lm_head"]
-    for l in range(model.arch.num_layers):
-        for hf, (dst, cols) in _hf_layer_names(model).items():
-            view = params["layers"][dst][l]
-            targets[f"model.layers.{l}.{hf}"] = (
-                view if cols is None else view[..., cols])
+    return params
+
+
+def _fill(targets: Dict[str, list], keys: Dict[str, str],
+          model_config: ModelConfig, device: torch.device) -> None:
+    """Copy each checkpoint tensor into its targets, (view, transpose)
+    pairs, reading one tensor at a time, file by file."""
+    from safetensors import safe_open
+
     missing = sorted(set(targets) - set(keys))
     if missing:
         raise KeyError(f"{model_config.model}: the checkpoint lacks "
                        f"{len(missing)} tensors, e.g. {missing[:4]}")
-
     by_file: Dict[str, list] = {}
     for name in targets:
         by_file.setdefault(keys[name], []).append(name)
@@ -117,17 +106,89 @@ def load_safetensors(model, model_config: ModelConfig,
         with safe_open(f, framework="pt") as sf:
             for name in names:
                 src = sf.get_tensor(name).to(device)
-                # embeddings are [vocab, hidden] in both layouts
-                if src.dim() == 2 and name != "model.embed_tokens.weight":
-                    src = src.T
-                dst = targets[name]
-                if src.shape != dst.shape:
-                    raise ValueError(f"{name}: shape {tuple(src.shape)} "
-                                     f"does not fit {tuple(dst.shape)}")
-                dst.copy_(src)
+                for dst, transpose in targets[name]:
+                    val = src.T if transpose else src
+                    if val.shape != dst.shape:
+                        raise ValueError(
+                            f"{name}: shape {tuple(val.shape)} does not fit "
+                            f"{tuple(dst.shape)}")
+                    dst.copy_(val)
                 del src
     logger.info("loaded %d safetensors tensors from %s (%d files)",
-                len(targets), model_config.model, len(files))
+                len(targets), model_config.model, len(by_file))
+
+
+def load_safetensors(model, model_config: ModelConfig,
+                     device: torch.device) -> Dict[str, Any]:
+    """Load the ``*.safetensors`` files under ``model_config.model`` (HF
+    llama-family names) into the port's stacked params on ``device``;
+    falcon goes to ``load_safetensors_falcon``, as in the JAX loader.
+
+    The JAX loader at tp_rank 0, in another memory shape: each stacked
+    tensor is allocated once on ``device``, and the checkpoint is read one
+    tensor at a time and copied into its place, so the host holds about
+    one tensor.  q/k/v (and their biases) fill ``qkv_w`` (``qkv_b``),
+    gate/up fill ``gate_up_w``, [out, in] projections land as [in, out],
+    and ``lm_head`` is read unless the embeddings are tied.  Tensors of any
+    dtype torch reads (bf16 included) are cast to the model's.
+    """
+    if model.arch.model_type == "falcon":
+        return load_safetensors_falcon(model, model_config, device)
+    keys = _checkpoint_keys(model_config)
+    params = _empty_params(model, device)
+    # HF name -> the view of a port param it fills; embeddings are
+    # [vocab, hidden] in both layouts, every other 2-D weight transposed
+    targets = {"model.embed_tokens.weight": [(params["embed"], False)],
+               "model.norm.weight": [(params["final_norm"], False)]}
+    if "lm_head" in params:
+        targets["lm_head.weight"] = [(params["lm_head"], True)]
+    for l in range(model.arch.num_layers):
+        for hf, (dst, cols) in _hf_layer_names(model).items():
+            view = params["layers"][dst][l]
+            targets[f"model.layers.{l}.{hf}"] = [(
+                view if cols is None else view[..., cols], view.dim() == 2)]
+    _fill(targets, keys, model_config, device)
+    return params
+
+
+# falcon's name inside ``transformer.h.<l>.`` -> the port's stacked param
+_FALCON_LAYER_NAMES = {
+    "self_attention.query_key_value.weight": "qkv_w",
+    "self_attention.dense.weight": "o_w",
+    "mlp.dense_h_to_4h.weight": "up_w",
+    "mlp.dense_4h_to_h.weight": "down_w",
+    "input_layernorm.weight": "input_norm",
+    "input_layernorm.bias": "input_norm_b",
+}
+
+
+def load_safetensors_falcon(model, model_config: ModelConfig,
+                            device: torch.device) -> Dict[str, Any]:
+    """Load a Falcon-7B-layout checkpoint (``transformer.h.{l}.*``: the
+    fused MQA ``query_key_value`` laid out [q | k | v], one LayerNorm with
+    a bias per layer, ``transformer.ln_f``) into the falcon params on
+    ``device``: the counterpart of the JAX ``load_safetensors_falcon``, in
+    ``load_safetensors``'s memory shape (params allocated once, one
+    checkpoint tensor at a time).  [out, in] weights land as [in, out];
+    ``lm_head`` is ``lm_head.weight`` transposed, or the word embeddings
+    transposed where the checkpoint has no head."""
+    keys = _checkpoint_keys(model_config)
+    params = _empty_params(model, device)
+    targets = {
+        "transformer.word_embeddings.weight": [(params["embed"], False)],
+        "transformer.ln_f.weight": [(params["final_norm"], False)],
+        "transformer.ln_f.bias": [(params["final_norm_b"], False)]}
+    head = (params["lm_head"], True)
+    if "lm_head.weight" in keys:
+        targets["lm_head.weight"] = [head]
+    else:
+        targets["transformer.word_embeddings.weight"].append(head)
+    lp = params["layers"]
+    for l in range(model.arch.num_layers):
+        for hf, dst in _FALCON_LAYER_NAMES.items():
+            view = lp[dst][l]
+            targets[f"transformer.h.{l}.{hf}"] = [(view, view.dim() == 2)]
+    _fill(targets, keys, model_config, device)
     return params
 
 

@@ -12,7 +12,11 @@ static kv-tile grids and their buckets) have no counterpart: the kernel
 loops to each slot's live depth.
 
 Bound on the H100: bytes (each live K/V row is read once; ~2G FLOPs per
-byte).  Design: csrc/decode_attention.cu, its body in
+byte).  Any group G = Hq/Hkv: the body takes a kv head's query heads in
+chunks of ``chunk_width(G)`` (G rounded up to 1, 2, 4 or 8, at most 8, the
+N of its tensor-core tile), each chunk a head of the split plan
+(``plan_heads``), so Falcon-7B's 71 heads on one kv head are 9 chunks.
+Design: csrc/decode_attention.cu, its body in
 decode_attention.cuh (shared with kernel F): one launch of a fixed grid
 (``decode_grid``: twice the SM count, whatever the table's depth); every
 block plans the splits over the slots' live depths from ``seqlens`` on
@@ -48,7 +52,9 @@ DECODE_ATTENTION = CudaKernel("decode_attention", "vattn_decode_attention", [
     ctypes.c_float, I, I, I, I, P])
 
 KERNEL_HEAD_DIM = 128
-KERNEL_GROUPS = (1, 2, 4, 8)
+# the decode body's chunk widths: a group of G query heads per kv head goes
+# through the tensor cores in chunks of chunk_width(G) heads
+CHUNK_WIDTHS = (1, 2, 4, 8)
 # the split plan of csrc/decode_attention.cuh
 DECODE_TILE = 64        # positions per tile
 MIN_SPLIT_TILES = 4     # a split's least tiles
@@ -63,6 +69,19 @@ MAX_GRID = 1024         # grid limit (a merge's weights in shared memory)
 # that share it run at once.
 _scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 _grid: Dict[torch.device, int] = {}
+
+
+def chunk_width(group: int) -> int:
+    """The decode body's chunk width for ``group`` heads per kv head: the
+    group rounded up to 1, 2, 4 or 8, at most 8 (csrc/decode_attention.cuh
+    ``chunk_width``)."""
+    return next((c for c in CHUNK_WIDTHS if c >= group), CHUNK_WIDTHS[-1])
+
+
+def plan_heads(hkv: int, group: int) -> int:
+    """The (kv head, chunk) pairs the decode plan splits: ``hkv *
+    cdiv(group, chunk_width(group))`` (Falcon-7B: 1 * 9)."""
+    return hkv * -(-group // chunk_width(group))
 
 
 def window_arg(window) -> int:
@@ -117,7 +136,7 @@ def check_decode_args(name, q, kv_cache, tile_rows, seqlens, layer: int,
     check_cuda_tensor("tile_rows", tile_rows, torch.int32, dev)
     check_cuda_tensor("seqlens", seqlens, torch.int32, dev)
     if (q.dtype not in DTYPE_CODES or D != KERNEL_HEAD_DIM or Dc != D
-            or Hq % Hkv or Hq // Hkv not in KERNEL_GROUPS
+            or not Hkv or Hq % Hkv or Hq < Hkv
             or tile_rows.dim() != 2 or tile_rows.shape[0] != B
             or seqlens.shape != (B,) or B > MAX_SLOTS
             or not 0 <= layer < L or sub <= 0):
@@ -125,7 +144,7 @@ def check_decode_args(name, q, kv_cache, tile_rows, seqlens, layer: int,
             f"{name}: q {tuple(q.shape)} {q.dtype}, cache "
             f"{tuple(kv_cache.shape)}, tile_rows {tuple(tile_rows.shape)}, "
             f"seqlens {tuple(seqlens.shape)} (head dim {KERNEL_HEAD_DIM}, "
-            f"groups {KERNEL_GROUPS}, at most {MAX_SLOTS} slots)")
+            f"Hkv dividing Hq, at most {MAX_SLOTS} slots)")
 
 
 def decode_grid(device: torch.device) -> int:
@@ -141,16 +160,18 @@ def decode_grid(device: torch.device) -> int:
 def decode_scratch(device: torch.device, batch: int, hkv: int, group: int,
                    grid: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(partials, tickets) for one launch of C's body: float32 room for
-    ``grid + batch * hkv`` split partials of ``group * (D + 2)`` floats
-    rounded up to 16 bytes (the plan makes at most that many ranges) and
-    ``batch * hkv`` int32 counters at 0, grown when a launch needs more."""
-    per_part = -(-group * (KERNEL_HEAD_DIM + 2) // 4) * 4
-    floats = (grid + batch * hkv) * per_part
+    ``grid + batch * H`` split partials of ``C * (D + 2)`` floats rounded up
+    to 16 bytes, with C = chunk_width(group) and H = plan_heads(hkv, group)
+    (the plan makes at most that many ranges), and ``batch * H`` int32
+    counters at 0, grown when a launch needs more."""
+    per_part = -(-chunk_width(group) * (KERNEL_HEAD_DIM + 2) // 4) * 4
+    heads = batch * plan_heads(hkv, group)
+    floats = (grid + heads) * per_part
     part, tickets = _scratch.get(device, (None, None))
-    if part is None or part.numel() < floats or tickets.numel() < batch * hkv:
+    if part is None or part.numel() < floats or tickets.numel() < heads:
         part = torch.empty(max(floats, 1), dtype=torch.float32,
                            device=device)
-        tickets = torch.zeros(max(batch * hkv, 64), dtype=torch.int32,
+        tickets = torch.zeros(max(heads, 64), dtype=torch.int32,
                               device=device)
         _scratch[device] = (part, tickets)
     return part, tickets

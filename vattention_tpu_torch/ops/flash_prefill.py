@@ -16,10 +16,15 @@ padding maps tail tiles to -- give zeros, and so does a padding row that
 sees no key (at least ``window`` past kv_len; the JAX kernel leaves such
 rows undefined).
 
-The kernel's own q tile is ``KERNEL_ROWS[dtype] / G`` tokens (G =
-Hq/Hkv): 128/G in bfloat16, 64/G in float32; ``pad_tile`` stays the
-scheduler's charge unit (config.PREFILL_TOKEN_PAD = 128), which every
-group of 1, 2, 4 or 8 fits.  Dropped TPU devices: ``kv_fetch``,
+A block of the kernel holds ``KERNEL_ROWS[dtype]`` query rows (128 in
+bfloat16, 64 in float32) of one kv head, its (token, head) rows flattened
+in that order, so a block may end inside a token: any group G = Hq/Hkv
+fills every row (Falcon-7B's G = 71 too).  No block may straddle a pad
+tile, so ``pad_tile`` must be a multiple of the least q tile
+``min_q_tile(dtype, G) = KERNEL_ROWS / gcd(KERNEL_ROWS, G)`` tokens (1 for
+G = 128, 128/G for G = 1, 2, 4, 8, 128 for G = 71 in bf16);
+``pad_tile`` stays the scheduler's charge unit
+(config.PREFILL_TOKEN_PAD = 128), which every group fits.  Dropped TPU devices: ``kv_fetch``,
 ``seq_tile``, static kv grids and their buckets -- the kernel walks each
 q tile's keys to its causal diagonal, and under a window from the first
 64-key tile its first row sees, so tiles wholly before the window are
@@ -27,8 +32,8 @@ neither read nor multiplied.
 
 Bound on the H100: operations at serving depth (4*Hq*D FLOPs per attended
 (query, key) pair).  Design: csrc/prefill_attention.cuh -- a block per
-(q tile, kv head) covers the G heads of one GQA group and keeps an online
-float32 softmax per row.  bfloat16: two warpgroups of 64 query rows run
+(row block, kv head) covers 128 (bf16) or 64 (f32) consecutive (token,
+head) rows of one GQA group and keeps an online float32 softmax per row.  bfloat16: two warpgroups of 64 query rows run
 both products with wgmma (S and P in registers, float32 accumulate) over
 K/V tiles that a producer warpgroup brings into a ring in shared memory
 by cp.async; float32: the same algorithm on the CUDA cores.
@@ -55,6 +60,7 @@ permutation of its vector lanes) has no counterpart.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -132,12 +138,24 @@ def causal_prefill_plain(q, kv_cache, qt_run, qinfo, rows_of, layer: int, *,
     return out
 
 
+def min_q_tile(dtype: torch.dtype, group: int) -> int:
+    """The least q tile, in tokens, of the CUDA prefill body at ``group``
+    query heads per kv head: ``KERNEL_ROWS / gcd(KERNEL_ROWS, group)``, so
+    that a tile's flattened (token, head) rows fill whole blocks (0 for a
+    dtype without a body).  Kernels G and H take it as their tile
+    (csrc/prefill_attention.cuh ``min_q_tile``)."""
+    rows = KERNEL_ROWS.get(dtype, 0)
+    if not rows or group <= 0:
+        return 0
+    return rows // math.gcd(rows, group)
+
+
 def check_prefill_shapes(name, q, kv_cache, layer: int, q_tile, fits: bool,
                          **tables) -> None:
     """Raise unless the CUDA prefill body (kernels B, E, F, G, H) takes
-    these arguments: ``q``'s tokens in tiles of ``q_tile`` (None: one
-    block's, ``KERNEL_ROWS[q.dtype] / G`` tokens), ``tables`` the kernel's
-    int32 tables and ``fits`` its own conditions on their shapes."""
+    these arguments: ``q``'s tokens in tiles of ``q_tile`` (None: the
+    least, ``min_q_tile``), ``tables`` the kernel's int32 tables and
+    ``fits`` its own conditions on their shapes."""
     Tq, Hq, D = q.shape
     L, _, Hkv, _, Dc = kv_cache.shape
     check_cuda_tensor("q", q)
@@ -146,10 +164,10 @@ def check_prefill_shapes(name, q, kv_cache, layer: int, q_tile, fits: bool,
         check_cuda_tensor(arg, t, torch.int32, q.device)
     G = Hq // Hkv if Hkv and Hq % Hkv == 0 else 0
     block = KERNEL_ROWS.get(q.dtype, 0)
-    rows = block // G if G and block % G == 0 else 0
+    rows = min_q_tile(q.dtype, G)
     if q_tile is None:
         q_tile = rows
-    if (not fits or not block or D != KERNEL_HEAD_DIM
+    if (not fits or D != KERNEL_HEAD_DIM
             or Dc != D or not rows or q_tile <= 0 or q_tile % rows
             or Tq % q_tile or not 0 <= layer < L):
         raise ValueError(
@@ -157,8 +175,8 @@ def check_prefill_shapes(name, q, kv_cache, layer: int, q_tile, fits: bool,
             f"{tuple(kv_cache.shape)}, "
             + ", ".join(f"{k} {tuple(t.shape)}" for k, t in tables.items())
             + f", q tile {q_tile} (head dim {KERNEL_HEAD_DIM}, q tiles of "
-            f"a multiple of {block or '128 (bf16) or 64 (f32)'} / G "
-            "tokens)")
+            f"a multiple of {block or '128 (bf16) or 64 (f32)'} / "
+            "gcd(that, G) tokens)")
 
 
 def check_prefill_args(name, q, kv_cache, qt_run, qinfo, table, layer: int,
