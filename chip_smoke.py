@@ -250,6 +250,42 @@ same kernel with the rotation off, held and timed in (a) as before.
     tokens and extent tables after every step.  Requests/s, processed
     tok/s, the streamed requests' TTFT p50 and max, and the checkpoint's
     load GB/s are printed, each beside the card's name and power limit.
+(r) The benchmark package (``vattention_tpu_torch/benchmark``, driven
+    through ``microbenchmarks/benchmark_phase.py``) on bench.py's headline
+    workload: yi-6b-200k-l16 (bf16, seed-0 dummy weights), sarathi chunk
+    2048, batch 8, max_model_len 32896, gpu_memory_utilization 0.93, a
+    static trace of 8 requests of 32444 prompt + 324 decode tokens, through
+    ``BenchmarkRunner`` with its warm-up on fa_vattn_2mb, then (r paged)
+    fa_paged_256 and (r pod) fa_pod; the launch counts zeroed after the
+    warm-up and read after the timed run.  Each run completes 8 of 8 with
+    no preemption and the trace's processed and decode token totals,
+    captures no CUDA graph in the timed run, launches its backend's kernels
+    (A, B, C; A, E, C; A, F, B, C) and not the others', and D once per
+    relocation plan; the three backends' tokens are equal, F + B and F + C
+    on fa_pod equal B and C on fa_vattn_2mb, and request 0's first token
+    is within 0.25 logits of a dense reference in the model's bf16
+    arithmetic at 32444 tokens.  Processed tok/s (processed tokens over
+    the makespan, bench.py's metric), the wall, the steps with their
+    prefill and decode seconds, and vs_baseline (fa_vattn_2mb over
+    fa_paged_256) are printed beside the card's name and power limit.
+(r dyn) Arrivals over time under memory pressure: 48 requests of the
+    lengths of data/processed_traces/arxiv_synthetic_v2.csv (its first 48
+    rows), Poisson arrivals at 2 requests/s, through ``BenchmarkRunner`` on
+    fa_vattn_64kb (64-token blocks, 8 extents per request), batch 16,
+    chunk 512, max_model_len 32768, the arena sized to 2 GiB (65536
+    tokens): every request completes, no graph is captured in the timed
+    run, A, B and C launch and E, F, G, H do not, D launches once per
+    relocation plan; request e2e time per token p50/p90/p99, TTFT p50/p99,
+    TBT p99, scheduling delay p99, the moves, D's launches and the
+    fragmentation are printed.
+(r rep) ``BenchmarkRunnerLauncher``: 2 replicas of yi-6b-200k-l16 on the
+    card (each arena from half of gpu_memory_utilization 0.9), 8 static
+    requests of 2048 + 32 tokens on fa_vattn_2mb: 4 completed per replica,
+    the merged totals the sums, the device memory back after cleanup.
+    (r cap) ``CapacitySearch`` over 16 requests of the trace's lengths,
+    qps 1 to 4, one bisection step, scheduling delay p99 SLO 0.3 s: the
+    probe history is printed.  (r yaml) ``main.run_from_flat`` on a YAML file
+    that cuts default.yml to 2 requests of 1024 + 16 tokens.
 
 Kernels G (single-run arena prefill, rows from the extent table) and H
 (single-run paged prefill) run only in (a), (a w), (f) and (f w).  In (a) each is held
@@ -268,7 +304,8 @@ H, then the falcon instances ``<name>[falcon]`` with launches from (k),
 ``[falcon int8]`` from (b falcon) and (f falcon), each with
 ``bound_real_ms``; then ``rope_kv_append`` and its ``[e4m3]``,
 ``[int8]``, ``[f32]``, ``[mistral]`` and falcon instances with launches
-from (c), (c8), (b), (g), (k) and (b falcon);
+from (c), (c8), (b), (g), (k) and (b falcon); the bf16 ``arena_relocate``
+row's launches from (r dyn), the one serving run that relocates;
 ``kv_append``, which serving no longer runs, shows 0), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -278,6 +315,7 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2572,6 +2610,298 @@ def server_phase(dev, kernels, required, idle, smi):
 
 
 # --------------------------------------------------------------------- #
+# (r) the benchmark package: bench.py's headline workload, arrivals over
+# time, replicas, the capacity search, the YAML config
+# --------------------------------------------------------------------- #
+# bench.py's serving workload (bench.py:123-157, 239-240): yi-6b-200k-l16,
+# 8 requests of 32768 - 324 prompt and 324 decode tokens, chunk 2048
+BENCH_MODEL = "yi-6b-200k-l16"
+BENCH_REQUESTS, BENCH_PREFILL, BENCH_DECODE = 8, 32444, 324
+TRACE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                     "processed_traces", "arxiv_synthetic_v2.csv")
+
+
+def bench_kwargs(output_dir, **kw):
+    """A full-width engine of the benchmark phases: yi-6b-200k-l16, bf16,
+    seed-0 dummy weights (zero weights would make every token 0)."""
+    return dict(model=BENCH_MODEL, dtype="bfloat16", load_format="dummy",
+                seed=0, scheduler_type="sarathi", write_metrics=True,
+                output_dir=output_dir, **kw)
+
+
+def bench_phase(dev, kernels, smi, out_dir):
+    """(r): bench.py's headline workload through ``BenchmarkRunner`` on
+    fa_vattn_2mb, fa_paged_256 and fa_pod (``microbenchmarks/
+    benchmark_phase.serve``), the launch counts zeroed after the warm-up
+    and read after the timed run.  Every request completes with none
+    preempted and the trace's token totals; no CUDA graph is captured in
+    the timed run; the backends' tokens are equal; request 0's first token
+    is within LOGIT_GAP_TOL of a dense reference in the model's bf16
+    arithmetic; each backend's kernels launch and the others' do not; D
+    launches once per relocation plan.  Returns each backend's counts."""
+    from vattention_tpu_torch.microbenchmarks import benchmark_phase as phase
+    from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
+    from vattention_tpu_torch.ops.cache_append import (KV_APPEND,
+                                                       ROPE_KV_APPEND)
+    from vattention_tpu_torch.ops.flash_decode import DECODE_ATTENTION
+    from vattention_tpu_torch.ops.flash_prefill import (
+        PREFILL_ATTENTION, SEGMENT_PREFILL_ATTENTION)
+    from vattention_tpu_torch.ops.paged_attention import (
+        PAGED_PREFILL_ATTENTION, PAGED_PREFILL_SINGLE)
+    from vattention_tpu_torch.ops.pod_fused import POD_ATTENTION
+
+    a, b, c, d, e, f = (ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                        ARENA_RELOCATE, PAGED_PREFILL_ATTENTION, POD_ATTENTION)
+    never = [KV_APPEND, SEGMENT_PREFILL_ATTENTION, PAGED_PREFILL_SINGLE]
+    cases = (("fa_vattn_2mb", "r", [a, b, c], [e, f]),
+             ("fa_paged_256", "r paged", [a, e, c], [b, f, d]),
+             ("fa_pod", "r pod", [a, f, b, c], [e]))
+    gen = dict(num_requests=BENCH_REQUESTS, prefill_tokens=BENCH_PREFILL,
+               decode_tokens=BENCH_DECODE, interval_generator="static",
+               length_generator="fixed", seed=0)
+    counts, tokens, tok_s = {}, {}, {}
+    for backend, tag, required, idle in cases:
+        kw = bench_kwargs(out_dir, attention_backend=backend,
+                          chunk_size=2048, max_batch_size=8, max_num_seqs=8,
+                          max_model_len=BENCH_PREFILL + BENCH_DECODE + 128,
+                          gpu_memory_utilization=0.93)
+        res = phase.serve(kw, gen, kernels=kernels)
+        phase.check_static(res, BENCH_REQUESTS, BENCH_PREFILL, BENCH_DECODE,
+                           tag)
+        runner = res["runner"]
+        engine = runner.engine
+        got = res["counts"]
+        t, ps = res["summary"]["totals"], res["summary"]["phase_stats"]
+        log(f"({tag}) {backend}: {t['completed_requests']} requests of "
+            f"{BENCH_PREFILL} + {BENCH_DECODE} tokens, chunk 2048, batch 8, "
+            f"max_model_len {kw['max_model_len']}: processed tok/s "
+            f"{res['tok_s']:.2f} (processed {t['processed_tokens']} / "
+            f"makespan {t['makespan_s']:.4f} s), wall {res['wall_s']:.4f} s, "
+            f"{t['num_steps']} steps ({ps['prefill_steps']} with prefill "
+            f"{ps['prefill_time_s']:.4f} s, {ps['decode_steps']} decode-only "
+            f"{ps['decode_time_s']:.4f} s), preemptions {t['preemptions']}, "
+            f"on {smi}")
+        log(f"({tag}) CUDA graphs: {res['graphs_warm']} after the warm-up, "
+            f"{res['graphs_end']} after the timed run; launches: "
+            + ", ".join(f"{s_} {n}" for s_, n in got.items())
+            + f"; {res['plans']} relocation plans of {res['moves']} block "
+            "moves")
+        if any(got[k.symbol] <= 0 for k in required):
+            raise AssertionError(f"({tag}) a kernel never launched: {got}")
+        if any(got[k.symbol] > 0 for k in idle + never):
+            raise AssertionError(f"({tag}) a kernel of another path "
+                                 f"launched: {got}")
+        if got[d.symbol] != res["plans"]:
+            raise AssertionError(f"({tag}) {res['plans']} relocation plans "
+                                 f"but {d.symbol} launched {got[d.symbol]} "
+                                 "times")
+        if backend == "fa_pod" and engine.worker.model_runner.backend \
+                .pod_steps <= 0:
+            raise AssertionError(f"({tag}) no step ran through kernel F")
+        if tag == "r":
+            # request 0's first token against the dense reference at
+            # 32,444 tokens (bf16 arithmetic, attention in float32)
+            model_runner = engine.worker.model_runner
+            ids = res["prompts"]["bench0"]
+            tok = res["tokens"]["bench0"][0]
+            with torch.no_grad():
+                logits = dense_logits(model_runner.model,
+                                      model_runner.params, ids, dev,
+                                      dtype=torch.bfloat16)
+            gap = float(logits.max() - logits[tok])
+            log(f"({tag}) bench0 ({len(ids)} tokens): first token {tok}, "
+                f"dense bf16 top {int(logits.argmax())}, logit gap "
+                f"{gap:.5f} (tolerance {LOGIT_GAP_TOL})")
+            if not gap <= LOGIT_GAP_TOL:
+                raise AssertionError(f"({tag}) bench0: logit gap {gap}")
+            del logits, model_runner
+        counts[backend], tokens[backend], tok_s[backend] = (
+            got, res["tokens"], res["tok_s"])
+        engine.cleanup()
+        del res, runner, engine
+        phase.free(dev)
+    ref = tokens["fa_vattn_2mb"]
+    for backend in ("fa_paged_256", "fa_pod"):
+        same = sum(x == y for s_ in ref for x, y in zip(ref[s_],
+                                                        tokens[backend][s_]))
+        log(f"(r) {backend}: {same} of {BENCH_REQUESTS * BENCH_DECODE} "
+            "generated tokens equal fa_vattn_2mb's")
+        if tokens[backend] != ref:
+            raise AssertionError(f"(r) {backend}'s tokens differ from "
+                                 "fa_vattn_2mb's")
+    v, p = counts["fa_vattn_2mb"], counts["fa_pod"]
+    log(f"(r pod) F + B = {p[f.symbol]} + {p[b.symbol]} against B on vattn "
+        f"{v[b.symbol]}; F + C = {p[f.symbol]} + {p[c.symbol]} against C "
+        f"{v[c.symbol]}")
+    if (p[f.symbol] + p[b.symbol] != v[b.symbol]
+            or p[f.symbol] + p[c.symbol] != v[c.symbol]):
+        raise AssertionError("(r pod) the fused launches do not add up to "
+                             "fa_vattn_2mb's")
+    log(f"(r) vs_baseline (fa_vattn_2mb / fa_paged_256 processed tok/s): "
+        f"{tok_s['fa_vattn_2mb'] / tok_s['fa_paged_256']:.4f} "
+        f"({tok_s['fa_vattn_2mb']:.2f} / {tok_s['fa_paged_256']:.2f}); "
+        f"fa_pod {tok_s['fa_pod']:.2f}, on {smi}")
+    return counts
+
+
+def arrivals_phase(dev, kernels, smi, out_dir, required, idle):
+    """(r dyn): 48 requests of the trace's lengths (the arxiv_synthetic_v2
+    rows in order) arriving as a Poisson process at 2 requests/s, through
+    ``BenchmarkRunner`` on fa_vattn_64kb (64-token blocks, 8 extents per
+    request), batch 16, chunk 512, max_model_len 32768, the arena sized to
+    2 GiB (65,536 tokens) so extents run out and the allocator relocates.
+    Every request completes; no graph is captured in the timed run; the
+    kernels in ``required`` launch, those in ``idle`` do not, and D
+    launches once per relocation plan.  Each plan is held against
+    ``arena_relocate_plain`` on a clone of the arena taken just before it,
+    byte for byte (the plans' moves reach D through the engine's pinned,
+    non-blocking copy; the plain version gets them from the plan).
+    Returns the counts."""
+    from vattention_tpu_torch.microbenchmarks import benchmark_phase as phase
+    from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
+
+    kw = bench_kwargs(out_dir, attention_backend="fa_vattn_64kb",
+                      chunk_size=512, max_batch_size=16, max_num_seqs=16,
+                      max_model_len=32768)
+    kw["gpu_memory_utilization"] = phase.utilization_for_kv(kw, 2 * 1024**3)
+    n = 48
+    gen = dict(num_requests=n, interval_generator="poisson", qps=2.0,
+               length_generator="trace", trace_file=TRACE, max_tokens=32768,
+               seed=0)
+    res = phase.serve(kw, gen, kernels=kernels, check_relocations=True)
+    engine = res["runner"].engine
+    ce = engine.worker.cache_engine
+    arena_tokens = ce.allocator.num_arena_blocks * ce.block_tokens
+    s = res["summary"]
+    t, ps = s["totals"], s["phase_stats"]
+    got = res["counts"]
+    prompts = [len(v) for v in res["prompts"].values()]
+    log(f"(r dyn) fa_vattn_64kb: {len(prompts)} requests (prompts "
+        f"{min(prompts)}-{max(prompts)}, {sum(prompts)} tokens), Poisson at "
+        f"2/s, arena {arena_tokens} tokens ({ce.allocator.num_arena_blocks} "
+        f"blocks of {ce.block_tokens}), gpu_memory_utilization "
+        f"{kw['gpu_memory_utilization']:.5f}: completed "
+        f"{t['completed_requests']}, preemptions {t['preemptions']}, "
+        f"processed {t['processed_tokens']}, wall {res['wall_s']:.3f} s, "
+        f"{ps['prefill_steps'] + ps['decode_steps']} steps dispatched, "
+        f"graphs {res['graphs_warm']} -> {res['graphs_end']}, on {smi}")
+    q = {k: s[k] for k in ("request_e2e_time_normalized", "ttft", "tbt",
+                           "scheduling_delay")}
+    frag = s.get("fragmentation_overhead", {})
+    log(f"(r dyn) request e2e normalized s/token p50 "
+        f"{q['request_e2e_time_normalized']['p50']:.6f} p90 "
+        f"{q['request_e2e_time_normalized']['p90']:.6f} p99 "
+        f"{q['request_e2e_time_normalized']['p99']:.6f}; TTFT p50 "
+        f"{q['ttft']['p50']:.4f} p99 {q['ttft']['p99']:.4f} s; TBT p99 "
+        f"{q['tbt']['p99']:.5f} s; scheduling delay p99 "
+        f"{q['scheduling_delay']['p99']:.4f} s; fragmentation mean "
+        f"{frag.get('mean', 0.0):.5f} max {frag.get('max', 0.0):.5f}; "
+        f"{res['plans']} relocation plans of {res['moves']} block moves, "
+        f"{ARENA_RELOCATE.symbol} launched {got[ARENA_RELOCATE.symbol]} "
+        f"times; launches: " + ", ".join(f"{k} {v}" for k, v in got.items()))
+    log(f"(r dyn) {ARENA_RELOCATE.symbol} against arena_relocate_plain at "
+        f"{ce.block_tokens}-token blocks, {tuple(ce.kv_cache.shape)} arena: "
+        + ", ".join(f"plan of {m} moves "
+                    f"{'equal byte for byte' if ok else 'DIFFERS'}"
+                    for m, ok in res["relocations"]))
+    if t["completed_requests"] != n:
+        raise AssertionError(f"(r dyn) {t['completed_requests']} of {n} "
+                             "requests completed")
+    if any(got[k.symbol] <= 0 for k in required):
+        raise AssertionError(f"(r dyn) a kernel never launched: {got}")
+    if any(got[k.symbol] > 0 for k in idle):
+        raise AssertionError(f"(r dyn) a kernel of another path launched: "
+                             f"{got}")
+    if got[ARENA_RELOCATE.symbol] != res["plans"]:
+        raise AssertionError(f"(r dyn) {res['plans']} relocation plans but "
+                             f"{ARENA_RELOCATE.symbol} launched "
+                             f"{got[ARENA_RELOCATE.symbol]} times")
+    if (len(res["relocations"]) != res["plans"]
+            or not all(ok for _, ok in res["relocations"])):
+        raise AssertionError(f"(r dyn) relocation checks "
+                             f"{res['relocations']} for {res['plans']} plans")
+    engine.cleanup()
+    del res, engine, ce
+    phase.free(dev)
+    return got
+
+
+def launcher_phases(dev, smi, out_dir):
+    """(r rep): ``BenchmarkRunnerLauncher`` with 2 replicas of
+    yi-6b-200k-l16 on the one card (each arena from half of
+    gpu_memory_utilization 0.9), 8 static requests of 2048 + 32 tokens on
+    fa_vattn_2mb: 4 completed per replica, the merged totals the sums, the
+    device memory back after ``cleanup``.  (r cap): ``CapacitySearch``
+    over 16 requests of the trace's lengths, qps 1 to 4, one bisection
+    step, a scheduling delay p99 SLO of 0.3 s (at 2 s it does not bind
+    for so few requests, and the search probes up to 64 qps); its probes
+    are printed.  (r yaml): ``main.run_from_flat`` on a
+    YAML file that cuts default.yml to 2 requests of 1024 + 16 tokens."""
+    from vattention_tpu_torch.benchmark.capacity_search import CapacitySearch
+    from vattention_tpu_torch.benchmark.capacity_search.capacity_search \
+        import SLOConfig
+    from vattention_tpu_torch.microbenchmarks import benchmark_phase as phase
+
+    kw = bench_kwargs(out_dir, attention_backend="fa_vattn_2mb",
+                      chunk_size=2048, max_batch_size=8, max_num_seqs=8,
+                      max_model_len=4096, gpu_memory_utilization=0.9)
+    t0 = time.perf_counter()
+    res = phase.replicas(kw, dict(num_requests=8, prefill_tokens=2048,
+                                  decode_tokens=32,
+                                  interval_generator="static",
+                                  length_generator="fixed", seed=0), 2)
+    t = res["summary"]["totals"]
+    log(f"(r rep) 2 replicas of {BENCH_MODEL} on one card, arenas "
+        + ", ".join(f"{x / 2**30:.3f}" for x in res["arenas"])
+        + f" GiB: per replica completed "
+        f"{[p['completed_requests'] for p in res['summary']['per_replica_totals']]}"
+        f", merged {t['completed_requests']} requests, processed "
+        f"{t['processed_tokens']}, {t['tokens_per_s']:.2f} tok/s, "
+        f"{t['num_steps']} steps; device memory allocated "
+        f"{res['allocated_before'] / 2**20:.1f} MiB before, "
+        f"{res['allocated_after'] / 2**20:.1f} MiB after cleanup; "
+        f"{time.perf_counter() - t0:.1f} s, on {smi}")
+    if res["allocated_after"] > res["allocated_before"] + 64 * 2**20:
+        raise AssertionError("(r rep) cleanup did not free the replicas' "
+                             "memory")
+
+    t0 = time.perf_counter()
+    kw = bench_kwargs(out_dir, attention_backend="fa_vattn_2mb",
+                      chunk_size=512, max_batch_size=8, max_num_seqs=8,
+                      max_model_len=32768, gpu_memory_utilization=0.9)
+    search = CapacitySearch(
+        kw, dict(length_generator="trace", trace_file=TRACE,
+                 max_tokens=32768, seed=0),
+        SLOConfig(scheduling_delay_slo_s=0.3), num_requests=16,
+        time_limit_s=120.0)
+    qps = search.search(qps_low=1.0, qps_high=4.0, max_iters=1)
+    phase.free(dev)
+    log(f"(r cap) CapacitySearch, 16 requests of the trace's lengths, "
+        f"scheduling delay p99 SLO 0.3 s: {qps} qps after "
+        f"{len(search.probes)} probes {search.probes} in "
+        f"{time.perf_counter() - t0:.1f} s, on {smi}")
+
+    t0 = time.perf_counter()
+    summary = phase.from_yaml(
+        {"output_dir": out_dir,
+         "model": {"name": BENCH_MODEL, "load_format": "dummy",
+                   "attention_backend": "fa_vattn_2mb",
+                   "max_model_len": 4096, "max_batch_size": 8},
+         "replica_scheduler": {"max_batch_size": 8},
+         "synthetic_request_generator": {"num_requests": 2},
+         "fixed_request_length_generator": {"prefill_tokens": 1024,
+                                            "decode_tokens": 16}},
+        out_dir, "cuda", log=log)
+    phase.free(dev)
+    t = summary["totals"]
+    log(f"(r yaml) completed {t['completed_requests']}, processed "
+        f"{t['processed_tokens']}, decode {t['decode_tokens']}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (t["completed_requests"], t["processed_tokens"]) != (2, 2 * 1039):
+        raise AssertionError(f"(r yaml) totals {t}")
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2811,6 +3141,25 @@ def main() -> int:
         dev, kernels, smi=smi,
         required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
         idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (r) ... (r yaml): the benchmark package (its output in a temporary
+    # directory)
+    bench_dir = tempfile.mkdtemp(prefix="vattn-benchmark-")
+    try:
+        t0 = time.perf_counter()
+        bench_phase(dev, kernels, smi, bench_dir)
+        log(f"(r) three backends in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        counts_rdyn = arrivals_phase(
+            dev, kernels, smi, bench_dir,
+            required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+            idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION,
+                  *single])
+        log(f"(r dyn) in {time.perf_counter() - t0:.1f} s")
+        launcher_phases(dev, smi, bench_dir)
+    finally:
+        shutil.rmtree(bench_dir, ignore_errors=True)
 
     # launches: E's from the paged run (d), F's from the POD run (e), G's
     # and H's from the harnesses (f), A-D's from the vattn run (c); on
@@ -2821,7 +3170,8 @@ def main() -> int:
         "kv_append": (KV_APPEND, counts_c),
         "prefill_attention": (PREFILL_ATTENTION, counts_c),
         "decode_attention": (DECODE_ATTENTION, counts_c),
-        "arena_relocate": (ARENA_RELOCATE, counts_c),
+        # D launches on a serving path only under memory pressure
+        "arena_relocate": (ARENA_RELOCATE, counts_rdyn),
         "paged_prefill_attention": (PAGED_PREFILL_ATTENTION, counts_d),
         "pod_attention": (POD_ATTENTION, counts_e),
         "segment_prefill_attention": (SEGMENT_PREFILL_ATTENTION, counts_f),

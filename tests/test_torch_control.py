@@ -5,7 +5,9 @@ sequence types and the Python allocator; these tests hold the copies to
 the originals: the same request trace gives identical SchedulerOutputs
 under each of the five schedulers and both block-space managers (arena
 and block table), and the same allocator workload gives
-identical segment tables and relocation plans at every step.
+identical segment tables and relocation plans at every step.  One
+deliberate divergence is pinned: the port's arena block-space manager
+keeps the unmapped blocks of admitted prompts promised.
 """
 
 import importlib
@@ -136,3 +138,38 @@ def test_allocator_segment_tables_identical(max_segments):
     if max_segments == 1:
         assert any(moves for moves, *_ in jax_log), "no relocation exercised"
     assert torch_log == jax_log
+
+
+def test_admitted_prompts_keep_their_blocks_promised():
+    """A deliberate divergence: the allocator maps a prompt chunk by chunk,
+    so after the step that admits a request its free count no longer
+    holds the blocks the rest of the prompt needs.  The port's arena
+    block-space manager starts each schedule's promises from those
+    blocks; the JAX package's starts from 0 and admits a second request
+    into blocks the first still needs (both prompts together past the
+    arena)."""
+    promised, admits = {}, {}
+    for pkg in PACKAGES:
+        bm_mod = _mod(pkg, "core.block_space_manager."
+                      "vattention_block_space_manager")
+        seq_mod = _mod(pkg, "core.datatypes.sequence")
+        sp = _mod(pkg, "core.datatypes.sampling_params").SamplingParams
+
+        def seq(seq_id, blocks):
+            return seq_mod.Sequence(
+                seq_id, None, list(range(1, 128 * blocks + 1)), 128, -1, 0.0,
+                sp(temperature=0.0, max_tokens=4, ignore_eos=True))
+        bm = bm_mod.vAttentionBlockSpaceManager(128, 100, 8192)
+        bm.set_free_blocks(100)
+        a, b = seq("a", 40), seq("b", 60)
+        bm.clear_promised_blocks()
+        assert bm.can_allocate(a)
+        bm.allocate(a)
+        # the step maps a's first chunk of 512 tokens (4 blocks)
+        a.update_prompt_tokens_processed(512)
+        bm.set_free_blocks(96)
+        bm.clear_promised_blocks()
+        promised[pkg] = bm.promised_blocks
+        admits[pkg] = bm.can_allocate(b)
+    assert promised == {"vattention_tpu": 0, "vattention_tpu_torch": 36}
+    assert admits == {"vattention_tpu": True, "vattention_tpu_torch": False}

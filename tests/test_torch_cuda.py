@@ -61,6 +61,9 @@ from the engine's own thread; the native allocator core is the default
 there; ``load_safetensors`` copies a checkpoint onto the card bit for bit
 (and casts a float32 checkpoint into a bf16 model as ``.to`` does).
 
+The benchmark package: ``main --test`` on fa_vattn_2mb and fa_pod
+completes every request with no CUDA graph captured in its timed loop.
+
 Sliding windows: every kernel of both bodies against its windowed plain
 version at windows 1-300 (the edge cases at 1, 63, 64, 65 and 300, also
 on 1-byte arenas), with the same bit-for-bit identities, C captured in a
@@ -1385,3 +1388,39 @@ def test_load_safetensors_copies_onto_the_card(dev, tmp_path):
             assert torch.equal(got, params["layers"][k].to(torch.bfloat16)), k
         assert torch.equal(loaded["lm_head"],
                            params["lm_head"].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("backend", ["fa_vattn_2mb", "fa_pod"])
+def test_benchmark_main_test_on_the_card(dev, backend, tmp_path,
+                                         monkeypatch):
+    """``python -m vattention_tpu_torch.benchmark.main --test`` on the
+    card: every request completes, and no CUDA graph is captured inside
+    the timed loop (the runner's warm-up met every signature, the fused
+    one on fa_pod among them)."""
+    import argparse
+
+    from vattention_tpu_torch.benchmark import benchmark_runner, main
+    from vattention_tpu_torch.engine.base_llm_engine import BaseLLMEngine
+
+    graphs = {}
+    warmup = benchmark_runner.BenchmarkRunner._warmup
+    cleanup = BaseLLMEngine.cleanup
+
+    def spy_warmup(self):
+        warmup(self)
+        graphs["warm"] = set(self.engine.worker.model_runner.graphs)
+
+    def spy_cleanup(self):
+        graphs["end"] = set(self.worker.model_runner.graphs)
+        cleanup(self)
+    monkeypatch.setattr(benchmark_runner.BenchmarkRunner, "_warmup",
+                        spy_warmup)
+    monkeypatch.setattr(BaseLLMEngine, "cleanup", spy_cleanup)
+    monkeypatch.chdir(tmp_path)
+    summary = main.run_from_args(main.add_args(
+        argparse.ArgumentParser()).parse_args(
+            ["--test", "--attention-backend", backend]))
+    assert summary["totals"]["completed_requests"] == 2
+    assert graphs["end"] == graphs["warm"]
+    assert any(sig[0] == 0 for sig in graphs["warm"])
+    assert any(sig[1] for sig in graphs["warm"]) == (backend == "fa_pod")

@@ -3,7 +3,9 @@
 ref: sarathi-lean/sarathi/core/block_space_manager/vattention_block_space_manager.py:9-97.
 Tracks the worker-reported free-KV-block count plus ``promised_blocks``
 optimism for same-iteration admissions; the real allocation happens in
-the worker's cache engine each step.
+the worker's cache engine each step.  The promises of each schedule start
+from the prompt blocks that admitted requests have yet to map
+(``clear_promised_blocks``), where the JAX package starts from 0.
 """
 
 from __future__ import annotations
@@ -65,7 +67,21 @@ class vAttentionBlockSpaceManager:
         self.active_requests = {}
 
     def clear_promised_blocks(self) -> None:
-        self.promised_blocks = 0
+        """A schedule's promises start from the blocks that admitted
+        requests still need for the rest of their prompts: the allocator
+        maps a prompt chunk by chunk, so its free count does not hold them.
+        (The JAX package starts from 0, so under memory pressure it admits
+        and grows past the arena and its allocator aborts.)"""
+        self.promised_blocks = sum(
+            self._unmapped_prompt_blocks(seq)
+            for seq in self.active_requests.values())
+
+    def _unmapped_prompt_blocks(self, seq: Sequence) -> int:
+        if seq.prompt_processing_finished:
+            return 0
+        return (math.ceil(seq.get_prompt_len() / self.block_size)
+                - math.ceil(seq.get_num_prompt_tokens_processed()
+                            / self.block_size))
 
     def is_allocated(self, seq: Sequence) -> bool:
         return seq.seq_id in self.active_requests

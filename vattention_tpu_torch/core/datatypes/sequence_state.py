@@ -91,6 +91,13 @@ class SequenceState:
     def on_prompt_processing_completed(self) -> None:
         self._prompt_processing_completed_at = time.monotonic()
 
+    def on_completion_observed(self) -> None:
+        """The finished request's last token has reached the host.  Under
+        async execution a length stop is decided when the last step is
+        dispatched, a step or two before its token is read, so the
+        completion is stamped again here (makespan, e2e time)."""
+        self._completed_at = time.monotonic()
+
     def on_token_generated(self) -> None:
         now = time.monotonic()
         self._num_output_tokens += 1

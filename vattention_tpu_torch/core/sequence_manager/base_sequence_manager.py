@@ -127,6 +127,10 @@ class BaseSequenceManager:
             if seq is None or seq.num_pending_tokens == 0:
                 continue  # freed or invalidated since dispatch
             idx = seq.resolve_pending_token(sample.output_token)
+            if idx == 0:
+                # the first token is on the host now, not at the dispatch
+                # of the prompt's last chunk (TTFT)
+                seq.state.on_prompt_processing_completed()
             seq.set_logprob(idx, sample.logprob, sample.top_logprobs)
             self._on_token_resolved(seq, idx)
 

@@ -6,7 +6,9 @@ process.  Async execution (the default, as in the JAX package) dispatches
 each step and applies the samples of older steps as they land: the next
 decode step reads its input tokens from the device, so the host never
 waits for a step it has just dispatched, and at most
-``max_inflight_steps`` steps are unresolved.
+``max_inflight_steps`` steps are unresolved.  A request's first token
+(TTFT) and its completion (e2e time, makespan) are stamped when the token
+reaches the host, where the JAX engine stamps them at dispatch.
 """
 
 from __future__ import annotations
@@ -207,11 +209,15 @@ class BaseLLMEngine:
         return outputs
 
     def _end_finished(self, seq_metadata_list) -> None:
+        """Record the requests whose every sampled token has reached the
+        host (a length stop finishes a request at dispatch, with tokens
+        still pending)."""
         for meta in seq_metadata_list:
             seq = meta.seq
-            if seq.is_finished() and not getattr(seq, "_metrics_ended",
-                                                 False):
+            if (seq.is_finished() and seq.num_pending_tokens == 0
+                    and not getattr(seq, "_metrics_ended", False)):
                 seq._metrics_ended = True
+                seq.state.on_completion_observed()
                 self.metrics_store.on_request_end(seq)
 
     def _on_step_completed(self, scheduler_outputs: SchedulerOutputs,

@@ -38,6 +38,26 @@ _CPU_MEMORY_BYTES = 2 * 1024**3
 _WORKSPACE_BYTES = 1 * 1024**3
 
 
+def param_bytes(model_config) -> int:
+    """The weights' bytes on the device (the JAX package's arithmetic)."""
+    a = model_config.arch
+    D = a.head_dim
+    per_layer = (a.hidden_size * (a.num_q_heads + 2 * a.num_kv_heads) * D
+                 + a.num_q_heads * D * a.hidden_size
+                 + 3 * a.hidden_size * a.intermediate_size)
+    total = a.num_layers * per_layer + 2 * a.vocab_size * a.hidden_size
+    return total * model_config.dtype_bytes
+
+
+def device_memory(device: torch.device) -> tuple:
+    """(free, total, workspace) bytes of ``device``: the workspace is left
+    aside for a step's activations; the CPU tier has a fixed total."""
+    if device.type == "cuda":
+        free, total = torch.cuda.mem_get_info(device)
+        return free, total, _WORKSPACE_BYTES
+    return _CPU_MEMORY_BYTES, _CPU_MEMORY_BYTES, 0
+
+
 class BaseWorker:
     def __init__(self, config: SystemConfig, device: torch.device, *,
                  seed: int = 0):
@@ -53,27 +73,14 @@ class BaseWorker:
         self._inflight: List[tuple] = []
 
     # ------------------------------------------------------------------ #
-    def _param_bytes(self) -> int:
-        a = self.config.model_config.arch
-        D = a.head_dim
-        per_layer = (a.hidden_size * (a.num_q_heads + 2 * a.num_kv_heads) * D
-                     + a.num_q_heads * D * a.hidden_size
-                     + 3 * a.hidden_size * a.intermediate_size)
-        total = a.num_layers * per_layer + 2 * a.vocab_size * a.hidden_size
-        return total * self.config.model_config.dtype_bytes
-
     def profile_num_available_blocks(
             self, memory_utilization: float) -> tuple:
         """(num_blocks, bytes for the KV arena), by the JAX package's
         arithmetic over this device's memory."""
-        if self.device.type == "cuda":
-            free, total = torch.cuda.mem_get_info(self.device)
-            budget = min(free, total * memory_utilization)
-            workspace = _WORKSPACE_BYTES
-        else:
-            budget = _CPU_MEMORY_BYTES * memory_utilization
-            workspace = 0
-        memory_for_kv = int(budget - self._param_bytes() - workspace)
+        free, total, workspace = device_memory(self.device)
+        budget = min(free, total * memory_utilization)
+        memory_for_kv = int(budget - param_bytes(self.config.model_config)
+                            - workspace)
         memory_for_kv = max(memory_for_kv, 64 * 1024 * 1024)
 
         # KV-block geometry (must match the allocator's math)
