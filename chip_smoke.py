@@ -287,6 +287,35 @@ same kernel with the rotation off, held and timed in (a) as before.
     probe history is printed.  (r yaml) ``main.run_from_flat`` on a YAML file
     that cuts default.yml to 2 requests of 1024 + 16 tokens.
 
+(a tp2), (a tp4) (a)'s phase at the heads of one tensor-parallel rank of
+    Yi-6B (16 query heads on 2 kv heads, and 8 on 1), without (a)'s host
+    times and long-context extras: A, B, C, E, F, G, H and D each held
+    against its plain version and timed beside it, its bound and its
+    library call; (a rope) holds kernel A with the rotation at those heads
+    too.  The JSON rows are ``<name>[tp2]`` and ``<name>[tp4]``, with the
+    launches of the (t yi) ranks that ran those heads, summed.
+(t b) Tensor and pipeline parallelism on the card, ranks as processes
+    sharing it over gloo (NCCL refuses two ranks on one device), each with
+    gpu_memory_utilization 0.9 / ranks: tiny-llama-debug in float32 on
+    fa_vattn, fa_paged_256 and fa_pod at tp2, pp2 and tp2 pp2 (three
+    engines per layout, one process group, ``python -m
+    vattention_tpu_torch.parallel.multihost`` per rank); every rank's
+    greedy tokens must equal the one-rank engine's exactly, no step may be
+    captured (gloo's collectives run on the host) and each backend's
+    kernels must launch.  Then ``LLMEngine(tensor_parallel_size=2)`` from
+    this process, its second rank a child, on fa_vattn: the same tokens.
+(t yi) yi-6b-200k at full width (32 layers, 32 q / 4 kv heads, head dim
+    128, bf16, dummy weights from seed 0) with (c)'s 8 requests on
+    fa_vattn_2mb at tp2, pp2, tp2 pp2 and tp4, the ranks processes on the
+    card: every rank serves all 8 x 32 tokens, the same on every rank; A,
+    B and C launch on every rank and E, F, G, H and A without the rotation
+    on none, D once per relocation plan; request s0's first token within
+    0.25 logits of a dense float32 reference's top.  Per layout: processed
+    tok/s beside the card's name and power limit, the share of tokens
+    equal to (c)'s, each rank's launches, the backend and the graphs
+    captured (0).  The NCCL path (one rank per GPU, each step a CUDA graph
+    with its collectives) needs a card per rank and is not run here.
+
 Kernels G (single-run arena prefill, rows from the extent table) and H
 (single-run paged prefill) run only in (a), (a w), (f) and (f w).  In (a) each is held
 against its plain version at B's shape (chunk 512 at kv_len 4096): G over
@@ -306,7 +335,8 @@ H, then the falcon instances ``<name>[falcon]`` with launches from (k),
 ``[int8]``, ``[f32]``, ``[mistral]`` and falcon instances with launches
 from (c), (c8), (b), (g), (k) and (b falcon); the bf16 ``arena_relocate``
 row's launches from (r dyn), the one serving run that relocates;
-``kv_append``, which serving no longer runs, shows 0), the card's name
+``kv_append``, which serving no longer runs, shows 0; the ``[tp2]`` and
+``[tp4]`` rows from (t yi)), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -331,6 +361,8 @@ try:
         check_prefill_edges)
     from vattention_tpu_torch.microbenchmarks.captured_step import (
         check_replays, check_step_does_not_sync, graph_report)
+    from vattention_tpu_torch.microbenchmarks.parallel_serving import (
+        LAYOUTS as RANK_LAYOUTS)
     from vattention_tpu_torch.microbenchmarks.serving_profile import (
         profile_window, serve)
     from vattention_tpu_torch.microbenchmarks.timing import (
@@ -350,6 +382,10 @@ YI = dict(L=32, HQ=32, HKV=4, D=128, DR=128,
           DEC=[0, 1, 17, 512, 1000, 2048, 3000, 4096], tag="")
 FALCON = dict(L=32, HQ=71, HKV=1, D=128, DR=64,
               DEC=[0, 1, 17, 300, 512, 1000, 1500, 2048], tag="falcon")
+# Yi-6B's heads on one rank of tp 2 and tp 4 (16 q on 2 kv heads, 8 on 1);
+# "lean" drops the host-time and long-context extras of (a)
+YI_TP = {tp: dict(YI, HQ=32 // tp, HKV=4 // tp, tag=f"tp{tp}", lean=True)
+         for tp in (2, 4)}
 INT8_STEP = 0.04              # KV_INT8_SCALE's default
 # the 1-byte arenas: kv_quant name, instance tag
 QUANT = {torch.float8_e4m3fn: ("fp8", "e4m3"), torch.int8: ("int8", "int8")}
@@ -500,7 +536,7 @@ def kernel_phase(dev, arena=torch.bfloat16, geo=YI):
                   for _ in range(5)]
         log("(a) kv_append against index_copy_, 5 passes in turns: "
             + "; ".join(f"{a:.4f} / {b:.4f}" for a, b in passes) + " ms")
-    if main:
+    if main and not geo.get("lean"):
         host = {"kv_append": host_us(lambda: cache_append.kv_append(
             got, k, v, rows_d, layer)),
                 "index_copy_": host_us(lambda: got[layer].index_copy_(
@@ -624,7 +660,7 @@ def kernel_phase(dev, arena=torch.bfloat16, geo=YI):
 
     f1 = (q, qd, cache, qt_run, qinfo, trows, trows_d, seqlens, layer)
     fkw = dict(sub=sub, pad_tile=pad, sm_scale=sm)
-    if main:
+    if main and not geo.get("lean"):
         host.update({
             "prefill_attention": host_us(
                 lambda: flash_prefill.prefill_attention(*args, **kw)),
@@ -659,7 +695,7 @@ def kernel_phase(dev, arena=torch.bfloat16, geo=YI):
     log(f"{lbl} decode body edge cases (depths {EDGE_DEPTHS}, tables "
         f"32768 positions deep, sub 256 and 16, G {EDGE_GROUPS}, Hkv {HKV}): "
         f"max abs err {err} (row worst {rel:.5f}); idle slots exactly zero")
-    if main:
+    if main and not geo.get("lean"):
         long_context(dev, cache, R, bt, timer, randn, layer, geo, lbl)
     elif geo is YI:
         widening_check(dev, arena, sm, lbl)
@@ -733,9 +769,10 @@ def kernel_phase(dev, arena=torch.bfloat16, geo=YI):
 # --------------------------------------------------------------------- #
 # (a rope) kernel A with the rotation
 # --------------------------------------------------------------------- #
-# instance suffix -> (model, model dtype, arena dtype); launches from (c),
-# (c8), (b) (the f32 tiny model), (g), (k) (falcon, bf16) and (b falcon)
-# (falcon on 1-byte arenas)
+# instance suffix -> (model, model dtype, arena dtype[, tp: the heads of
+# one tp rank]); launches from (c), (c8), (b) (the f32 tiny model), (g),
+# (k) (falcon, bf16), (b falcon) (falcon on 1-byte arenas) and (t yi)
+# (Yi's tp ranks)
 ROPE_INSTANCES = {
     "": ("yi-6b-200k", torch.bfloat16, torch.bfloat16),
     "[e4m3]": ("yi-6b-200k", torch.bfloat16, torch.float8_e4m3fn),
@@ -745,6 +782,8 @@ ROPE_INSTANCES = {
     "[falcon]": ("falcon-7b", torch.bfloat16, torch.bfloat16),
     "[falcon e4m3]": ("falcon-7b", torch.bfloat16, torch.float8_e4m3fn),
     "[falcon int8]": ("falcon-7b", torch.bfloat16, torch.int8),
+    "[tp2]": ("yi-6b-200k", torch.bfloat16, torch.bfloat16, 2),
+    "[tp4]": ("yi-6b-200k", torch.bfloat16, torch.bfloat16, 4),
 }
 
 
@@ -783,9 +822,10 @@ def rope_append_phase(dev):
     nvalid = int((rows >= 0).sum())
     timer = Timer(dev)
     results = []
-    for suffix, (model, dt, arena) in ROPE_INSTANCES.items():
+    for suffix, (model, dt, arena, *tp) in ROPE_INSTANCES.items():
         a = get_model_arch(model)
-        HQ, HKV, D = a.num_q_heads, a.num_kv_heads, a.head_dim
+        tp = tp[0] if tp else 1
+        HQ, HKV, D = a.num_q_heads // tp, a.num_kv_heads // tp, a.head_dim
         Dp = -(-D // 128) * 128   # the arena pads the head dim to 128
         rope = get_rope(D, D, a.max_position_embeddings, a.rope_theta,
                         a.rope_scaling)
@@ -2902,6 +2942,192 @@ def launcher_phases(dev, smi, out_dir):
 
 
 # --------------------------------------------------------------------- #
+# (t b), (t yi) tensor and pipeline parallelism: ranks as processes on the
+# card (gloo: NCCL refuses two ranks on one device)
+# --------------------------------------------------------------------- #
+# layout name -> (pp, tp): every layout of more than one rank
+LAYOUTS = {k: v for k, v in RANK_LAYOUTS.items() if v != (1, 1)}
+PARITY_BACKENDS = ("fa_vattn", "fa_paged_256", "fa_pod")
+
+
+def rank_lines(tag, out, kernels):
+    """Log each rank's launches of ``kernels``; their sum over the ranks."""
+    total = dict.fromkeys((k.symbol for k in kernels), 0)
+    for res in out:
+        n = {k.symbol: res["launches"][k.symbol] for k in kernels}
+        log(f"({tag}) rank (dp, pp, tp) {res['coords']}: arena "
+            f"{list(res['arena'])}, backend {res['backend']}, "
+            f"{res['graphs']} step graphs, launches "
+            + ", ".join(f"{s_} {v}" for s_, v in n.items()))
+        for s_, v in n.items():
+            total[s_] += v
+    return total
+
+
+def parallel_parity_phase(dev, kernels):
+    """(t b): tiny-llama-debug in float32 on fa_vattn, fa_paged_256 and
+    fa_pod at tp2, pp2 and tp2 pp2, each layout's ranks processes on the
+    card (``run_ranks``), every rank's greedy tokens equal to the one-rank
+    engine's exactly; then the same tp2 engine through ``LLMEngine`` from
+    this process (its second rank a child), equal too."""
+    from vattention_tpu_torch import LLMEngine, SamplingParams
+    from vattention_tpu_torch.ops.flash_decode import DECODE_ATTENTION
+    from vattention_tpu_torch.ops.flash_prefill import PREFILL_ATTENTION
+    from vattention_tpu_torch.ops.paged_attention import (
+        PAGED_PREFILL_ATTENTION)
+    from vattention_tpu_torch.ops.pod_fused import POD_ATTENTION
+    from vattention_tpu_torch.parallel.multihost import (run_ranks,
+                                                         serve_requests)
+
+    rng = np.random.default_rng(5)
+    prompts = {f"r{i}": rng.integers(1, 2000, int(n)).tolist()
+               for i, n in enumerate([200, 37])}
+    base = dict(model="tiny-llama-debug", dtype="float32",
+                scheduler_type="sarathi", max_model_len=512,
+                max_batch_size=4, max_num_seqs=4, chunk_size=128)
+    used = {"fa_vattn": (PREFILL_ATTENTION, DECODE_ATTENTION),
+            "fa_paged_256": (PAGED_PREFILL_ATTENTION,),
+            "fa_pod": (POD_ATTENTION,)}
+    ref = {}
+    for backend in PARITY_BACKENDS:
+        fresh_metrics()
+        engine = LLMEngine.from_engine_args(**base, attention_backend=backend,
+                                            gpu_memory_utilization=0.9)
+        ref[backend] = serve(engine, [(s_, p, 6) for s_, p in prompts.items()])
+        engine.cleanup()
+    requests = [dict(prompt=None, prompt_token_ids=ids,
+                     sampling_params=SamplingParams(
+                         temperature=0.0, max_tokens=6, ignore_eos=True),
+                     seq_id=seq_id) for seq_id, ids in prompts.items()]
+    for name, (pp, tp) in LAYOUTS.items():
+        if tp > 2:
+            continue  # tiny-llama-debug has 2 kv heads
+        world = pp * tp
+        t0 = time.perf_counter()
+        runs = [dict(engine_args=dict(base, attention_backend=b,
+                                      pipeline_parallel_size=pp,
+                                      tensor_parallel_size=tp,
+                                      gpu_memory_utilization=0.9 / world),
+                     requests=requests) for b in PARITY_BACKENDS]
+        out = run_ranks(serve_requests, world, dict(runs=runs),
+                        device="cuda", timeout_s=300)
+        for i, backend in enumerate(PARITY_BACKENDS):
+            per_rank = [o[i] for o in out]
+            for res in per_rank:
+                if res["outputs"] != ref[backend]:
+                    raise AssertionError(
+                        f"(t b {name}) {backend} rank {res['coords']}: "
+                        f"{res['outputs']} != one rank's {ref[backend]}")
+                if res["backend"] != "gloo" or res["graphs"]:
+                    raise AssertionError(f"(t b {name}) {res['backend']}, "
+                                         f"{res['graphs']} graphs")
+            total = rank_lines(f"t b {name} {backend}", per_rank, kernels)
+            if any(total[k.symbol] <= 0 for k in used[backend]):
+                raise AssertionError(f"(t b {name}) {backend}: a kernel of "
+                                     f"its path never launched: {total}")
+            log(f"(t b {name}) {backend}: {world} ranks, every rank's tokens "
+                f"== the one-rank engine's {ref[backend]}")
+        log(f"(t b {name}) {world} ranks on one card, gpu_memory_utilization"
+            f" {0.9 / world:.3f} each, three engines in "
+            f"{time.perf_counter() - t0:.1f} s")
+    fresh_metrics()
+    t0 = time.perf_counter()
+    engine = LLMEngine.from_engine_args(**base, attention_backend="fa_vattn",
+                                        tensor_parallel_size=2,
+                                        gpu_memory_utilization=0.45)
+    got = serve(engine, [(s_, p, 6) for s_, p in prompts.items()])
+    backend, graphs = engine.mesh.backend, len(engine.worker.model_runner.graphs)
+    engine.cleanup()
+    if got != ref["fa_vattn"] or graphs:
+        raise AssertionError(f"(t b facade) {got} != {ref['fa_vattn']} or "
+                             f"{graphs} graphs")
+    log(f"(t b facade) LLMEngine(tensor_parallel_size=2) from this process "
+        f"(rank 1 a child, backend {backend}, steps eager): tokens == the "
+        f"one-rank engine's, {time.perf_counter() - t0:.1f} s")
+
+
+def parallel_serving_phase(dev, kernels, smi, tokens_c, required, idle):
+    """(t yi): (c)'s 8 requests on yi-6b-200k at full width (bf16, dummy
+    weights from seed 0, fa_vattn_2mb, chunk 512, batch 8, max_model_len
+    8192) as the ranks of each layout, processes sharing the card (each
+    with gpu_memory_utilization 0.9 / ranks), the launch counts zeroed in
+    each rank just before serving and read just after.  Every rank serves
+    8 x 32 tokens, the same on every rank; the kernels of ``required``
+    launch on every rank and those of ``idle`` on none; request s0's first
+    token is held within 0.25 logits of a dense float32 reference's top.
+    Returns the launches summed over the ranks that ran each tp's heads
+    ({tp: {symbol: n}})."""
+    from vattention_tpu_torch.config import get_model_arch
+    from vattention_tpu_torch.microbenchmarks.parallel_serving import (
+        ENGINE_ARGS, requests, serve_layout)
+    from vattention_tpu_torch.model_executor.models import get_model_class
+    from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
+
+    reqs = requests()
+    n_prompt = sum(len(r["prompt_token_ids"]) for r in reqs)
+    n_gen = 8 * 32
+    by_tp = {}
+    first = {}
+    for name, (pp, tp) in LAYOUTS.items():
+        world = pp * tp
+        t0 = time.perf_counter()
+        out = serve_layout(pp, tp, ENGINE_ARGS, reqs)
+        total_s = time.perf_counter() - t0
+        per_rank = [o[0] for o in out]
+        got = per_rank[0]["outputs"]
+        if (len(got) != 8 or sum(len(v) for v in got.values()) != n_gen
+                or any(r["outputs"] != got for r in per_rank)):
+            raise AssertionError(f"(t yi {name}) the ranks served "
+                                 "different or incomplete outputs")
+        if any(r["backend"] != "gloo" or r["graphs"] for r in per_rank):
+            raise AssertionError(f"(t yi {name}) expected gloo and no graph")
+        total = rank_lines(f"t yi {name}", per_rank, kernels)
+        for r in per_rank:
+            if any(r["launches"][k.symbol] <= 0 for k in required):
+                raise AssertionError(f"(t yi {name}) rank {r['coords']}: a "
+                                     "kernel of the path never launched")
+            if any(r["launches"][k.symbol] > 0 for k in idle):
+                raise AssertionError(f"(t yi {name}) rank {r['coords']}: a "
+                                     "kernel of another path launched")
+        relocate = ARENA_RELOCATE.symbol
+        for r in per_rank:
+            if (r["launches"][relocate] > 0) != (r["moves"] > 0):
+                raise AssertionError(f"(t yi {name}) {r['moves']} block moves"
+                                     f" but {relocate} launched "
+                                     f"{r['launches'][relocate]} times")
+        if tp > 1:
+            acc = by_tp.setdefault(tp, dict.fromkeys(total, 0))
+            for s_, v in total.items():
+                acc[s_] += v
+        wall = per_rank[0]["wall"]
+        same = sum(a == b for s_ in got for a, b in zip(got[s_],
+                                                        tokens_c[s_]))
+        first[name] = got["s0"][0]
+        log(f"(t yi {name}) yi-6b-200k as {world} ranks (pp {pp} x tp {tp}) "
+            f"on one card, backend gloo, steps eager (0 graphs), "
+            f"gpu_memory_utilization {0.9 / world:.3f} each: prompt tokens "
+            f"{n_prompt}, generated {n_gen}, serving wall {wall:.3f} s, "
+            f"{(n_prompt + n_gen) / wall:.2f} processed tok/s "
+            f"[{smi}]; {same} of {n_gen} generated tokens equal (c)'s "
+            f"({same / n_gen:.3f}); with the ranks' start "
+            f"{total_s:.1f} s")
+    arch = get_model_arch("yi-6b-200k")
+    model = get_model_class(arch.model_type)(arch, dtype=torch.bfloat16)
+    params = model.init_params(dev, seed=0)
+    ids = reqs[0]["prompt_token_ids"]
+    logits = dense_logits(model, params, ids, dev)
+    del params
+    for name, tok in first.items():
+        gap = float(logits.max() - logits[tok])
+        log(f"(t yi {name}) s0 ({len(ids)} tokens): first token {tok}, "
+            f"dense f32 top {int(logits.argmax())}, logit gap {gap:.5f} "
+            f"(tolerance {LOGIT_GAP_TOL})")
+        if not gap <= LOGIT_GAP_TOL:
+            raise AssertionError(f"(t yi {name}) s0: logit gap {gap}")
+    return by_tp
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2948,6 +3174,9 @@ def main() -> int:
     # (a falcon): every kernel at falcon-7b's heads (71 on 1 kv head)
     for arena in (torch.bfloat16, *QUANT):
         results += kernel_phase(dev, arena, FALCON)
+    # (a tp2), (a tp4): every kernel at the heads of one tp rank of Yi-6B
+    for geo in YI_TP.values():
+        results += kernel_phase(dev, geo=geo)
     results += rope_append_phase(dev)
     counts_b = parity_phase(dev, "fa_vattn", "b", kernels=kernels)
     if counts_b[ROPE_KV_APPEND.symbol] <= 0:
@@ -3060,6 +3289,18 @@ def main() -> int:
     if (counts_e[f] + counts_e[b] != counts_c[b]
             or counts_e[f] + counts_e[c] != counts_c[c]):
         raise AssertionError("(e) the fused launches do not add up to (c)'s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (t b), (t yi): tensor and pipeline parallelism, ranks as processes
+    t0 = time.perf_counter()
+    parallel_parity_phase(dev, kernels)
+    log(f"(t b) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_t = parallel_serving_phase(
+        dev, kernels, smi, tokens_c,
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+    log(f"(t yi) in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     # (g): mistral-7b past its window, the slice's path at full width;
@@ -3216,6 +3457,13 @@ def main() -> int:
                           POD_ATTENTION: counts_kf}.get(k, counts_k)
             launches[f"{name}[falcon{' ' + tag if tag else ''}]"] = (
                 k, counts)
+    # Yi's heads on one tp rank: the launches of the (t yi) ranks that ran
+    # them, summed (D: once per relocation plan, none at (c)'s sizes)
+    for tp in YI_TP:
+        counts = counts_t.get(tp, {k.symbol: 0 for k in kernels})
+        for name, (k, _) in [(n, v) for n, v in launches.items()
+                             if "[" not in n]:
+            launches[f"{name}[tp{tp}]"] = (k, counts)
     # kernel A with the rotation in float32 from (b), at mistral's heads
     # from (g)
     launches["rope_kv_append[f32]"] = (ROPE_KV_APPEND, counts_b)

@@ -1424,3 +1424,69 @@ def test_benchmark_main_test_on_the_card(dev, backend, tmp_path,
     assert graphs["end"] == graphs["warm"]
     assert any(sig[0] == 0 for sig in graphs["warm"])
     assert any(sig[1] for sig in graphs["warm"]) == (backend == "fa_pod")
+
+
+def _tiny_tokens(engine):
+    from vattention_tpu_torch import SamplingParams
+
+    rng = np.random.default_rng(5)
+    for i, n in enumerate([200, 37]):
+        engine.add_request(
+            prompt=None, prompt_token_ids=rng.integers(1, 2000, n).tolist(),
+            sampling_params=SamplingParams(temperature=0.0, max_tokens=6,
+                                           ignore_eos=True),
+            seq_id=f"r{i}")
+    out = {}
+    while engine.has_unfinished_requests():
+        for o in engine.step():
+            if o.finished:
+                out[o.seq_id] = o.token_ids
+    return out
+
+
+@pytest.mark.parametrize("pp,tp", [(1, 2), (2, 1)])
+def test_gloo_ranks_on_one_card_match_the_one_rank_engine(dev, pp, tp):
+    """Two ranks sharing one card (gloo: NCCL refuses two ranks on one
+    device), started by ``LLMEngine`` from this process: the f32 tiny
+    model's greedy tokens equal the one-rank engine's; every step runs
+    eagerly (no graph) and kernels A, B and C launch on rank 0."""
+    from vattention_tpu_torch import LLMEngine
+    from vattention_tpu_torch.metrics.metrics_store import MetricsStore
+    from vattention_tpu_torch.ops.cache_append import ROPE_KV_APPEND
+    from vattention_tpu_torch.ops.flash_prefill import PREFILL_ATTENTION
+
+    kw = dict(model="tiny-llama-debug", dtype="float32",
+              attention_backend="fa_vattn", scheduler_type="sarathi",
+              max_model_len=512, max_batch_size=4, max_num_seqs=4,
+              chunk_size=128, gpu_memory_utilization=0.4)
+    MetricsStore._instance = None
+    one = LLMEngine.from_engine_args(**kw)
+    expect = _tiny_tokens(one)
+    one.cleanup()
+    MetricsStore._instance = None
+    for k in (ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION):
+        k.launches = 0
+    engine = LLMEngine.from_engine_args(**kw, pipeline_parallel_size=pp,
+                                        tensor_parallel_size=tp)
+    assert engine.mesh.backend == "gloo" and engine.mesh.staged
+    assert not engine.worker.model_runner.captures
+    got = _tiny_tokens(engine)
+    graphs = len(engine.worker.model_runner.graphs)
+    engine.cleanup()
+    MetricsStore._instance = None
+    assert got == expect
+    assert graphs == 0
+    assert ROPE_KV_APPEND.launches > 0 and DECODE_ATTENTION.launches > 0
+    assert PREFILL_ATTENTION.launches > 0
+
+
+def test_backend_rule_on_this_host(dev):
+    """nccl only when each rank owns a device: 1 rank per card here takes
+    nccl, 2 ranks on one card gloo."""
+    from vattention_tpu_torch.parallel.mesh import (pick_backend,
+                                                    ranks_per_device)
+
+    n = torch.cuda.device_count()
+    assert pick_backend("cuda", ranks_per_device(n, "cuda")) == "nccl"
+    assert pick_backend("cuda", ranks_per_device(n + 1, "cuda")) == "gloo"
+    assert pick_backend("cuda", ranks_per_device(2 * n, "cuda")) == "gloo"

@@ -117,19 +117,6 @@ def test_engine_defaults_to_cuda():
                                    max_model_len=256, max_batch_size=2)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(tensor_parallel_size=2),
-])
-def test_unported_options_raise(kwargs):
-    fresh_metrics()
-    args = dict(model="tiny-llama-debug", dtype="float32",
-                max_model_len=256, max_batch_size=2, device="cpu")
-    args.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMEngine.from_engine_args(**args)
-    fresh_metrics()
-
-
 @pytest.mark.parametrize("backend", [
     "fa_vattn_sync", "fi_vattn", "fa3_vattn_sync", "fa_vattn_megacache_sync",
     "fa_streams_megacache", "fi_unpaged", "no_op", "fi_paged",

@@ -9,6 +9,17 @@ waits for a step it has just dispatched, and at most
 ``max_inflight_steps`` steps are unresolved.  A request's first token
 (TTFT) and its completion (e2e time, makespan) are stamped when the token
 reaches the host, where the JAX engine stamps them at dispatch.
+
+Under tensor or pipeline parallelism (``tensor_parallel_size`` x
+``pipeline_parallel_size`` > 1) the engine is one rank's, in a process of
+its own with the process group initialized: its worker holds the rank's
+shard of the weights and of the arena, and the step's collectives span
+the ranks (``parallel.mesh``).  Every rank runs the same schedule over the
+same requests; only the driver (rank 0) writes metrics.  When
+``LLMEngine`` started the other ranks itself, the driver's
+``add_request`` stamps each request's arrival time and sequence id once
+and sends the admission to the followers through the control plane
+(``parallel.multihost``), ``step`` ticks them and ``cleanup`` stops them.
 """
 
 from __future__ import annotations
@@ -55,19 +66,29 @@ def resolve_device(name: str) -> torch.device:
 class BaseLLMEngine:
     def __init__(self, config: SystemConfig):
         pc = config.parallel_config
-        if pc.tensor_parallel_size > 1 or pc.pipeline_parallel_size > 1:
-            raise NotImplementedError(
-                "tensor/pipeline parallelism is not ported yet "
-                "(ROADMAP Queue 1 item 15)")
         self.config = config
         self.device = resolve_device(config.device)
+        self.mesh = None
+        if pc.tensor_parallel_size * pc.pipeline_parallel_size > 1:
+            from vattention_tpu_torch.parallel.mesh import make_serving_mesh
+
+            self.mesh = make_serving_mesh(pc.tensor_parallel_size,
+                                          pc.pipeline_parallel_size,
+                                          device=self.device)
+            if not self.mesh.is_driver:
+                config.metrics_config.write_metrics = False
+        # set by attach_ranks when this process started the other ranks
+        self.control = None
+        self._ranks = None
+        self._tick = 0
         self.tokenizer = get_tokenizer(config.model_config.model)
         self.seq_manager = EngineSequenceManager(self.tokenizer)
         self.metrics_store = MetricsStore.get_or_create(config.metrics_config)
         self.seq_counter = Counter()
 
         self.worker = BaseWorker(config, self.device,
-                                 seed=config.model_config.seed)
+                                 seed=config.model_config.seed,
+                                 mesh=self.mesh)
         num_blocks, memory_for_kv = self.worker.profile_num_available_blocks(
             config.cache_config.memory_utilization)
         config.cache_config.num_gpu_blocks = num_blocks
@@ -115,6 +136,12 @@ class BaseLLMEngine:
             raise ValueError(
                 f"prompt of {len(prompt_token_ids)} tokens >= "
                 f"max_model_len {max_len}")
+        if self.control is not None:
+            # the followers admit it at the next tick, as stamped here
+            self.control.submit(("add", dict(
+                prompt=prompt, sampling_params=sampling_params,
+                prompt_token_ids=prompt_token_ids,
+                arrival_time=arrival_time, seq_id=seq_id)))
         seq = Sequence(
             seq_id, prompt, prompt_token_ids,
             self.config.cache_config.block_size, eos_token_id,
@@ -136,6 +163,9 @@ class BaseLLMEngine:
     def step(self) -> List[RequestOutput]:
         """One serving iteration.  Sync mode returns this step's outputs;
         async mode those of older steps whose samples have landed."""
+        if self.control is not None:
+            self.control.tick(self._tick)
+            self._tick += 1
         if hasattr(self.scheduler.block_manager, "set_free_blocks"):
             self.scheduler.block_manager.set_free_blocks(
                 self.worker.get_free_blocks())
@@ -239,5 +269,33 @@ class BaseLLMEngine:
         self.metrics_store.reset()
         self.scheduler.reset_state()
 
+    # ------------------------------------------------------------------ #
+    def attach_ranks(self, control, ranks) -> None:
+        """Drive the follower ranks ``ranks`` (children of this process,
+        ``parallel.multihost.start_engine_ranks``) through ``control``.
+        They are killed if this process exits without ``cleanup``."""
+        import atexit
+
+        self.control = control
+        self._ranks = ranks
+        atexit.register(ranks.kill)
+
     def cleanup(self) -> None:
         self.worker.cleanup()
+        if self.control is None:
+            return
+        import atexit
+
+        import torch.distributed as dist
+
+        ranks, self._ranks = self._ranks, None
+        try:
+            self.control.tick(self._tick, stop=True)
+            self.control.close()
+            ranks.join()
+        finally:
+            self.control = None
+            ranks.kill()
+            atexit.unregister(ranks.kill)
+            ranks.remove()
+            dist.destroy_process_group()

@@ -23,6 +23,19 @@ signature replays its graph.  The graphs share one memory pool; the arena
 and the token buffer are updated in place, as JAX donates them.  A capture
 that fails raises.  On the CPU the step runs eagerly.
 
+Under tensor and pipeline parallelism (a ``parallel.mesh.ServingMesh``)
+the runner is one rank's, and ``_step`` is the JAX ``_step_parallel``: the
+step is cut into M microbatches (M = pp for decode-only steps, and for
+mixed steps whose prefill region splits into pp sub-chunks of whole q
+tiles on a backend other than POD; else M = 1, as the JAX runner
+chooses), this rank's stage runs them (``parallel.pipeline``), the last
+stage's tp-rank 0 computes the logits and samples, and the packed samples
+are broadcast to every rank, whose token buffers and host bookkeeping all
+read the same tokens.  The prefill region's width is rounded up to pp q
+tiles.  Under nccl a step signature is captured as one CUDA graph,
+collectives included; under gloo, whose collectives the host drives,
+every step runs eagerly.
+
 ``run_async`` dispatches a step and returns a ``StepHandle`` at once: the
 samples are copied to pinned host memory behind the step and an event
 marks their arrival; ``resolve`` waits for that event and reads them.
@@ -62,6 +75,9 @@ from vattention_tpu_torch.ops.cuda_build import CudaKernel
 from vattention_tpu_torch.ops.flash_decode import current_scratch
 from vattention_tpu_torch.ops.paged_attention import paged_tile_rows
 from vattention_tpu_torch.ops.utils import round_up, tile_rows_from_segments
+from vattention_tpu_torch.parallel.pipeline import (pipeline_stage_step,
+                                                    split_microbatches,
+                                                    split_mixed_microbatches)
 
 logger = init_logger(__name__)
 
@@ -103,17 +119,19 @@ class StepGraph(NamedTuple):
 
 class ModelRunner:
     def __init__(self, config: SystemConfig, cache_engine,
-                 device: torch.device, *, seed: int = 0):
+                 device: torch.device, *, seed: int = 0, mesh=None):
         self.config = config
         self.cache_engine = cache_engine
         self.device = device
+        self.mesh = mesh
+        self.pp = 1 if mesh is None else mesh.pp_size
         if device.type == "cuda":
             # float32 runs are exact float32: no TF32 in matmuls
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         arch = config.model_config.arch
         self.model = get_model_class(arch.model_type)(
-            arch, dtype=DTYPES[config.model_config.dtype])
+            arch, dtype=DTYPES[config.model_config.dtype], mesh=mesh)
         self.params = load_weights(self.model, config.model_config, device,
                                    seed=seed)
         # the scheduler's charge unit is also the prefill pad unit
@@ -124,7 +142,14 @@ class ModelRunner:
         # q-tile units, so padded runs always fit it
         self.n_pre_fixed = round_up(
             config.scheduler_config.get_max_num_batched_tokens(
-                config.model_config.max_model_len), self.q_tile)
+                config.model_config.max_model_len), self.pp * self.q_tile)
+        # a step may be captured unless gloo runs its collectives
+        self.captures = device.type == "cuda" and (
+            mesh is None or mesh.captures_steps)
+        if mesh is not None and device.type == "cuda" and not self.captures:
+            logger.info("backend %s: every step runs eagerly (its "
+                        "collectives are driven from the host, which a CUDA "
+                        "graph cannot hold)", mesh.backend)
         self.B = config.cache_config.max_batch_size
         backend = config.model_config.attention_backend
         if AttentionBackend.is_no_op(backend):
@@ -177,8 +202,14 @@ class ModelRunner:
         """The whole step on the device: [B, 2 + 2 * n_top] int32 samples;
         the arena and the token buffer are updated in place."""
         inputs = self._splice_prev_tokens(inputs, self._tok_buf, n_pre)
+        if self.mesh is not None:
+            return self._step_parallel(inputs, n_pre, mode)
         logits = self.model.forward(self.params, self.cache_engine.kv_cache,
                                     inputs, self.backend, n_pre)
+        return self._sample(logits, inputs, mode)
+
+    def _sample(self, logits: torch.Tensor, inputs: StepInputs,
+                mode: str) -> torch.Tensor:
         tokens = sample_tokens(logits, inputs.temperatures, inputs.top_p,
                                inputs.top_k, mode, self._generator)
         tokens = torch.where(inputs.sample_idx >= 0, tokens,
@@ -186,15 +217,59 @@ class ModelRunner:
         self._tok_buf.copy_(torch.where(tokens >= 0, tokens, self._tok_buf))
         return pack_samples(logits, tokens, self.logprobs_top)
 
+    def microbatches(self, inputs: StepInputs, n_pre: int):
+        """(M, stacked inputs, m_sel, prefill tokens per microbatch) under
+        the JAX runner's rule."""
+        B, pp = self.B, self.pp
+        if n_pre == 0 and pp > 1 and B % pp == 0:
+            return pp, split_microbatches(inputs, pp, 0), None, 0
+        if (n_pre > 0 and pp > 1 and B % pp == 0
+                and n_pre % (pp * self.q_tile) == 0 and not inputs.pod):
+            stacked, m_sel = split_mixed_microbatches(inputs, pp, n_pre,
+                                                      self.q_tile)
+            return pp, stacked, m_sel, n_pre // pp
+        stacked = inputs._replace(**{
+            k: getattr(inputs, k)[None] for k in StepInputs._fields
+            if k != "pod" and getattr(inputs, k) is not None})
+        return 1, stacked, None, n_pre
+
+    def _step_parallel(self, inputs: StepInputs, n_pre: int,
+                       mode: str) -> torch.Tensor:
+        """This rank's part of a step; the packed samples on every rank (a
+        host tensor when gloo stages them)."""
+        mesh = self.mesh
+        M, stacked, m_sel, n_pre_m = self.microbatches(inputs, n_pre)
+        logits = pipeline_stage_step(
+            self.model, self.backend, self.params,
+            self.cache_engine.kv_cache, stacked, n_pre=n_pre_m,
+            num_micro=M, mesh=mesh)
+        width = 2 + 2 * self.logprobs_top
+        if logits is None:
+            samples = mesh.broadcast_samples(None, (self.B, width))
+            tokens = samples[:, 0].to(self._tok_buf.device)
+            self._tok_buf.copy_(torch.where(tokens >= 0, tokens,
+                                            self._tok_buf))
+            return samples
+        if m_sel is not None:
+            # each slot's logits from the microbatch that samples it
+            logits = torch.stack(logits).gather(
+                0, m_sel[None, :, None].expand(
+                    1, self.B, logits[0].shape[-1]))[0]
+        else:
+            logits = torch.cat(logits)
+        return mesh.broadcast_samples(self._sample(logits, inputs, mode),
+                                      (self.B, width))
+
     @staticmethod
     def signature(inputs: StepInputs, n_pre: int, mode: str) -> tuple:
         return (n_pre, inputs.pod, mode)
 
     def _launch(self, inputs: StepInputs, n_pre: int,
                 mode: str) -> torch.Tensor:
-        """Run one step: eagerly on the CPU; on CUDA, a replay of its
-        signature's graph, or the eager warm-up and then the capture."""
-        if self.device.type != "cuda":
+        """Run one step: eagerly on the CPU and under gloo; on CUDA
+        otherwise, a replay of its signature's graph, or the eager warm-up
+        and then the capture."""
+        if not self.captures:
             return self._step(inputs, n_pre, mode)
         sig = self.signature(inputs, n_pre, mode)
         graph = self.graphs.get(sig)

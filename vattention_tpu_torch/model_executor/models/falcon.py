@@ -34,6 +34,16 @@ LN_EPS = 1e-5  # the JAX model's LayerNorm epsilon
 class FalconForCausalLM(LlamaForCausalLM):
     parallel_attn = True
 
+    def __init__(self, arch, *, dtype: torch.dtype = torch.bfloat16,
+                 mesh=None):
+        # the JAX mesh cannot split falcon either: its partition specs do
+        # not name up_w and the norm biases, and 71 q heads divide over no
+        # tp > 1
+        if mesh is not None and (mesh.tp_size > 1 or mesh.pp_size > 1):
+            raise NotImplementedError(
+                "falcon under tensor or pipeline parallelism")
+        super().__init__(arch, dtype=dtype, mesh=mesh)
+
     def param_shapes(self) -> Dict[str, tuple]:
         a = self.arch
         H, D, L = a.hidden_size, self.head_dim, a.num_layers
@@ -56,7 +66,7 @@ class FalconForCausalLM(LlamaForCausalLM):
         D = self.head_dim
         lp = params["layers"]
         T = x.shape[0]
-        for layer in range(self.arch.num_layers):
+        for layer in range(lp["input_norm"].shape[0]):
             h = layer_norm(x, lp["input_norm"][layer],
                            lp["input_norm_b"][layer], LN_EPS)
             q = backend.rope_append_kv(kv_cache, h @ lp["qkv_w"][layer],

@@ -12,6 +12,13 @@ window (``ModelArch.sliding_window``, mistral) is the attention
 backend's, and a qkv bias (qwen, internlm) is a weight.  Falcon's
 parallel attention is its own subclass (``models/falcon.py``), which
 reuses this class's constructor, parameter drawing and logits.
+
+Under tensor and pipeline parallelism (a ``parallel.mesh.ServingMesh``)
+the model is one rank's: ``hq``, ``hkv`` and ``inter`` are the tp shard's
+(the JAX model's per-shard widths), the weights hold the stage's layers
+(``parallel.sharding``), ``run_layers`` loops over them with the arena's
+local layer index, and the products of o and down are summed over tp
+(``ServingMesh.all_reduce_tp``) where the JAX model's ``psum``s sit.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from vattention_tpu_torch.model_executor.layers.activation import silu_and_mul
 from vattention_tpu_torch.model_executor.layers.layernorm import rms_norm
 from vattention_tpu_torch.model_executor.layers.rotary_embedding import get_rope
 from vattention_tpu_torch.model_executor.step_inputs import StepInputs
+from vattention_tpu_torch.parallel.sharding import ShardLayout, check_tp
 
 Params = Dict[str, object]
 
@@ -36,37 +44,44 @@ class LlamaForCausalLM:
     # one norm (falcon's subclass); ModelArch.parallel_attn must agree
     parallel_attn = False
 
-    def __init__(self, arch: ModelArch, *, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, arch: ModelArch, *, dtype: torch.dtype = torch.bfloat16,
+                 mesh=None):
         if arch.parallel_attn != self.parallel_attn:
             raise NotImplementedError(
                 f"{arch.model_type}: parallel_attn={arch.parallel_attn} "
                 f"does not fit {type(self).__name__}'s layer")
         self.arch = arch
         self.dtype = dtype
-        self.hq = arch.num_q_heads
-        self.hkv = arch.num_kv_heads
+        self.mesh = mesh
+        self.layout = ShardLayout.of(mesh)
+        tp = self.layout.tp
+        check_tp(arch, tp)
+        self.hq = arch.num_q_heads // tp
+        self.hkv = arch.num_kv_heads // tp
         self.head_dim = arch.head_dim
-        self.inter = arch.intermediate_size
+        self.inter = arch.intermediate_size // tp
         self.rope = get_rope(arch.head_dim, arch.head_dim,
                              arch.max_position_embeddings, arch.rope_theta,
                              arch.rope_scaling)
         self.sm_scale = 1.0 / (arch.head_dim ** 0.5)
 
     def param_shapes(self) -> Dict[str, tuple]:
-        """Flat name -> shape; layer weights carry the leading [L] axis
-        and live under "layers.<name>"."""
+        """Flat name -> shape of the one-rank model's weights; layer
+        weights carry the leading [L] axis and live under
+        "layers.<name>"."""
         a = self.arch
         H, D, L = a.hidden_size, self.head_dim, a.num_layers
-        qkv_out = (self.hq + 2 * self.hkv) * D
+        hq, hkv, inter = a.num_q_heads, a.num_kv_heads, a.intermediate_size
+        qkv_out = (hq + 2 * hkv) * D
         shapes = {
             "embed": (a.vocab_size, H),
             "final_norm": (H,),
             "layers.input_norm": (L, H),
             "layers.qkv_w": (L, H, qkv_out),
-            "layers.o_w": (L, self.hq * D, H),
+            "layers.o_w": (L, hq * D, H),
             "layers.post_norm": (L, H),
-            "layers.gate_up_w": (L, H, 2 * self.inter),
-            "layers.down_w": (L, self.inter, H),
+            "layers.gate_up_w": (L, H, 2 * inter),
+            "layers.down_w": (L, inter, H),
         }
         if a.qkv_bias:
             shapes["layers.qkv_b"] = (L, qkv_out)
@@ -79,25 +94,45 @@ class LlamaForCausalLM:
         """Random (load_format=dummy) or zero weights, drawn on ``device``
         one layer at a time from a seeded generator: norms are ones, biases
         (``*_b``: qkv and norm biases) zeros, every other weight
-        N(0, 0.02^2)."""
+        N(0, 0.02^2).  Every rank draws every layer of the one-rank model
+        in the same order and keeps its shard, so the ranks together hold
+        the one-rank model's weights."""
         gen = None if zero else torch.Generator(device=device).manual_seed(seed)
-        params: Params = {"layers": {}}
-        for name, shape in self.param_shapes().items():
+        stage = self.layout.stage_layers(self.arch.num_layers)
+
+        def draw(shape, short):
             t = torch.empty(shape, dtype=self.dtype, device=device)
-            short = name.split(".")[-1]
             if short.endswith("norm"):
                 t.fill_(1.0)
             elif zero or short.endswith("_b"):
                 t.zero_()
             else:
-                for part in (t if name.startswith("layers.") else [t]):
-                    part.copy_(torch.randn(part.shape, generator=gen,
-                                           device=device) * 0.02)
-            if name.startswith("layers."):
-                params["layers"][short] = t
-            else:
-                params[name] = t
+                t.copy_(torch.randn(shape, generator=gen, device=device)
+                        * 0.02)
+            return t
+
+        params: Params = {"layers": {}}
+        for name, shape in self.param_shapes().items():
+            short = name.split(".")[-1]
+            if not name.startswith("layers."):
+                params[name] = draw(shape, short)
+                continue
+            stack = None
+            for layer in range(shape[0]):
+                w = draw(shape[1:], short)
+                if layer not in stage:
+                    continue
+                w = self.layout.shard_layer(self.arch, short, w)
+                if stack is None:
+                    stack = torch.empty((len(stage),) + tuple(w.shape),
+                                        dtype=self.dtype, device=device)
+                stack[layer - stage.start].copy_(w)
+            params["layers"][short] = stack
         return params
+
+    def _tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over tp (the JAX model's ``psum``)."""
+        return x if self.mesh is None else self.mesh.all_reduce_tp(x)
 
     # ------------------------------------------------------------------ #
     def embed(self, params: Params, token_ids: torch.Tensor) -> torch.Tensor:
@@ -110,7 +145,8 @@ class LlamaForCausalLM:
         D = self.head_dim
         lp = params["layers"]
         T = x.shape[0]
-        for layer in range(a.num_layers):
+        # the stage's layers; ``layer`` indexes the rank's arena too
+        for layer in range(lp["input_norm"].shape[0]):
             h = rms_norm(x, lp["input_norm"][layer], a.rms_norm_eps)
             qkv = h @ lp["qkv_w"][layer]
             if "qkv_b" in lp:
@@ -119,9 +155,11 @@ class LlamaForCausalLM:
                                        layer)
             attn = backend.attend(q, kv_cache, inputs, layer,
                                   n_prefill_tokens, sm_scale=self.sm_scale)
-            x = x + attn.reshape(T, self.hq * D) @ lp["o_w"][layer]
+            x = x + self._tp_sum(attn.reshape(T, self.hq * D)
+                                 @ lp["o_w"][layer])
             h2 = rms_norm(x, lp["post_norm"][layer], a.rms_norm_eps)
-            x = x + silu_and_mul(h2 @ lp["gate_up_w"][layer]) @ lp["down_w"][layer]
+            x = x + self._tp_sum(silu_and_mul(h2 @ lp["gate_up_w"][layer])
+                                 @ lp["down_w"][layer])
         return x
 
     def head(self, params: Params, x: torch.Tensor,

@@ -6,6 +6,13 @@ directory: the llama family's ``model.layers.*`` names or falcon's
 ``transformer.h.*``).  ``params_from_jax`` carries a JAX parameter
 pytree, converted to numpy by the caller, across unchanged: the port keeps
 the JAX layout.
+
+A model of one rank of a tensor- or pipeline-parallel mesh (its
+``layout``, ``parallel.sharding.ShardLayout``) gets that rank's shard:
+every format draws or reads each full layer exactly as the one-rank model
+does and keeps the rank's part, so the ranks together hold the one-rank
+model's weights.  JAX parameters reach a rank through ``params_from_jax``
+and then ``parallel.sharding.shard_params``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ def load_weights(model, model_config: ModelConfig, device: torch.device,
     if model_config.load_format == "zero":
         return model.init_params(device, zero=True)
     if model_config.load_format == "safetensors":
+        if model.layout.tp > 1 or model.layout.pp > 1:
+            return load_safetensors_shard(model, model_config, device)
         return load_safetensors(model, model_config, device)
     raise ValueError(f"unknown load_format {model_config.load_format!r}")
 
@@ -148,6 +157,48 @@ def load_safetensors(model, model_config: ModelConfig,
             targets[f"model.layers.{l}.{hf}"] = [(
                 view if cols is None else view[..., cols], view.dim() == 2)]
     _fill(targets, keys, model_config, device)
+    return params
+
+
+def load_safetensors_shard(model, model_config: ModelConfig,
+                           device: torch.device) -> Dict[str, Any]:
+    """``load_safetensors`` for one rank of a mesh: the replicated tensors
+    are read whole; each layer of the rank's stage is read into full-layer
+    buffers, one layer at a time, and its tp shard kept
+    (``ShardLayout.shard_layer``)."""
+    keys = _checkpoint_keys(model_config)
+    layout, arch = model.layout, model.arch
+    params: Dict[str, Any] = {"layers": {}}
+    layer_shapes = {}
+    for name, shape in model.param_shapes().items():
+        if name.startswith("layers."):
+            layer_shapes[name[len("layers."):]] = shape[1:]
+        else:
+            params[name] = torch.empty(shape, dtype=model.dtype, device=device)
+    targets = {"model.embed_tokens.weight": [(params["embed"], False)],
+               "model.norm.weight": [(params["final_norm"], False)]}
+    if "lm_head" in params:
+        targets["lm_head.weight"] = [(params["lm_head"], True)]
+    _fill(targets, keys, model_config, device)
+    stage = layout.stage_layers(arch.num_layers)
+    for name, shape in layer_shapes.items():
+        local = layout.shard_layer(arch, name,
+                                   torch.empty(shape, device="meta"))
+        params["layers"][name] = torch.empty(
+            (len(stage),) + tuple(local.shape), dtype=model.dtype,
+            device=device)
+    for l in stage:
+        full = {name: torch.empty(shape, dtype=model.dtype, device=device)
+                for name, shape in layer_shapes.items()}
+        targets = {}
+        for hf, (dst, cols) in _hf_layer_names(model).items():
+            view = full[dst]
+            targets[f"model.layers.{l}.{hf}"] = [(
+                view if cols is None else view[..., cols], view.dim() == 2)]
+        _fill(targets, keys, model_config, device)
+        for name, w in full.items():
+            params["layers"][name][l - stage.start].copy_(
+                layout.shard_layer(arch, name, w))
     return params
 
 

@@ -9,6 +9,15 @@ GPU, a fixed 2 GiB on the CPU (the JAX package's CPU figure, so both
 packages size the same arena in the tests).  ``start_profiling`` and
 ``stop_profiling`` trace through ``torch.profiler`` into a chrome trace,
 as the reference's worker does.
+
+Under tensor or pipeline parallelism the worker is one rank's (its
+``mesh``): it builds on the rank's device, counts the layer weights of one
+tp shard in the memory profile (the JAX ``_param_bytes``), and ends the
+profile with the minimum of the block count and arena bytes over all
+ranks, so that every rank's scheduler and allocator make the same
+decisions although co-located ranks see different free memory.  Its
+dispatched steps resolve by count alone (``max_inflight``), never by
+whether a step's samples have landed, which differs between ranks.
 """
 
 from __future__ import annotations
@@ -38,14 +47,17 @@ _CPU_MEMORY_BYTES = 2 * 1024**3
 _WORKSPACE_BYTES = 1 * 1024**3
 
 
-def param_bytes(model_config) -> int:
-    """The weights' bytes on the device (the JAX package's arithmetic)."""
+def param_bytes(model_config, tp: int = 1) -> int:
+    """The weights' bytes on one rank's device (the JAX package's
+    arithmetic: the layer weights of one tp shard, the embeddings and the
+    head whole; every layer counted, whatever the pipeline stage)."""
     a = model_config.arch
     D = a.head_dim
     per_layer = (a.hidden_size * (a.num_q_heads + 2 * a.num_kv_heads) * D
                  + a.num_q_heads * D * a.hidden_size
                  + 3 * a.hidden_size * a.intermediate_size)
-    total = a.num_layers * per_layer + 2 * a.vocab_size * a.hidden_size
+    total = (a.num_layers * per_layer // tp
+             + 2 * a.vocab_size * a.hidden_size)
     return total * model_config.dtype_bytes
 
 
@@ -60,10 +72,11 @@ def device_memory(device: torch.device) -> tuple:
 
 class BaseWorker:
     def __init__(self, config: SystemConfig, device: torch.device, *,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         self.config = config
         self.device = device
         self.seed = seed
+        self.mesh = mesh
         self.seq_manager = WorkerSequenceManager(
             config.cache_config, config.scheduler_config)
         self.metrics_store = MetricsStore.get_or_create(config.metrics_config)
@@ -79,8 +92,9 @@ class BaseWorker:
         arithmetic over this device's memory."""
         free, total, workspace = device_memory(self.device)
         budget = min(free, total * memory_utilization)
-        memory_for_kv = int(budget - param_bytes(self.config.model_config)
-                            - workspace)
+        memory_for_kv = int(budget - param_bytes(
+            self.config.model_config,
+            self.config.parallel_config.tensor_parallel_size) - workspace)
         memory_for_kv = max(memory_for_kv, 64 * 1024 * 1024)
 
         # KV-block geometry (must match the allocator's math)
@@ -103,6 +117,9 @@ class BaseWorker:
                       * kv_bytes_per_token)
         memory_for_kv = min(memory_for_kv, max_useful)
         num_blocks = memory_for_kv // (cc.block_size * kv_bytes_per_token)
+        if self.mesh is not None:
+            num_blocks, memory_for_kv = self.mesh.all_reduce_min(
+                [num_blocks, memory_for_kv])
         logger.info(
             "profiled: %.2f GB for KV cache -> %d blocks of %d tokens",
             memory_for_kv / 2**30, num_blocks, cc.block_size)
@@ -115,7 +132,8 @@ class BaseWorker:
 
         self.cache_engine = get_cache_engine(self.config, self.device)
         self.model_runner = ModelRunner(
-            self.config, self.cache_engine, self.device, seed=self.seed)
+            self.config, self.cache_engine, self.device, seed=self.seed,
+            mesh=self.mesh)
 
     # ------------------------------------------------------------------ #
     def add_seq(self, seq: Sequence) -> None:
@@ -163,8 +181,9 @@ class BaseWorker:
         self.metrics_store.on_batch_end(seq_metadata_list, scheduler_outputs)
         self._inflight.append((scheduler_outputs, handle))
         resolved = []
-        while self._inflight and (len(self._inflight) > max_inflight
-                                  or self._inflight[0][1].is_ready()):
+        while self._inflight and (
+                len(self._inflight) > max_inflight
+                or (self.mesh is None and self._inflight[0][1].is_ready())):
             resolved.append(self._resolve_oldest())
         return resolved
 

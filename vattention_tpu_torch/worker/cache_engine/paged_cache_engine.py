@@ -21,6 +21,7 @@ from vattention_tpu_torch.config import SystemConfig
 from vattention_tpu_torch.core.datatypes.sequence import SequenceMetadata
 from vattention_tpu_torch.logger import init_logger
 from vattention_tpu_torch.ops.utils import cdiv
+from vattention_tpu_torch.parallel.sharding import ShardLayout, kv_cache_shape
 from vattention_tpu_torch.worker.cache_engine.base_cache_engine import (
     BaseCacheEngine, arena_dtype)
 
@@ -61,10 +62,13 @@ class PagedCacheEngine(BaseCacheEngine):
                     self.num_blocks * kv_bytes_per_block / 2**30)
         # extra block of rows: scratch target for padding-token scatters
         self.scratch_row = R
+        # this rank's pool: the stage's layers and the tp shard's kv heads
         self.kv_cache = torch.zeros(
-            (model_config.get_total_num_layers(), 2,
-             model_config.arch.num_kv_heads, R + self.block_size,
-             self.head_size_padded), dtype=self.dtype, device=device)
+            kv_cache_shape(model_config.get_total_num_layers(),
+                           model_config.arch.num_kv_heads,
+                           R + self.block_size, self.head_size_padded,
+                           ShardLayout.of_config(parallel_config)),
+            dtype=self.dtype, device=device)
         self.free_blocks: List[int] = list(range(self.num_blocks))
         self.tables: Dict[str, List[int]] = {}
         self.batch_idx: Dict[str, int] = {}

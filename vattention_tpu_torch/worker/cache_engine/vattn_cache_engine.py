@@ -2,7 +2,9 @@
 
 Counterpart of ``vattention_tpu/worker/cache_engine/vattn_cache_engine.py``.
 Owns the arena tensor ``[L, 2, Hkv, R + block_tokens, Dp]`` on the device
-(row R is the scratch row; Dp is the head dim rounded up to 128) in the
+(row R is the scratch row; Dp is the head dim rounded up to 128; under
+tensor and pipeline parallelism L is the stage's layers and Hkv the tp
+shard's kv heads, the JAX ``kv_cache_spec``'s local block) in the
 model's dtype, or e4m3 or int8 under ``kv_quant`` (``arena_dtype``: 1-byte
 elements, so a page holds twice the tokens of a bf16 arena), maps
 sequences to batch slots through the allocator (the native C++ core by
@@ -27,6 +29,7 @@ from vattention_tpu_torch.memory.allocator import VAttentionAllocator
 from vattention_tpu_torch.memory.native import NativeVAttentionAllocator
 from vattention_tpu_torch.model_executor.attention import AttentionBackend
 from vattention_tpu_torch.ops.arena_copy import arena_relocate
+from vattention_tpu_torch.parallel.sharding import ShardLayout, kv_cache_shape
 from vattention_tpu_torch.worker.cache_engine.base_cache_engine import (
     BaseCacheEngine, arena_dtype)
 
@@ -85,10 +88,13 @@ class VAttnCacheEngine(BaseCacheEngine):
             * self.allocator.kvblock_bytes / 2**30)
         # one extra block of rows past the arena: the scratch row R
         self.scratch_row = max(R, 1)
+        # this rank's arena: the stage's layers and the tp shard's kv heads
         self.kv_cache = torch.zeros(
-            (model_config.get_total_num_layers(), 2,
-             model_config.arch.num_kv_heads,
-             self.scratch_row + self.block_tokens, self.head_size_padded),
+            kv_cache_shape(model_config.get_total_num_layers(),
+                           model_config.arch.num_kv_heads,
+                           self.scratch_row + self.block_tokens,
+                           self.head_size_padded,
+                           ShardLayout.of_config(parallel_config)),
             dtype=self.dtype, device=device)
         # seq_id -> batch slot
         self.batch_idx: Dict[str, int] = {}
