@@ -315,6 +315,35 @@ same kernel with the rotation off, held and timed in (a) as before.
     equal to (c)'s, each rank's launches, the backend and the graphs
     captured (0).  The NCCL path (one rank per GPU, each step a CUDA graph
     with its collectives) needs a card per rank and is not run here.
+(l) The long-context grid's north-star pairs on the card
+    (``vattention_tpu_torch/scripts/longctx_grid``'s ``pairs`` group at
+    64K and 128K; its 32K pair is (r)'s workload): first B over the last
+    128 queries of one run at kv_len 131,072, E on the same rows through
+    256-token block tables (bit for bit equal to B) and C over 2 slots at
+    depth 131,072, each held against its plain version with (a)'s
+    tolerances and timed beside it, one SDPA call and its bound (the JSON
+    rows ``<name>[128K]``).  Then yi-6b-200k-l16 (bf16, seed-0 dummy
+    weights) on fa_vattn_2mb and fa_paged_256 at P:D 100: 6 requests of
+    64,888 + 648 tokens at batch 4 and 4 of 129,775 + 1,297 at batch 2,
+    chunk 2048, max_model_len ctx + 128, memory utilization 0.93, each
+    cell's engine and trace built from the grid's flags and served through
+    ``BenchmarkRunner`` with its warm-up, the launch counts zeroed after
+    the warm-up and read after the timed run: every request completes
+    with none preempted and the trace's totals, no graph is captured in
+    the timed run, A, B and C launch on fa_vattn_2mb and A, E and C on
+    fa_paged_256 (F, G, H and A without the rotation on neither), the
+    first generated token of every request is equal across each pair, and
+    at 64K request 0's first token is within 0.25 logits of a dense
+    reference in the model's bf16 arithmetic (at 128K the cross-backend
+    check alone holds it).  ``collect_longctx_grid`` reads the cells'
+    files: makespan, processed tok/s, vs_paged, preemptions, the stall
+    audit's stall_s, with each cell's launches and peak device memory.
+    Then ``scripts/profile_backend_step``'s ``drive`` at ctx 131,072,
+    batch 2, bf16 K/V on both backends (prefill and steady decode between
+    CUDA events), and ``microbenchmarks/bench_decode_kernel`` at depths
+    65,536 (batch 4) and 131,072 (batch 2) over C's plan points 4:2 (the
+    defaults), 1:2, 16:2 and 4:4, each point held against C's plain
+    version before it is timed.
 
 Kernels G (single-run arena prefill, rows from the extent table) and H
 (single-run paged prefill) run only in (a), (a w), (f) and (f w).  In (a) each is held
@@ -336,7 +365,9 @@ H, then the falcon instances ``<name>[falcon]`` with launches from (k),
 from (c), (c8), (b), (g), (k) and (b falcon); the bf16 ``arena_relocate``
 row's launches from (r dyn), the one serving run that relocates;
 ``kv_append``, which serving no longer runs, shows 0; the ``[tp2]`` and
-``[tp4]`` rows from (t yi)), the card's name
+``[tp4]`` rows from (t yi); the ``[128K]`` rows of B, E and C with
+launches from (l)'s fa_vattn_2mb, fa_paged_256 and all four cells), the
+card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -2942,6 +2973,291 @@ def launcher_phases(dev, smi, out_dir):
 
 
 # --------------------------------------------------------------------- #
+# (l) the long-context grid's north-star pairs at 64K and 128K
+# --------------------------------------------------------------------- #
+LONG_CTX = (65536, 131072)      # the pairs' cells run here (32K is (r)'s)
+LONG_DEPTH, LONG_Q, LONG_BATCH = 131072, 128, 2
+# kernel C's plan points for bench_decode_kernel (MIN_SPLIT_TILES:
+# BLOCKS_PER_SM), today's defaults first
+LONG_PLANS = ("4:2", "1:2", "16:2", "4:4")
+LONG_BACKENDS = ("fa_vattn_2mb", "fa_paged_256")
+
+
+def long_kernels(dev):
+    """(l) the kernels at depth 131,072 that the 128K cells run there: B
+    over one run of the last 128 queries at kv_len 131,072 (so that the
+    plain version's [T, Hq, S] float32 scores stay ~2 GB), E on the same
+    rows through 256-token block tables (the same body: expected bit for
+    bit), and C over 2 slots (the 128K cell's batch) at depth 131,072, the
+    rows in a seeded permutation of 2048-token blocks.  Each is held
+    against its plain version with (a)'s tolerances and timed beside it,
+    one SDPA call on the gathered K/V and its bound.  Returns the rows of
+    the JSON line, ``<name>[128K]``."""
+    from vattention_tpu_torch.ops import (flash_decode, flash_prefill,
+                                          paged_attention)
+
+    HQ, HKV, D = YI["HQ"], YI["HKV"], YI["D"]
+    n, T, B, bt, sub, es = LONG_DEPTH, LONG_Q, LONG_BATCH, 2048, 256, 2
+    sm = D ** -0.5
+    randn, i32 = seeded(dev, 15)
+    timer = Timer(dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    blocks = B * n // bt
+    cache = randn(1, 2, HKV, blocks * bt, D)
+    perm = np.random.default_rng(15).permutation(blocks)
+    pos = np.arange(n // sub) * sub
+    rows_np = np.stack([perm[b * (n // bt) + pos // bt] * bt + pos % bt
+                        for b in range(B)]).astype(np.int32)
+    tile_rows = i32(rows_np)
+    grow = [flash_decode.gather_rows(tile_rows[b], n, sub) for b in range(B)]
+    results = []
+
+    def row(name, src, replaces, fn, plain, lib, b_ms, b_by, err, shape):
+        ms = timer(fn)
+        results.append(dict(
+            name=f"{name}[128K]", route="cuda", source=src,
+            replaces=replaces, max_abs_err=err, ms=ms,
+            plain_ms=timer(plain, iters=2, warmup=1),
+            library_ms=timer(lib), bound_ms=b_ms, bound_by=b_by,
+            shape=shape))
+        log(f"(l) {name} at depth {n}: {shape}: max abs err {err} ms "
+            f"{ms:.4f} plain {results[-1]['plain_ms']:.4f} library "
+            f"{results[-1]['library_ms']:.4f} (SDPA, gathered K/V) bound "
+            f"{b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}%)")
+
+    # B and E: the last T queries of one run at kv_len n
+    q = randn(T, HQ, D)
+    qt_run = i32([[0, 0]])
+    qinfo = i32([[n - T, n], [0, 0]])
+    trows = torch.stack([tile_rows[0], torch.zeros_like(tile_rows[0])])
+    btab = trows // sub
+    bkw = dict(pad_tile=128, sm_scale=sm)
+    args = (q, cache, qt_run, qinfo, trows, 0)
+    eargs = (q, cache, qt_run, qinfo, btab, 0)
+    got = flash_prefill.prefill_attention(*args, sub=sub, **bkw)
+    got_e = paged_attention.paged_prefill_attention(*eargs, block_size=sub,
+                                                    **bkw)
+    ref = flash_prefill.prefill_attention_plain(*args, sub=sub, **bkw)
+    torch.cuda.synchronize()
+    err, rel = check_attention(f"(l) prefill_attention at kv_len {n}", got,
+                               ref, PREFILL_TOL)
+    if not torch.equal(got, got_e):
+        raise AssertionError(f"(l) E differs from B at kv_len {n} on the "
+                             "same rows")
+    del got, got_e, ref
+    kg = cache[0, 0][:, grow[0]][None]
+    vg = cache[0, 1][:, grow[0]][None]
+    mask = (n - T + torch.arange(T, device=dev))[:, None] \
+        >= torch.arange(n, device=dev)[None, :]
+    pairs = T * (n - T) + T * (T + 1) // 2
+    b_ms, b_by = bound((2 * T * HQ * D + n * 2 * HKV * D) * es,
+                       4 * HQ * D * pairs)
+    shape = (f"the last {T} queries at kv_len {n}, one run over permuted "
+             f"2048-token blocks, Hq={HQ} Hkv={HKV} D={D} bf16")
+
+    def lib_prefill():
+        return sdpa(q.transpose(0, 1)[None], kg, vg, attn_mask=mask,
+                    enable_gqa=True)
+
+    row("prefill_attention", "vattention_tpu_torch/csrc/prefill_attention.cu",
+        "vattention_tpu/ops/flash_prefill.py:273",
+        lambda: flash_prefill.prefill_attention(*args, sub=sub, **bkw),
+        lambda: flash_prefill.prefill_attention_plain(*args, sub=sub, **bkw),
+        lib_prefill, b_ms, b_by, err, shape)
+    row("paged_prefill_attention",
+        "vattention_tpu_torch/csrc/paged_prefill_attention.cu",
+        "vattention_tpu/ops/paged_attention.py:107",
+        lambda: paged_attention.paged_prefill_attention(
+            *eargs, block_size=sub, **bkw),
+        lambda: paged_attention.paged_prefill_attention_plain(
+            *eargs, block_size=sub, **bkw),
+        lib_prefill, b_ms, b_by, err, shape + ", 256-token blocks")
+    del kg, vg, mask
+
+    # C: B slots at depth n
+    qd = randn(B, HQ, D)
+    seqlens = i32([n] * B)
+    dargs = (qd, cache, tile_rows, seqlens, 0)
+    got = flash_decode.decode_attention(*dargs, sub=sub, sm_scale=sm)
+    ref = flash_decode.decode_attention_plain(*dargs, sub=sub, sm_scale=sm)
+    torch.cuda.synchronize()
+    err, rel = check_attention(f"(l) decode_attention at depth {n}", got,
+                               ref, DECODE_TOL)
+    del got, ref
+    kd = torch.stack([cache[0, 0][:, g] for g in grow])
+    vd = torch.stack([cache[0, 1][:, g] for g in grow])
+    c_ms, c_by = bound(B * n * 2 * HKV * D * es + 2 * B * HQ * D * es,
+                       4 * HQ * D * B * n)
+    row("decode_attention", "vattention_tpu_torch/csrc/decode_attention.cu",
+        "vattention_tpu/ops/flash_decode.py:157",
+        lambda: flash_decode.decode_attention(*dargs, sub=sub, sm_scale=sm),
+        lambda: flash_decode.decode_attention_plain(*dargs, sub=sub,
+                                                    sm_scale=sm),
+        lambda: sdpa(qd[:, :, None], kd, vd, enable_gqa=True),
+        c_ms, c_by, err,
+        f"B={B} slots at depth {n} over permuted 2048-token blocks "
+        f"(sub {sub}), Hq={HQ} Hkv={HKV} D={D} bf16")
+    del kd, vd, cache
+    return results
+
+
+def longctx_phase(dev, kernels, smi, out_dir):
+    """(l): ``longctx_grid``'s ``pairs`` cells at 64K (batch 4, 6 requests)
+    and 128K (batch 2, 4 requests), fa_vattn_2mb against fa_paged_256 at
+    P:D 100 on yi-6b-200k-l16, each cell's engine and trace built from the
+    grid's flags (``longctx_grid.cell_configs``) but with seed-0 dummy
+    weights (the grid's zero weights make every token 0), served through
+    ``BenchmarkRunner`` with its warm-up (``benchmark_phase.serve``: the
+    launch counts zeroed after the warm-up and read after the timed run, no
+    graph captured in the timed run).  Every request completes, none
+    preempted, with the trace's totals; each backend's kernels launch and
+    the others' do not; the first generated token of every request is
+    equal across each pair; at 64K request 0's first token is within
+    LOGIT_GAP_TOL of a dense reference in the model's bf16 arithmetic (at
+    128K the cross-backend check alone holds it: a dense forward there
+    takes minutes).  ``collect_longctx_grid`` then reads the cells' files:
+    stall_s and vs_paged.  Returns the summed counts of each backend."""
+    from vattention_tpu_torch.microbenchmarks import benchmark_phase as phase
+    from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
+    from vattention_tpu_torch.ops.cache_append import (KV_APPEND,
+                                                       ROPE_KV_APPEND)
+    from vattention_tpu_torch.ops.flash_decode import DECODE_ATTENTION
+    from vattention_tpu_torch.ops.flash_prefill import (
+        PREFILL_ATTENTION, SEGMENT_PREFILL_ATTENTION)
+    from vattention_tpu_torch.ops.paged_attention import (
+        PAGED_PREFILL_ATTENTION, PAGED_PREFILL_SINGLE)
+    from vattention_tpu_torch.ops.pod_fused import POD_ATTENTION
+    from vattention_tpu_torch.scripts import (collect_longctx_grid,
+                                              longctx_grid)
+
+    a, b, c, d, e, f = (ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                        ARENA_RELOCATE, PAGED_PREFILL_ATTENTION, POD_ATTENTION)
+    never = [KV_APPEND, SEGMENT_PREFILL_ATTENTION, PAGED_PREFILL_SINGLE, f]
+    uses = {"fa_vattn_2mb": ([a, b, c], [e]), "fa_paged_256": ([a, e, c],
+                                                               [b, d])}
+    cells = [x for x in longctx_grid.group_cells("pairs") if x.ctx in LONG_CTX]
+    counts = {bk: {k.symbol: 0 for k in kernels} for bk in LONG_BACKENDS}
+    first, info = {}, {}
+    for cell in cells:
+        tag = f"l {cell.tag}"
+        kw, gen = longctx_grid.cell_configs(cell, out_dir, "cuda")
+        kw.update(load_format="dummy", seed=0)
+        phase.free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = phase.serve(kw, gen, kernels=kernels)
+        phase.check_static(res, cell.nreq, cell.prefill, cell.decode, tag)
+        peak = torch.cuda.max_memory_allocated(dev)
+        engine = res["runner"].engine
+        got = res["counts"]
+        required, idle = uses[cell.backend]
+        if any(got[k.symbol] <= 0 for k in required):
+            raise AssertionError(f"({tag}) a kernel never launched: {got}")
+        if any(got[k.symbol] > 0 for k in idle + never):
+            raise AssertionError(f"({tag}) a kernel of another path "
+                                 f"launched: {got}")
+        if got[d.symbol] != res["plans"]:
+            raise AssertionError(f"({tag}) {res['plans']} relocation plans "
+                                 f"but {d.symbol} launched {got[d.symbol]}")
+        for k, v in got.items():
+            counts[cell.backend][k] += v
+        first[cell.tag] = {s: toks[0] for s, toks in res["tokens"].items()}
+        info[cell.tag] = dict(tokens=res["tokens"], peak=peak,
+                              tok_s=res["tok_s"], counts=got)
+        t, ps = res["summary"]["totals"], res["summary"]["phase_stats"]
+        log(f"({tag}) {cell.backend}: {t['completed_requests']} requests of "
+            f"{cell.prefill} + {cell.decode} tokens, chunk 2048, batch "
+            f"{cell.batch}, max_model_len {cell.max_model_len}: makespan "
+            f"{t['makespan_s']:.4f} s, processed tok/s {res['tok_s']:.2f} "
+            f"over the makespan ({t['tokens_per_s']:.2f} over the store's "
+            f"wall), wall {res['wall_s']:.4f} s, {t['num_steps']} steps "
+            f"({ps['prefill_steps']} with prefill {ps['prefill_time_s']:.4f}"
+            f" s, {ps['decode_steps']} decode-only "
+            f"{ps['decode_time_s']:.4f} s), preemptions {t['preemptions']}, "
+            f"peak device memory {peak / 2**30:.2f} GiB, graphs "
+            f"{res['graphs_warm']} / {res['graphs_end']}; launches "
+            + ", ".join(f"{s_} {v}" for s_, v in got.items() if v)
+            + f"; on {smi}")
+        if cell.ctx == LONG_CTX[0] and cell.backend == "fa_vattn_2mb":
+            model_runner = engine.worker.model_runner
+            ids = res["prompts"]["bench0"]
+            tok = res["tokens"]["bench0"][0]
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                logits = dense_logits(model_runner.model,
+                                      model_runner.params, ids, dev,
+                                      dtype=torch.bfloat16)
+            gap = float(logits.max() - logits[tok])
+            log(f"({tag}) bench0 ({len(ids)} tokens): first token {tok}, "
+                f"dense bf16 top {int(logits.argmax())}, logit gap "
+                f"{gap:.5f} (tolerance {LOGIT_GAP_TOL}; the reference took "
+                f"{time.perf_counter() - t1:.1f} s)")
+            if not gap <= LOGIT_GAP_TOL:
+                raise AssertionError(f"({tag}) bench0: logit gap {gap}")
+            del logits, model_runner
+        engine.cleanup()
+        del res, engine
+        phase.free(dev)
+        log(f"({tag}) in {time.perf_counter() - t0:.1f} s")
+    grid = collect_longctx_grid.collect(out_dir)
+    by_tag = {r["tag"]: r for r in grid["configs"]}
+    ratio = {(r["ctx"], r["backend"]): r for r in grid["vs_paged"]}
+    for ctx in LONG_CTX:
+        v, p = (f"{bk}_c{ctx}_pd100" for bk in LONG_BACKENDS)
+        if first[v] != first[p]:
+            raise AssertionError(f"(l) first tokens differ at {ctx}: "
+                                 f"{first[v]} against {first[p]}")
+        same = sum(x == y for s_ in info[v]["tokens"] for x, y in zip(
+            info[v]["tokens"][s_], info[p]["tokens"][s_]))
+        total = sum(len(t_) for t_ in info[v]["tokens"].values())
+        r = ratio[ctx, "fa_vattn_2mb"]
+        log(f"(l) {ctx}: first tokens equal on {len(first[v])} of "
+            f"{len(first[v])} requests; {same} of {total} generated tokens "
+            f"equal; vs_paged (tok/s) {r['tokens_ratio_vs_paged']}, "
+            f"makespan paged / vattn {r['makespan_ratio_paged_over_this']}")
+        for t_ in (v, p):
+            g = by_tag[t_]
+            log(f"(l) {t_}: makespan {g['makespan_s']:.4f} s, tok/s "
+                f"{g['tokens_per_s']:.2f}, preemptions {g['preemptions']}, "
+                f"stall_s {g.get('stall_s')}, peak "
+                f"{info[t_]['peak'] / 2**30:.2f} GiB, launches A' "
+                f"{info[t_]['counts'][a.symbol]} B "
+                f"{info[t_]['counts'][b.symbol]} E "
+                f"{info[t_]['counts'][e.symbol]} C "
+                f"{info[t_]['counts'][c.symbol]}, on {smi}")
+    return counts
+
+
+def long_tools(smi):
+    """(l) the step profiler at ctx 131,072, batch 2, bf16 K/V, on both
+    backends (``scripts/profile_backend_step.drive``), then C's plan sweep
+    (``microbenchmarks/bench_decode_kernel``) at depth 65,536 (batch 4) and
+    131,072 (batch 2), 16 calls per timed program, each point checked
+    against C's plain version first."""
+    from vattention_tpu_torch.microbenchmarks import bench_decode_kernel
+    from vattention_tpu_torch.scripts.profile_backend_step import drive
+
+    for backend in LONG_BACKENDS:
+        t0 = time.perf_counter()
+        tp, ns, td = drive(BENCH_MODEL, backend, LONG_DEPTH, LONG_BATCH, 30,
+                           "none", "cuda")
+        log(f"(l profile) {backend}: ctx {LONG_DEPTH} x {LONG_BATCH}, bf16: "
+            f"prefill {tp:.4f} s in {ns} steps, decode "
+            f"{td * 1e3:.4f} ms per step (CUDA events; "
+            f"{time.perf_counter() - t0:.1f} s), on {smi}")
+    for ctx, batch in ((65536, 4), (LONG_DEPTH, LONG_BATCH)):
+        rows = bench_decode_kernel.sweep(bench_decode_kernel.parser()
+                                         .parse_args([
+            "--batch", str(batch), "--ctx", str(ctx), "--layers", "16",
+            "--plans", *LONG_PLANS]))
+        log(f"(l sweep) C at depth {ctx}, batch {batch}: " + "; ".join(
+            f"{r['min_split_tiles']}:{r['blocks_per_sm']} grid {r['grid']} "
+            f"{r['ms']:.4f} ms / 16 calls, {r['pct_bound']:.1f}% of "
+            f"{r['bound_ms']:.4f}, err {r['max_abs_err']:.3g}"
+            for r in rows) + f", on {smi}")
+
+
+# --------------------------------------------------------------------- #
 # (t b), (t yi) tensor and pipeline parallelism: ranks as processes on the
 # card (gloo: NCCL refuses two ranks on one device)
 # --------------------------------------------------------------------- #
@@ -3401,6 +3717,21 @@ def main() -> int:
         launcher_phases(dev, smi, bench_dir)
     finally:
         shutil.rmtree(bench_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (l): the long-context grid's pairs at 64K and 128K, the kernels at
+    # depth 131,072, the step profiler and C's plan sweep there
+    t0 = time.perf_counter()
+    results += long_kernels(dev)
+    grid_dir = tempfile.mkdtemp(prefix="vattn-longctx-")
+    try:
+        counts_l = longctx_phase(dev, kernels, smi, grid_dir)
+    finally:
+        shutil.rmtree(grid_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_tools(smi)
+    log(f"(l) in {time.perf_counter() - t0:.1f} s")
 
     # launches: E's from the paged run (d), F's from the POD run (e), G's
     # and H's from the harnesses (f), A-D's from the vattn run (c); on
@@ -3466,6 +3797,15 @@ def main() -> int:
             launches[f"{name}[tp{tp}]"] = (k, counts)
     # kernel A with the rotation in float32 from (b), at mistral's heads
     # from (g)
+    # the kernels at depth 131,072 from (l): B from its fa_vattn_2mb cells,
+    # E from its fa_paged_256 cells, C from all four
+    launches["prefill_attention[128K]"] = (PREFILL_ATTENTION,
+                                           counts_l["fa_vattn_2mb"])
+    launches["paged_prefill_attention[128K]"] = (PAGED_PREFILL_ATTENTION,
+                                                 counts_l["fa_paged_256"])
+    launches["decode_attention[128K]"] = (DECODE_ATTENTION, {
+        DECODE_ATTENTION.symbol: sum(v[DECODE_ATTENTION.symbol]
+                                     for v in counts_l.values())})
     launches["rope_kv_append[f32]"] = (ROPE_KV_APPEND, counts_b)
     launches["rope_kv_append[mistral]"] = (ROPE_KV_APPEND, counts_g)
     for r in results:

@@ -222,6 +222,38 @@ def test_decode_attention_matches_plain(dev, dtype, group, sub, case):
                             expect[b:b + 1])
 
 
+@pytest.mark.parametrize("plan", [(1, 1), (1, 2), (16, 2), (4, 4), (2, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_at_other_plan_points(dev, dtype, plan):
+    """Kernel C with ``min_split_tiles`` and ``blocks_per_sm`` off their
+    defaults (``bench_decode_kernel``'s sweep) against its plain version:
+    other splits and grids, the same attention; each point's grid is its
+    own, never the default's."""
+    from vattention_tpu_torch.ops.flash_decode import decode_grid
+
+    m, bps = plan
+    q, cache, tile_rows, seqlens = _decode_case("edges", dtype, 8, 16, dev)
+    kw = dict(sub=16, sm_scale=D ** -0.5)
+    expect = decode_attention_plain(q, cache.cpu(), tile_rows, seqlens, 0,
+                                    **kw)
+    got = decode_attention(q.to(dev), cache, tile_rows.to(dev),
+                           seqlens.to(dev), 0, min_split_tiles=m,
+                           blocks_per_sm=bps, **kw)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert decode_grid(dev, bps) == min(bps * sms, 1024)
+    got = got.cpu()
+    for b, n in enumerate(seqlens.tolist()):
+        if n == 0:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+        elif dtype == torch.float32:
+            torch.testing.assert_close(got[b], expect[b], atol=1e-4,
+                                       rtol=1e-4)
+        else:
+            check_attention(f"C plan {plan} slot {b} at depth {n}",
+                            got[b:b + 1], expect[b:b + 1])
+
+
 def test_decode_attention_ignores_table_depth(dev):
     """Kernel C's grid and split plan come from the depths alone: the same
     slots through row tables 4096 and 32768 positions deep give the same
@@ -1144,6 +1176,51 @@ def test_replay_equals_the_eager_step(dev, backend, model):
         assert any(n > 0 and p == pod for n, p, _ in checked), checked
     finally:
         _free(engine)
+
+
+@pytest.mark.parametrize("backend", ["fa_vattn", "fa_paged_16"])
+def test_profile_decode_step_replays_the_engines_decode_graph(dev, backend):
+    """``captured_step.next_step`` hands back a decode step's staged
+    inputs and its graph; ``profile_decode_step.replay_seconds`` replays
+    it and puts back the arena rows and the token buffer it wrote, so the
+    engine then serves on as if no replay had run."""
+    from vattention_tpu_torch.microbenchmarks.captured_step import next_step
+    from vattention_tpu_torch.scripts.common import Clock
+    from vattention_tpu_torch.scripts.profile_decode_step import (
+        prefill, replay_seconds)
+
+    engine = _engine(backend=backend)
+    try:
+        prefill(engine, 2, 200)
+        for _ in range(3):
+            engine.step()
+        runner = engine.worker.model_runner
+        step = next_step(engine)
+        assert step["n_pre"] == 0 and step["graph"] is not None
+        torch.cuda.synchronize()
+        kv = runner.cache_engine.kv_cache.clone()
+        tok = runner._tok_buf.clone()
+        assert replay_seconds(runner, step, 5, Clock(dev)) > 0
+        torch.cuda.synchronize()
+        assert torch.equal(runner.cache_engine.kv_cache.view(torch.uint8),
+                           kv.view(torch.uint8))
+        assert torch.equal(runner._tok_buf, tok)
+    finally:
+        _free(engine)
+
+
+def test_bench_decode_kernel_on_the_card(dev):
+    """Two plan points of the sweep at a small depth: each checked
+    against C's plain version inside the sweep, each with its own grid."""
+    from vattention_tpu_torch.microbenchmarks import bench_decode_kernel
+
+    rows = bench_decode_kernel.sweep(bench_decode_kernel.parser().parse_args(
+        ["--batch", "3", "--ctx", "5000", "--layers", "4", "--iters", "2",
+         "--plans", "4:2", "1:3"]))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert [r["grid"] for r in rows] == [min(2 * sms, 1024),
+                                         min(3 * sms, 1024)]
+    assert all(r["ms"] > 0 and r["max_abs_err"] < 2e-2 for r in rows)
 
 
 TINY_FALCON = dict(model_type="falcon", num_hidden_layers=2,

@@ -52,14 +52,16 @@ def live_tiles(n, window):
     return cdiv(n, DECODE_TILE) - first_tile(n, window) if n > 0 else 0
 
 
-def split_plan(seqlens, hkv, grid, window=None):
+def split_plan(seqlens, hkv, grid, window=None,
+               min_tiles=MIN_SPLIT_TILES):
     """Twin of ``make_plan``: every range (b, h, i, n, first tile, end
-    tile) in range order, and c, a split's least tiles."""
+    tile) in range order, and c, a split's least tiles (at least
+    ``min_tiles``, the kernel's argument, MIN_SPLIT_TILES by default)."""
     tiles = [live_tiles(n, window) for n in seqlens]
     work = hkv * sum(tiles)
     live = hkv * sum(t > 0 for t in tiles)
     share = max(grid - live, grid // 2, 1)
-    per = max(MIN_SPLIT_TILES, cdiv(work, share))
+    per = max(min_tiles, cdiv(work, share))
     ranges = []
     for b, t in enumerate(tiles):
         n = cdiv(t, per)
@@ -70,10 +72,11 @@ def split_plan(seqlens, hkv, grid, window=None):
     return ranges, per
 
 
-def find_range(r, seqlens, hkv, grid, window=None):
+def find_range(r, seqlens, hkv, grid, window=None,
+               min_tiles=MIN_SPLIT_TILES):
     """Twin of ``find_range``: range r from the plan's prefix ``cum`` by
     the kernel's binary search."""
-    ranges, per = split_plan(seqlens, hkv, grid, window)
+    ranges, per = split_plan(seqlens, hkv, grid, window, min_tiles)
     cum = np.cumsum([0] + [cdiv(live_tiles(n, window), per) * hkv
                            for n in seqlens]).tolist()
     lo, hi = 0, len(seqlens) - 1
@@ -168,6 +171,35 @@ def test_split_plan_covers_each_live_position_once(batch, grid):
         assert len(ranges) <= grid
     for r in range(len(ranges)):
         assert find_range(r, seqlens, hkv, grid) == ranges[r]
+
+
+@pytest.mark.parametrize("min_tiles", [1, 2, 16])
+@pytest.mark.parametrize("grid", [132, 264, 924])
+@pytest.mark.parametrize("batch", [0, 2, 4])
+def test_split_plan_at_other_least_splits(batch, grid, min_tiles):
+    """The plan points ``bench_decode_kernel`` sweeps (a split's least
+    tiles and the grid, ``decode_attention``'s ``min_split_tiles`` and
+    ``blocks_per_sm``): each live (slot, head) still covered once, in
+    order, to its depth, in cdiv(tiles, c) splits for c >= ``min_tiles``;
+    at most grid + B * Hkv ranges, and the lookup finds each.
+    At the defaults the plan is the one above."""
+    seqlens = random_batches()[batch]
+    hkv = 4
+    ranges, per = split_plan(seqlens, hkv, grid, min_tiles=min_tiles)
+    assert per >= min_tiles
+    for b, n in enumerate(seqlens):
+        t = cdiv(n, DECODE_TILE) if n > 0 else 0
+        mine = [r for r in ranges if r[:2] == (b, 0)]
+        assert (mine[0][4], mine[-1][5]) == (0, t) if t else mine == []
+        assert len(mine) == cdiv(t, per)
+        for prev, nxt in zip(mine, mine[1:]):
+            assert prev[5] == nxt[4]
+    assert len(ranges) <= grid + len(seqlens) * hkv
+    for r in range(len(ranges)):
+        assert find_range(r, seqlens, hkv, grid,
+                          min_tiles=min_tiles) == ranges[r]
+    assert split_plan(seqlens, hkv, grid) == split_plan(
+        seqlens, hkv, grid, min_tiles=MIN_SPLIT_TILES)
 
 
 def test_split_plan_reads_no_table():

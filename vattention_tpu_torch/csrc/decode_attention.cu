@@ -33,19 +33,19 @@ __global__ void __launch_bounds__(decode::kThreads) decode_attention_kernel(
     float* __restrict__ part, int* __restrict__ tickets,
     const int* __restrict__ tile_rows, const int* __restrict__ seqlens,
     int batch, int hkv, int group, int n_sub, int sub, long long rows_total,
-    int layer, float sm_scale, int window) {
+    int layer, float sm_scale, int window, int min_tiles) {
   extern __shared__ __align__(128) unsigned char dec_smem[];
   decode::decode_blocks<T, KV, G>(q, cache, out, part, tickets, tile_rows,
                                   seqlens, batch, hkv, group, n_sub, sub,
                                   rows_total, layer, sm_scale, window,
-                                  blockIdx.x, gridDim.x, dec_smem);
+                                  blockIdx.x, gridDim.x, dec_smem, min_tiles);
 }
 
 template <typename T, typename KV, int G>
 int launch(const void* q, const void* cache, void* out, float* part,
            int* tickets, const int* tile_rows, const int* seqlens, int batch,
            int hkv, int group, int n_sub, int sub, long long rows_total,
-           int layer, float sm_scale, int window, int nblocks,
+           int layer, float sm_scale, int window, int nblocks, int min_tiles,
            cudaStream_t stream) {
   constexpr int smem = decode::kSmemBytes<T, KV>;
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -55,7 +55,7 @@ int launch(const void* q, const void* cache, void* out, float* part,
   decode_attention_kernel<T, KV, G><<<nblocks, decode::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), part, tickets, tile_rows, seqlens, batch, hkv,
-      group, n_sub, sub, rows_total, layer, sm_scale, window);
+      group, n_sub, sub, rows_total, layer, sm_scale, window, min_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -64,13 +64,13 @@ int dispatch_group(int group, const void* q, const void* cache, void* out,
                    float* part, int* tickets, const int* tile_rows,
                    const int* seqlens, int batch, int hkv, int n_sub, int sub,
                    long long rows_total, int layer, float sm_scale,
-                   int window, int nblocks, cudaStream_t s) {
+                   int window, int nblocks, int min_tiles, cudaStream_t s) {
   switch (decode::chunk_width(group)) {
 #define VATTN_DECODE_CHUNK(C)                                                 \
   case C:                                                                     \
     return launch<T, KV, C>(q, cache, out, part, tickets, tile_rows, seqlens, \
                             batch, hkv, group, n_sub, sub, rows_total, layer, \
-                            sm_scale, window, nblocks, s);
+                            sm_scale, window, nblocks, min_tiles, s);
     VATTN_DECODE_CHUNK(1)
     VATTN_DECODE_CHUNK(2)
     VATTN_DECODE_CHUNK(4)
@@ -91,8 +91,10 @@ int dispatch_group(int group, const void* q, const void* cache, void* out,
 // float32 scratch, 16-byte aligned, of (nblocks + batch * Hkv * NC) *
 // decode::kPartFloats<C> (C * 130, rounded up to a multiple of 4)
 // elements; tickets: batch * Hkv * NC int32 counters, 0 before the launch
-// and 0 after it; window: the sliding window (0: none).  batch at most 1024
-// and nblocks at most 1024.
+// and 0 after it; window: the sliding window (0: none); min_tiles: the split
+// plan's least tiles per split (decode::kMinTiles on the serving path; a
+// sweep gives others), at least 1.  batch at most 1024 and nblocks at most
+// 1024.
 extern "C" int vattn_decode_attention(const void* q, const void* cache,
                                       void* out, void* part, int* tickets,
                                       const int* tile_rows,
@@ -100,17 +102,18 @@ extern "C" int vattn_decode_attention(const void* q, const void* cache,
                                       int group, int n_sub, int sub,
                                       long long rows_total, int layer,
                                       float sm_scale, int window, int nblocks,
-                                      int dtype, int kv_dtype, void* stream) {
+                                      int min_tiles, int dtype, int kv_dtype,
+                                      void* stream) {
   if (batch <= 0) return 0;
   if (batch > decode::kMaxSlots || nblocks <= 0 || group <= 0 ||
-      nblocks > decode::kMaxGrid || sub <= 0 || window < 0)
+      nblocks > decode::kMaxGrid || sub <= 0 || window < 0 || min_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
 #define VATTN_DECODE(T, KV)                                                   \
   dispatch_group<T, KV>(group, q, cache, out, p, tickets, tile_rows, seqlens, \
                         batch, hkv, n_sub, sub, rows_total, layer, sm_scale,  \
-                        window, nblocks, s)
+                        window, nblocks, min_tiles, s)
   if (dtype != kFloat32 && dtype != kBFloat16)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool f32 = dtype == kFloat32;

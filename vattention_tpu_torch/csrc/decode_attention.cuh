@@ -31,7 +31,8 @@
 // H * sum t_b in all with H = Hkv * NC plan heads, and SH = H * #{b : t_b >
 // 0} live (slot, head) pairs.  With P blocks (the wrapper gives a fixed
 // multiple of the SM count, whatever the table's depth), a split takes at
-// least c = max(kMinTiles, cdiv(W, max(P - SH, P / 2, 1))) tiles, so
+// least c = max(min_tiles, cdiv(W, max(P - SH, P / 2, 1))) tiles (min_tiles:
+// kMinTiles unless kernel C's caller gives another, as a sweep does), so
 // (slot, head) (b, h) has n_b =
 // cdiv(t_b, c) splits, split i covering tiles f_b + [i*t_b/n_b,
 // (i+1)*t_b/n_b).
@@ -100,7 +101,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;                 // positions per plan tile
 constexpr int kWarpPos = kTile / kWarps;  // positions per warp per tile
-constexpr int kMinTiles = 4;              // a split's least tiles
+constexpr int kMinTiles = 4;              // a split's least tiles (default)
 constexpr int kMaxSlots = 1024;           // batch limit of the plan's prefix
 constexpr int kMaxGroup = 8;              // N of the tensor-core tile: a chunk's most heads
 constexpr int kMaxGrid = 1024;            // blocks (bounds a merge's splits)
@@ -263,7 +264,8 @@ __device__ __forceinline__ int block_scan(int v, int* red, int& total) {
 // it.
 __device__ __forceinline__ int make_plan(const int* __restrict__ seqlens,
                                           int batch, int heads, int window,
-                                          int nblocks, int* cum, int* red) {
+                                          int nblocks, int min_tiles, int* cum,
+                                          int* red) {
   const int per_thread = (batch + kThreads - 1) / kThreads;
   const int b0 = min(batch, static_cast<int>(threadIdx.x) * per_thread);
   const int b1 = min(batch, b0 + per_thread);
@@ -279,7 +281,7 @@ __device__ __forceinline__ int make_plan(const int* __restrict__ seqlens,
   const long long W = static_cast<long long>(total_w) * heads;
   const int SH = total_live * heads;
   const int share = max(max(nblocks - SH, nblocks / 2), 1);
-  const int per = static_cast<int>(max(static_cast<long long>(kMinTiles),
+  const int per = static_cast<int>(max(static_cast<long long>(min_tiles),
                                        (W + share - 1) / share));
   int mine = 0;
   for (int b = b0; b < b1; ++b)
@@ -747,7 +749,7 @@ __device__ __forceinline__ void decode_blocks(
     const int* __restrict__ tile_rows, const int* __restrict__ seqlens,
     int batch, int hkv, int group, int n_sub, int sub, long long rows_total,
     int layer, float sm_scale, int window, int blk, int nblocks,
-    unsigned char* smem) {
+    unsigned char* smem, int min_tiles = kMinTiles) {
   static_assert(G >= 1 && G <= kMaxGroup, "chunk width");
   static_assert(kStateFloats * 4 <= kWarpRing<T, KV>,
                 "a warp's state fits in its ring");
@@ -771,7 +773,8 @@ __device__ __forceinline__ void decode_blocks(
     T* o = out + static_cast<long long>(bh) * group * kD;
     for (int idx = tid; idx < group * kD; idx += kThreads) o[idx] = from_float<T>(0.f);
   }
-  const int ranges = make_plan(seqlens, batch, hv, window, nblocks, cum, red);
+  const int ranges =
+      make_plan(seqlens, batch, hv, window, nblocks, min_tiles, cum, red);
 
   for (int r = blk; r < ranges; r += nblocks) {
     const Range rg = find_range(r, cum, batch, hv, window, seqlens);

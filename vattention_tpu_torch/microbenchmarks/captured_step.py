@@ -9,7 +9,10 @@ the arena rows the step writes and the token buffer must equal the eager
 step's bit for bit.  ``check_step_does_not_sync`` runs whole async engine
 steps (a prompt's, a mixed and a decode step, their signatures captured
 first) under ``torch.cuda.set_sync_debug_mode("error")``.
-``graph_report`` lists an engine's graphs.  Needs the card.
+``graph_report`` lists an engine's graphs.  ``next_step`` runs one
+engine step and hands back what the runner launched it with: its staged
+inputs, signature and graph (``scripts/profile_decode_step`` replays it).
+Needs the card, but for ``next_step``, which on the CPU finds no graph.
 """
 
 from __future__ import annotations
@@ -121,6 +124,35 @@ def check_step_does_not_sync(engine, lengths=(40, 150),
     pattern("sync", checked)
     drain()
     return launches
+
+
+def next_step(engine) -> dict:
+    """Run one ``engine.step()`` and return the runner's launch of it:
+    ``inputs`` (the stager's buffers, which hold this step's inputs until
+    the next step is prepared), ``n_pre``, ``mode``, ``metas`` (the
+    sequences' metadata it was prepared from) and ``graph``, its
+    signature's graph (None where steps run eagerly, as on the CPU)."""
+    runner = engine.worker.model_runner
+    prepare, launch = runner._prepare_inputs, runner._launch
+    got: dict = {}
+
+    def hooked_prepare(metas):
+        got["metas"] = metas
+        return prepare(metas)
+
+    def hooked_launch(inputs, n_pre, mode):
+        samples = launch(inputs, n_pre, mode)
+        got.update(inputs=inputs, n_pre=n_pre, mode=mode,
+                   graph=runner.graphs.get(runner.signature(inputs, n_pre,
+                                                            mode)))
+        return samples
+
+    runner._prepare_inputs, runner._launch = hooked_prepare, hooked_launch
+    try:
+        engine.step()
+    finally:
+        del runner._prepare_inputs, runner._launch
+    return got
 
 
 def graph_report(runner) -> List[dict]:

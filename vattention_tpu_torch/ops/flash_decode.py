@@ -49,13 +49,15 @@ from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, KV_DTYPE_CODES,
 P, I = ctypes.c_void_p, ctypes.c_int
 DECODE_ATTENTION = CudaKernel("decode_attention", "vattn_decode_attention", [
     P, P, P, P, P, P, P, I, I, I, I, I, ctypes.c_longlong, I,
-    ctypes.c_float, I, I, I, I, P])
+    ctypes.c_float, I, I, I, I, I, P])
 
 KERNEL_HEAD_DIM = 128
 # the decode body's chunk widths: a group of G query heads per kv head goes
 # through the tensor cores in chunks of chunk_width(G) heads
 CHUNK_WIDTHS = (1, 2, 4, 8)
-# the split plan of csrc/decode_attention.cuh
+# the split plan of csrc/decode_attention.cuh; the serving path takes the
+# defaults, a sweep (``microbenchmarks/bench_decode_kernel.py``) passes
+# others to ``decode_attention``
 DECODE_TILE = 64        # positions per tile
 MIN_SPLIT_TILES = 4     # a split's least tiles
 BLOCKS_PER_SM = 2       # the grid: this many blocks per SM
@@ -68,7 +70,7 @@ MAX_GRID = 1024         # grid limit (a merge's weights in shared memory)
 # launch on the current stream and the engine uses one, so no two launches
 # that share it run at once.
 _scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
-_grid: Dict[torch.device, int] = {}
+_grid: Dict[Tuple[torch.device, int], int] = {}
 
 
 def chunk_width(group: int) -> int:
@@ -147,13 +149,18 @@ def check_decode_args(name, q, kv_cache, tile_rows, seqlens, layer: int,
             f"Hkv dividing Hq, at most {MAX_SLOTS} slots)")
 
 
-def decode_grid(device: torch.device) -> int:
+def decode_grid(device: torch.device,
+                blocks_per_sm: int = BLOCKS_PER_SM) -> int:
     """Blocks of kernel C's grid (and of F's decode role) on ``device``:
-    BLOCKS_PER_SM per SM, whatever the depth of the tables."""
-    grid = _grid.get(device)
+    ``blocks_per_sm`` per SM, whatever the depth of the tables, at most
+    MAX_GRID.  Cached per (device, blocks_per_sm)."""
+    if blocks_per_sm < 1:
+        raise ValueError(f"blocks_per_sm {blocks_per_sm} < 1")
+    grid = _grid.get((device, blocks_per_sm))
     if grid is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        grid = _grid[device] = min(BLOCKS_PER_SM * sms, MAX_GRID)
+        grid = _grid[device, blocks_per_sm] = min(blocks_per_sm * sms,
+                                                  MAX_GRID)
     return grid
 
 
@@ -185,11 +192,18 @@ def current_scratch(device: torch.device):
 
 
 def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
-                     sub: int, sm_scale: float, window=None) -> torch.Tensor:
+                     sub: int, sm_scale: float, window=None,
+                     min_split_tiles: int = MIN_SPLIT_TILES,
+                     blocks_per_sm: int = BLOCKS_PER_SM) -> torch.Tensor:
     """q: [B, Hq, D]; kv_cache: [L, 2, Hkv, R, D]; tile_rows: [B, n_sub]
     int32; seqlens: [B] int32, each at most n_sub * sub; window: the
     sliding window (None or 0: none) -> [B, Hq, D] in q's dtype.  CPU
-    tensors take the plain version; CUDA tensors launch kernel C once."""
+    tensors take the plain version; CUDA tensors launch kernel C once.
+    ``min_split_tiles`` and ``blocks_per_sm`` are the split plan's (the
+    serving path leaves them at their defaults); the plain version has no
+    plan and ignores them."""
+    if min_split_tiles < 1:
+        raise ValueError(f"min_split_tiles {min_split_tiles} < 1")
     if not q.is_cuda:
         return decode_attention_plain(q, kv_cache, tile_rows, seqlens,
                                       layer, sub=sub, sm_scale=sm_scale,
@@ -202,12 +216,13 @@ def decode_attention(q, kv_cache, tile_rows, seqlens, layer: int, *,
     if B == 0:
         return out
     G = Hq // Hkv
-    grid = decode_grid(q.device)
+    grid = decode_grid(q.device, blocks_per_sm)
     part, tickets = decode_scratch(q.device, B, Hkv, G, grid)
     DECODE_ATTENTION(q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(),
                      part.data_ptr(), tickets.data_ptr(),
                      tile_rows.data_ptr(), seqlens.data_ptr(), B, Hkv, G,
                      tile_rows.shape[1], sub, R, layer, float(sm_scale),
-                     window_arg(window), grid, DTYPE_CODES[q.dtype],
+                     window_arg(window), grid, int(min_split_tiles),
+                     DTYPE_CODES[q.dtype],
                      KV_DTYPE_CODES[kv_cache.dtype], current_stream())
     return out
