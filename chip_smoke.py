@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernels (A-H) from the six sources of
-``vattention_tpu_torch/csrc`` (one nvcc per source, in parallel) and
+Builds the port's CUDA kernels (A-H and the layer's four elementwise
+kernels) from the seven sources of ``vattention_tpu_torch/csrc`` (one
+nvcc per source, in parallel) and
 prints ptxas's registers and spills of kernels A, B, C, E, F, G and H,
 with the shared memory per block of the bf16 prefill body's instances and
 of kernel C, for each K/V storage type (and any ptxas note on wgmma), then
@@ -76,6 +77,17 @@ same kernel with the rotation off, held and timed in (a) as before.
     once, q written once, each valid token's K/V written once) and host
     microseconds per call of both; no single PyTorch call computes it, so
     its library time is null.
+(a norm) The layer's elementwise kernels (``ops/norm_act.py``): add_rms_norm
+    and silu_and_mul at Yi-6B's, Mistral-7B's and Qwen-14B's widths,
+    add_layer_norm (x + (o + mlp)) and gelu_new at Falcon-7B's, at T = 1,
+    8, 520 and 2048 rows in bf16 and float32: the residual output bit for
+    bit against the plain add, the outputs within
+    ``timing.check_elementwise`` (1e-6 of the output's scale; bf16 also
+    one ulp of each value); each timed beside its plain version, one
+    library call (``F.rms_norm`` after the add, ``F.layer_norm`` after the
+    adds, ``F.silu(g) * u``, ``F.gelu(approximate="tanh")``) and its bytes
+    bound.  At Qwen-14B's heads (40 q, 40 kv), kernel A with a qkv bias at
+    the same T, q and the arena bit for bit against its plain version.
 (b) f32 parity: tiny-llama-debug, float32, sarathi chunk 128 on the
     two-prompt workload of tests/test_e2e.py, through fa_vattn, then
     (b') fa_paged_16 and (b'') fa_pod (whose mixed step must run through
@@ -92,8 +104,10 @@ same kernel with the rotation off, held and timed in (a) as before.
     max_model_len 8192, max_batch_size 8: 8 requests of seeded prompt
     lengths in [1024, 4096] and 32 greedy tokens each, the launch counts
     zeroed just before and read just after.  rope_kv_append, prefill and
-    decode attention must have launched, the paged prefill and kv_append
-    (A without the rotation) not;
+    decode attention, add_rms_norm and silu_and_mul must have launched, the
+    paged prefill, kv_append (A without the rotation) and falcon's
+    add_layer_norm and gelu_new not (so in every serving phase: each
+    model family's elementwise kernels launch, the other's do not);
     arena_relocate launches once per relocation the allocator plans, and
     at these sizes it plans none (a request spans at most 4 blocks and
     may hold 8 extents), so phase (a) is what holds it.  Then 2 short
@@ -119,9 +133,12 @@ same kernel with the rotation off, held and timed in (a) as before.
     engine step under ``torch.cuda.set_sync_debug_mode("error")``: the run
     fails on any stream synchronization from ``_prepare_inputs`` through
     the replay to the next dispatch, or if kernel A does not launch once
-    per layer and step.  Then the op profiler's rows
-    (``profile_op_level``: A′ as the KV-save row, B or E prefill, C
-    decode, the projections, norm, head and sampler, by CUDA events).
+    per layer and step.  Every graph must launch, per replay, A once a
+    layer, add_rms_norm twice a layer and once for the final norm,
+    silu_and_mul once a layer, and no falcon kernel.  Then the op
+    profiler's rows (``profile_op_level``: A′ as the KV-save row, B or E
+    prefill, C decode, the projections, the fused norm and activation,
+    head and sampler, by CUDA events).
 (c8) (c)'s 8 requests and 2 short prompts with ``kv_quant`` fp8, then
     int8 (fresh engines, no profile): A, B and C must launch; the tokens
     per 2 MB page, tok/s, and how many greedy tokens equal (c)'s
@@ -191,6 +208,15 @@ same kernel with the rotation off, held and timed in (a) as before.
     fa_pod (F, A, B, C; F's launches plus B's must equal B's in (g), and
     F's plus C's C's), each held to (g)'s windowed reference; how many
     tokens agree with (g)'s is printed.
+(q) qwen-14b (40 q and 40 kv heads of 128, hidden 5120, MLP 13696, vocab
+    152064) cut to 4 layers (a config.json in a temporary directory),
+    bf16, seed-0 dummy weights with the qkv bias drawn from N(0, 0.5^2),
+    on fa_vattn_2mb, chunk 512, batch 4: 4 requests of 1024-3072 prompt
+    and 16 greedy tokens, the bias added inside kernel A; A, B, C,
+    add_rms_norm and silu_and_mul launch, falcon's kernels and the other
+    paths' do not; each first token within 0.25 logits of a dense float32
+    reference, which, without the bias, moves some logit by more than
+    that.
 (f w) kernel_sweep --window 4096 --check at Hkv 8 on the bf16, e4m3 and
     int8 arenas (ctx 4096, 16384; bf16 also 32768); G's and H's windowed
     launches are read there.
@@ -214,8 +240,9 @@ same kernel with the rotation off, held and timed in (a) as before.
 (k) falcon-7b at full width (32 layers, 71 query heads on 1 kv head,
     hidden 4544, vocab 65024, bf16, seed-0 weights) through LLMEngine on
     fa_vattn_2mb, sarathi chunk 512, max_model_len 2048, batch 8: 8
-    requests of 512-1900 prompt tokens and 32 greedy tokens (A, B, C must
-    launch; E, F, G, H not), then (k paged) fa_paged_256 and (k pod)
+    requests of 512-1900 prompt tokens and 32 greedy tokens (A, B, C,
+    add_layer_norm and gelu_new must launch; E, F, G, H and the llama
+    family's norm kernels not), then (k paged) fa_paged_256 and (k pod)
     fa_pod on the same requests (F's launches plus B's equal B's in (k),
     and F's plus C's C's); each request's first token within 0.25 logits
     of a dense reference in the model's bf16 arithmetic; tok/s and the
@@ -304,17 +331,18 @@ same kernel with the rotation off, held and timed in (a) as before.
     captured (gloo's collectives run on the host) and each backend's
     kernels must launch.  Then ``LLMEngine(tensor_parallel_size=2)`` from
     this process, its second rank a child, on fa_vattn: the same tokens.
-(t yi) yi-6b-200k at full width (32 layers, 32 q / 4 kv heads, head dim
-    128, bf16, dummy weights from seed 0) with (c)'s 8 requests on
+(t yi) yi-6b-200k-l16 (Yi-6B's widths, 32 q / 4 kv heads, head dim 128, cut
+    to 16 of its 32 layers to keep the script's time; bf16, dummy weights
+    from seed 0) with (c)'s 8 requests on
     fa_vattn_2mb at tp2, pp2, tp2 pp2 and tp4, the ranks processes on the
     card: every rank serves all 8 x 32 tokens, the same on every rank; A,
     B and C launch on every rank and E, F, G, H and A without the rotation
     on none, D once per relocation plan; request s0's first token within
     0.25 logits of a dense float32 reference's top.  Per layout: processed
-    tok/s beside the card's name and power limit, the share of tokens
-    equal to (c)'s, each rank's launches, the backend and the graphs
-    captured (0).  The NCCL path (one rank per GPU, each step a CUDA graph
-    with its collectives) needs a card per rank and is not run here.
+    tok/s beside the card's name and power limit, each rank's launches,
+    the backend and the graphs captured (0).  The NCCL path (one rank per
+    GPU, each step a CUDA graph with its collectives) needs a card per
+    rank and is not run here.
 (l) The long-context grid's north-star pairs on the card
     (``vattention_tpu_torch/scripts/longctx_grid``'s ``pairs`` group at
     64K and 128K; its 32K pair is (r)'s workload): first B over the last
@@ -366,8 +394,10 @@ from (c), (c8), (b), (g), (k) and (b falcon); the bf16 ``arena_relocate``
 row's launches from (r dyn), the one serving run that relocates;
 ``kv_append``, which serving no longer runs, shows 0; the ``[tp2]`` and
 ``[tp4]`` rows from (t yi); the ``[128K]`` rows of B, E and C with
-launches from (l)'s fa_vattn_2mb, fa_paged_256 and all four cells), the
-card's name
+launches from (l)'s fa_vattn_2mb, fa_paged_256 and all four cells; the
+(a norm) rows ``<kernel>[<model> T<n>]`` with launches from (c), (g), (k)
+and (q), their ``[... f32]`` rows from (b) and (b falcon)), the card's
+name
 and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -931,6 +961,168 @@ def rope_append_phase(dev):
         del got, cache, qkv
         torch.cuda.empty_cache()
     return results
+
+
+# --------------------------------------------------------------------- #
+# (a norm) the layer's elementwise kernels, and kernel A with a qkv bias
+# --------------------------------------------------------------------- #
+# the widths of each model whose serving phase gives the launches: (c),
+# (g), (k) and (q) in bf16; (b) and (b falcon) in float32
+NORM_MODELS = {"yi": "yi-6b-200k", "mistral": "mistral-7b",
+               "falcon": "falcon-7b", "qwen": "qwen-14b"}
+# a decode row, (c)'s decode batch, (a)'s step, (r)'s chunk
+NORM_ROWS = (1, 8, 520, 2048)
+# the JAX functions each kernel fuses (XLA fuses them into the jitted step:
+# no pallas_call)
+NORM_REPLACES = {
+    "add_rms_norm": "vattention_tpu/model_executor/layers/layernorm.py:13",
+    "silu_and_mul": "vattention_tpu/model_executor/layers/activation.py:10",
+    "add_layer_norm": "vattention_tpu/model_executor/models/falcon.py:22",
+    "gelu_new": "vattention_tpu/model_executor/layers/activation.py:16",
+}
+
+
+def norm_act_phase(dev):
+    """(a norm): ``ops/norm_act.py``'s kernels at the widths of Yi-6B,
+    Mistral-7B, Qwen-14B (add_rms_norm, silu_and_mul) and Falcon-7B
+    (add_layer_norm, gelu_new), at T = 1, 8, 520 and 2048 rows in bf16 and
+    float32: the residual output bit for bit against the plain add, the
+    normalized and activated outputs within ``check_elementwise``; each
+    timed beside its plain version, one library call (``F.rms_norm`` after
+    the add, ``F.layer_norm`` after the adds, ``F.silu(g) * u``,
+    ``F.gelu(approximate="tanh")``) and its bytes bound (each input read
+    once, each output written once).  At Qwen-14B's heads (40 q, 40 kv,
+    D 128) kernel A with a qkv bias at the same T (every fifth row -1,
+    positions to 8191), q and the arena bit for bit against its plain
+    version, timed beside it and its bytes bound; no library call."""
+    from vattention_tpu_torch.config import get_model_arch
+    from vattention_tpu_torch.microbenchmarks.timing import check_elementwise
+    from vattention_tpu_torch.ops import norm_act
+
+    F = torch.nn.functional
+    timer = Timer(dev)
+    results = []
+    for tag, model in NORM_MODELS.items():
+        a = get_model_arch(model)
+        H, I = a.hidden_size, a.intermediate_size
+        eps = 1e-5 if a.parallel_attn else a.rms_norm_eps
+        for dt in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(16)
+
+            def randn(*shape, scale=1.0, shift=0.0):
+                return (torch.randn(shape, generator=gen, device=dev) * scale
+                        + shift).to(dt)
+            w = randn(H, scale=0.2, shift=1)
+            b = randn(H, scale=0.1)
+            for T in NORM_ROWS:
+                words = f"{tag} T{T}" + (" f32" if dt == torch.float32
+                                         else "")
+                x = randn(T, H, scale=2, shift=0.5)
+                o = randn(T, H, scale=0.7)
+                m = randn(T, H, scale=0.7)
+                es = x.element_size()
+                if a.parallel_attn:
+                    u = randn(T, I, scale=3)
+                    cases = [
+                        ("add_layer_norm",
+                         lambda: norm_act.add_layer_norm(x, o, m, w, b, eps),
+                         lambda: norm_act.add_layer_norm_plain(x, o, m, w, b,
+                                                               eps),
+                         lambda: F.layer_norm(x + (o + m), (H,), w, b, eps),
+                         (5 * T * H + 2 * H) * es, f"[{T}, {H}]"),
+                        ("gelu_new", lambda: norm_act.gelu_new(u),
+                         lambda: norm_act.gelu_new_plain(u),
+                         lambda: F.gelu(u, approximate="tanh"),
+                         2 * T * I * es, f"[{T}, {I}]")]
+                else:
+                    g = randn(T, 2 * I, scale=4)
+                    cases = [
+                        ("add_rms_norm",
+                         lambda: norm_act.add_rms_norm(x, o, w, eps),
+                         lambda: norm_act.add_rms_norm_plain(x, o, w, eps),
+                         lambda: F.rms_norm(x + o, (H,), w, eps),
+                         (4 * T * H + H) * es, f"[{T}, {H}]"),
+                        ("silu_and_mul", lambda: norm_act.silu_and_mul(g),
+                         lambda: norm_act.silu_and_mul_plain(g),
+                         lambda: F.silu(g[:, :I]) * g[:, I:],
+                         3 * T * I * es, f"[{T}, 2 x {I}]")]
+                for name, fn, plain, lib, n_bytes, shape in cases:
+                    got, ref = fn(), plain()
+                    torch.cuda.synchronize()
+                    if isinstance(got, tuple):
+                        if not torch.equal(got[0], ref[0]):
+                            raise AssertionError(f"{name}[{words}]: the "
+                                                 "residual differs from x + r")
+                        got, ref = got[1], ref[1]
+                    err = check_elementwise(f"{name}[{words}]", got, ref)
+                    b_ms, b_by = bound(n_bytes, 0)
+                    r = dict(name=f"{name}[{words}]", route="cuda",
+                             source="vattention_tpu_torch/csrc/norm_act.cu",
+                             replaces=NORM_REPLACES[name], max_abs_err=err,
+                             ms=timer(fn), plain_ms=timer(plain),
+                             library_ms=timer(lib), bound_ms=b_ms,
+                             bound_by=b_by)
+                    log(f"(a norm) {name}[{words}] {shape} {str(dt)[6:]}: "
+                        f"== plain (residual bit for bit), max err {err:.3g}; "
+                        f"ms {r['ms']:.4f}, bound {b_ms:.5f} ({b_by}), "
+                        f"{100 * b_ms / r['ms']:.1f}% of it; plain "
+                        f"{r['plain_ms']:.4f}; library {r['library_ms']:.4f}")
+                    results.append(r)
+                if a.qkv_bias:
+                    results.append(biased_append(dev, timer, a, dt, T,
+                                                 words))
+                del x, o, m
+            torch.cuda.empty_cache()
+    return results
+
+
+def biased_append(dev, timer, a, dt, T, words):
+    """Kernel A with a qkv bias at ``a``'s heads over T tokens (rows
+    distinct, every fifth -1), bit for bit against its plain version."""
+    from vattention_tpu_torch.model_executor.layers.rotary_embedding import (
+        get_rope)
+    from vattention_tpu_torch.ops.cache_append import (
+        rope_kv_append as fused, rope_kv_append_plain as plain)
+
+    HQ, HKV, D = a.num_q_heads, a.num_kv_heads, a.head_dim
+    rope = get_rope(D, D, a.max_position_embeddings, a.rope_theta,
+                    a.rope_scaling)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    W = (HQ + 2 * HKV) * D
+    qkv = (torch.randn(T, W, generator=gen, device=dev) * 3).to(dt)
+    bias = (torch.randn(W, generator=gen, device=dev) * 2).to(dt)
+    R = max(T, 2048)
+    cache = torch.randn(2, 2, HKV, R, D, generator=gen, device=dev).to(dt)
+    rows = torch.randperm(R, generator=gen, device=dev)[:T].int()
+    rows[::5] = -1
+    pos = torch.randint(0, 8192, (T,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    args = (qkv, pos, rows, 1, rope)
+    expect = cache.clone()
+    q_ref = plain(expect, *args, bias=bias)
+    q = fused(cache, *args, bias=bias)
+    torch.cuda.synchronize()
+    if not (torch.equal(q.view(torch.uint8), q_ref.view(torch.uint8))
+            and torch.equal(cache.view(torch.uint8),
+                            expect.view(torch.uint8))):
+        raise AssertionError(f"rope_kv_append[{words}] with a bias differs "
+                             "from its plain version")
+    nvalid = int((rows >= 0).sum())
+    es = qkv.element_size()
+    b_ms, b_by = bound(T * (2 * HQ + 2 * HKV) * D * es + T * 8 + D * 2
+                       + W * es + nvalid * 2 * HKV * D * es, 0)
+    r = dict(name=f"rope_kv_append[{words}]", route="cuda",
+             source="vattention_tpu_torch/csrc/kv_append.cu",
+             replaces="vattention_tpu/ops/cache_append.py:152,274",
+             max_abs_err=0.0,
+             ms=timer(lambda: fused(cache, *args, bias=bias)),
+             plain_ms=timer(lambda: plain(expect, *args, bias=bias)),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    log(f"(a norm) rope_kv_append[{words}] with the qkv bias, Hq={HQ} "
+        f"Hkv={HKV} D={D}, {nvalid} valid rows: q and arena == plain bit "
+        f"for bit; ms {r['ms']:.4f}, bound {b_ms:.5f} ({b_by}), "
+        f"{100 * b_ms / r['ms']:.1f}% of it; plain {r['plain_ms']:.4f}")
+    return r
 
 
 def widening_check(dev, arena, sm, lbl):
@@ -1888,7 +2080,9 @@ def dense_logits(model, params, ids, dev, arena=None, dtype=torch.float32,
     through the arena's round trip (quantized as kernel A stores them,
     widened, times the int8 step).  Falcon's layer (``parallel_attn``) is
     written here from torch's own layer_norm and tanh GELU: attention and
-    the MLP from one LayerNorm, ``x + (o + mlp)``."""
+    the MLP from one LayerNorm, ``x + (o + mlp)``.  A qkv bias (qwen) is
+    added to the projection.  The norms and activations are the plain
+    ones (``layers/``), never the kernels."""
     from vattention_tpu_torch.model_executor.layers.activation import (
         silu_and_mul)
     from vattention_tpu_torch.model_executor.layers.layernorm import rms_norm
@@ -1919,6 +2113,8 @@ def dense_logits(model, params, ids, dev, arena=None, dtype=torch.float32,
         else:
             h = rms_norm(x, lp["input_norm"][l].to(dtype), a.rms_norm_eps)
         qkv = h @ lp["qkv_w"][l].to(dtype)
+        if "qkv_b" in lp:
+            qkv = qkv + lp["qkv_b"][l].to(dtype)
         q = qkv[:, :model.hq * D].reshape(T, model.hq, D)
         k = qkv[:, model.hq * D:(model.hq + model.hkv) * D].reshape(
             T, model.hkv, D)
@@ -2151,6 +2347,25 @@ def captured_phase(engine, rng, tag):
         raise AssertionError(f"({tag}) checked signatures {sorted(checked)} "
                              "miss the decode-only or the mixed step")
     report = graph_report(runner)
+    # per replay: A once per layer; two add_rms_norm a layer and the final
+    # norm's, one silu_and_mul a layer (falcon: one add_layer_norm a layer
+    # and the final norm's, one gelu_new a layer); no other norm kernel
+    L = runner.model.arch.num_layers
+    if runner.model.parallel_attn:
+        per_replay = {"vattn_add_layer_norm": L + 1, "vattn_gelu_new": L,
+                      "vattn_add_rms_norm": 0, "vattn_silu_and_mul": 0}
+    else:
+        per_replay = {"vattn_add_rms_norm": 2 * L + 1,
+                      "vattn_silu_and_mul": L, "vattn_add_layer_norm": 0,
+                      "vattn_gelu_new": 0}
+    per_replay["vattn_rope_kv_append"] = L
+    for r in report:
+        got = {k: r["launches"].get(k, 0) for k in per_replay}
+        if got != per_replay:
+            raise AssertionError(f"({tag}) graph {r['signature']} launches "
+                                 f"{got} per replay, expected {per_replay}")
+    log(f"({tag}) every graph launches, per replay, " + ", ".join(
+        f"{k} {n}" for k, n in per_replay.items()))
     log(f"({tag}) {len(report)} graphs captured: " + "; ".join(
         f"{r['signature']} in {r['capture_s']:.3f} s, "
         f"{sum(r['launches'].values())} port-kernel launches per replay ("
@@ -2379,6 +2594,136 @@ def mistral_phase(dev, kernels, backend, tag, required, idle,
         profile_serving(engine, rng, tag, n=2, prompt=6144)
     engine.cleanup()
     return counts, reference
+
+
+# --------------------------------------------------------------------- #
+# (q) qwen-14b at full width, cut to 4 layers: the qkv bias inside A
+# --------------------------------------------------------------------- #
+QWEN_LAYERS = 4
+QWEN_BIAS_SCALE = 0.5   # the drawn qkv bias's std (dummy weights draw 0)
+
+
+def qwen_config(root) -> str:
+    """qwen-14b's config.json (its registry widths: 40 q and 40 kv heads of
+    128, hidden 5120, MLP 13696, vocab 152064, a qkv bias) with
+    QWEN_LAYERS layers, in a directory under ``root``."""
+    from vattention_tpu_torch.config import get_model_arch
+
+    a = get_model_arch("qwen-14b")
+    path = os.path.join(root, "qwen-14b-l4")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(model_type=a.model_type,
+                       num_hidden_layers=QWEN_LAYERS,
+                       num_attention_heads=a.num_q_heads,
+                       num_key_value_heads=a.num_kv_heads,
+                       head_dim=a.head_dim, hidden_size=a.hidden_size,
+                       intermediate_size=a.intermediate_size,
+                       vocab_size=a.vocab_size,
+                       max_position_embeddings=a.max_position_embeddings,
+                       rope_theta=a.rope_theta, rms_norm_eps=a.rms_norm_eps,
+                       tie_word_embeddings=a.tie_word_embeddings), f)
+    return path
+
+
+def qwen_phase(dev, kernels, smi, required, idle):
+    """(q): qwen-14b at full width cut to QWEN_LAYERS layers (a config.json
+    in a temporary directory), bf16, seed-0 dummy weights with the qkv
+    bias drawn from N(0, QWEN_BIAS_SCALE^2) (the dummy draw leaves it 0),
+    through LLMEngine on fa_vattn_2mb (sarathi chunk 512, max_model_len
+    4096, batch 4): 4 requests of 1024-3072 prompt tokens and 16 greedy
+    tokens, the launch counts zeroed just before and read just after;
+    ``required`` must launch, ``idle`` not.  Each request's first token is
+    held within LOGIT_GAP_TOL of a dense float32 reference's top, and for
+    the first request the reference without the bias must move some logit
+    by more than that tolerance (so a dropped bias would show).  Returns
+    the launch counts."""
+    import shutil
+    import tempfile
+
+    from vattention_tpu_torch import LLMEngine
+
+    root = tempfile.mkdtemp(prefix="vattn-qwen-")
+    try:
+        fresh_metrics()
+        engine = LLMEngine.from_engine_args(
+            model=qwen_config(root), dtype="bfloat16",
+            attention_backend="fa_vattn_2mb", scheduler_type="sarathi",
+            chunk_size=512, max_model_len=4096, max_batch_size=4,
+            max_num_seqs=4, seed=0)
+        counts = serve_qwen(dev, engine, kernels, smi, required, idle)
+        engine.cleanup()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def serve_qwen(dev, engine, kernels, smi, required, idle):
+    """(q)'s requests and checks on ``engine``; returns the launches."""
+    runner = engine.worker.model_runner
+    a = runner.model.arch
+    bias = runner.params["layers"]["qkv_b"]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    bias.copy_(torch.randn(bias.shape, generator=gen, device=dev)
+               * QWEN_BIAS_SCALE)
+    rng = np.random.default_rng(14)
+    lens = rng.integers(1024, 3073, 4)
+    requests = [(f"q{i}", rng.integers(1, a.vocab_size, int(n)).tolist(), 16)
+                for i, n in enumerate(lens)]
+    stats = {}
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = serve(engine, requests, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.symbol: k.launches for k in kernels}
+    n_gen = sum(len(v) for v in out.values())
+    n_prompt = int(lens.sum())
+    if len(out) != 4 or n_gen != 4 * 16:
+        raise AssertionError(f"(q) served {len(out)} requests, {n_gen} "
+                             "tokens")
+    log(f"(q) qwen-14b x {QWEN_LAYERS} layers (Hq {a.num_q_heads}, Hkv "
+        f"{a.num_kv_heads}, hidden {a.hidden_size}, MLP "
+        f"{a.intermediate_size}, vocab {a.vocab_size}, qkv bias std "
+        f"{QWEN_BIAS_SCALE}), fa_vattn_2mb: served {len(out)} requests in "
+        f"{stats['steps']} steps: prompt tokens {n_prompt} (lengths "
+        f"{lens.tolist()}), generated {n_gen}, wall {wall:.3f} s, "
+        f"{(n_prompt + n_gen) / wall:.2f} processed tok/s; "
+        f"{len(runner.graphs)} step graphs captured; on {smi}")
+    log("(q) launches in the 4-request run: "
+        + ", ".join(f"{s_} {n}" for s_, n in counts.items()))
+    if any(counts[k.symbol] <= 0 for k in required):
+        raise AssertionError(f"(q) a kernel never launched: {counts}")
+    if any(counts[k.symbol] > 0 for k in idle):
+        raise AssertionError(f"(q) a kernel of another path launched: "
+                             f"{counts}")
+    if not runner.graphs:
+        raise AssertionError("(q) no step was captured")
+    with torch.no_grad():
+        for i, (seq_id, ids, _) in enumerate(requests):
+            tok = out[seq_id][0]
+            logits = dense_logits(runner.model, runner.params, ids, dev)
+            gap = float(logits.max() - logits[tok])
+            log(f"(q) {seq_id} ({len(ids)} tokens): engine token {tok}, "
+                f"dense f32 top {int(logits.argmax())}, logit gap "
+                f"{gap:.5f} (tolerance {LOGIT_GAP_TOL})")
+            if not gap <= LOGIT_GAP_TOL:
+                raise AssertionError(f"(q) {seq_id}: logit gap {gap}")
+            if i:
+                continue
+            kept = bias.clone()
+            bias.zero_()
+            unbiased = dense_logits(runner.model, runner.params, ids, dev)
+            bias.copy_(kept)
+            moved = float((logits - unbiased).abs().max())
+            log(f"(q) {seq_id}: the reference without the bias moves a "
+                f"logit by up to {moved:.5f} (must exceed {LOGIT_GAP_TOL})")
+            if not moved > LOGIT_GAP_TOL:
+                raise AssertionError(f"(q) the bias moves no logit past "
+                                     f"{LOGIT_GAP_TOL}: {moved}")
+    return counts
 
 
 # --------------------------------------------------------------------- #
@@ -3263,6 +3608,8 @@ def long_tools(smi):
 # --------------------------------------------------------------------- #
 # layout name -> (pp, tp): every layout of more than one rank
 LAYOUTS = {k: v for k, v in RANK_LAYOUTS.items() if v != (1, 1)}
+# (t yi)'s model: Yi-6B's widths at half its depth (the script's time)
+T_YI_MODEL = "yi-6b-200k-l16"
 PARITY_BACKENDS = ("fa_vattn", "fa_paged_256", "fa_pod")
 
 
@@ -3362,11 +3709,12 @@ def parallel_parity_phase(dev, kernels):
         f"one-rank engine's, {time.perf_counter() - t0:.1f} s")
 
 
-def parallel_serving_phase(dev, kernels, smi, tokens_c, required, idle):
-    """(t yi): (c)'s 8 requests on yi-6b-200k at full width (bf16, dummy
-    weights from seed 0, fa_vattn_2mb, chunk 512, batch 8, max_model_len
-    8192) as the ranks of each layout, processes sharing the card (each
-    with gpu_memory_utilization 0.9 / ranks), the launch counts zeroed in
+def parallel_serving_phase(dev, kernels, smi, required, idle):
+    """(t yi): (c)'s 8 requests on T_YI_MODEL (Yi-6B's widths at half
+    depth; bf16, dummy weights from seed 0, fa_vattn_2mb, chunk 512, batch
+    8, max_model_len 8192) as the ranks of each layout, processes sharing
+    the card (each with gpu_memory_utilization 0.9 / ranks), the launch
+    counts zeroed in
     each rank just before serving and read just after.  Every rank serves
     8 x 32 tokens, the same on every rank; the kernels of ``required``
     launch on every rank and those of ``idle`` on none; request s0's first
@@ -3384,10 +3732,11 @@ def parallel_serving_phase(dev, kernels, smi, tokens_c, required, idle):
     n_gen = 8 * 32
     by_tp = {}
     first = {}
+    engine_args = dict(ENGINE_ARGS, model=T_YI_MODEL)
     for name, (pp, tp) in LAYOUTS.items():
         world = pp * tp
         t0 = time.perf_counter()
-        out = serve_layout(pp, tp, ENGINE_ARGS, reqs)
+        out = serve_layout(pp, tp, engine_args, reqs)
         total_s = time.perf_counter() - t0
         per_rank = [o[0] for o in out]
         got = per_rank[0]["outputs"]
@@ -3416,18 +3765,14 @@ def parallel_serving_phase(dev, kernels, smi, tokens_c, required, idle):
             for s_, v in total.items():
                 acc[s_] += v
         wall = per_rank[0]["wall"]
-        same = sum(a == b for s_ in got for a, b in zip(got[s_],
-                                                        tokens_c[s_]))
         first[name] = got["s0"][0]
-        log(f"(t yi {name}) yi-6b-200k as {world} ranks (pp {pp} x tp {tp}) "
-            f"on one card, backend gloo, steps eager (0 graphs), "
+        log(f"(t yi {name}) {T_YI_MODEL} as {world} ranks (pp {pp} x tp "
+            f"{tp}) on one card, backend gloo, steps eager (0 graphs), "
             f"gpu_memory_utilization {0.9 / world:.3f} each: prompt tokens "
             f"{n_prompt}, generated {n_gen}, serving wall {wall:.3f} s, "
             f"{(n_prompt + n_gen) / wall:.2f} processed tok/s "
-            f"[{smi}]; {same} of {n_gen} generated tokens equal (c)'s "
-            f"({same / n_gen:.3f}); with the ranks' start "
-            f"{total_s:.1f} s")
-    arch = get_model_arch("yi-6b-200k")
+            f"[{smi}]; with the ranks' start {total_s:.1f} s")
+    arch = get_model_arch(T_YI_MODEL)
     model = get_model_class(arch.model_type)(arch, dtype=torch.bfloat16)
     params = model.init_params(dev, seed=0)
     ids = reqs[0]["prompt_token_ids"]
@@ -3456,6 +3801,9 @@ def main() -> int:
         from vattention_tpu_torch.ops.flash_decode import DECODE_ATTENTION
         from vattention_tpu_torch.ops.flash_prefill import (
             PREFILL_ATTENTION, SEGMENT_PREFILL_ATTENTION)
+        from vattention_tpu_torch.ops.norm_act import (ADD_LAYER_NORM,
+                                                       ADD_RMS_NORM, GELU_NEW,
+                                                       SILU_AND_MUL)
         from vattention_tpu_torch.ops.paged_attention import (
             PAGED_PREFILL_ATTENTION, PAGED_PREFILL_SINGLE)
         from vattention_tpu_torch.ops.pod_fused import POD_ATTENTION
@@ -3479,9 +3827,12 @@ def main() -> int:
     ptxas_report()
 
     single = [SEGMENT_PREFILL_ATTENTION, PAGED_PREFILL_SINGLE]
+    # the layer's elementwise kernels of the llama family and of falcon
+    llama_norms = [ADD_RMS_NORM, SILU_AND_MUL]
+    falcon_norms = [ADD_LAYER_NORM, GELU_NEW]
     kernels = [ROPE_KV_APPEND, KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
                ARENA_RELOCATE, PAGED_PREFILL_ATTENTION, POD_ATTENTION,
-               *single]
+               *single, *llama_norms, *falcon_norms]
     results = kernel_phase(dev)
     for arena in QUANT:
         results += kernel_phase(dev, arena)
@@ -3494,6 +3845,7 @@ def main() -> int:
     for geo in YI_TP.values():
         results += kernel_phase(dev, geo=geo)
     results += rope_append_phase(dev)
+    results += norm_act_phase(dev)
     counts_b = parity_phase(dev, "fa_vattn", "b", kernels=kernels)
     if counts_b[ROPE_KV_APPEND.symbol] <= 0:
         raise AssertionError("(b) the f32 model never launched kernel A")
@@ -3569,8 +3921,10 @@ def main() -> int:
         shutil.rmtree(falcon_dir, ignore_errors=True)
     counts_c, tokens_c = serving_phase(
         dev, kernels, "fa_vattn_2mb", "c",
-        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                  *llama_norms],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single,
+              *falcon_norms])
     # free the (c) engine's memory before the next engine sizes its arena
     gc.collect()
     torch.cuda.empty_cache()
@@ -3578,24 +3932,28 @@ def main() -> int:
     for arena, (_, tag) in QUANT.items():
         counts_c8[tag], _ = serving_phase(
             dev, kernels, "fa_vattn_2mb", f"c8 {tag}",
-            required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-            idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single],
+            required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                      *llama_norms],
+            idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single,
+                  *falcon_norms],
             reference=tokens_c, arena=arena)
         gc.collect()
         torch.cuda.empty_cache()
     counts_d, _ = serving_phase(
         dev, kernels, "fa_paged_256", "d",
-        required=[ROPE_KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
+        required=[ROPE_KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION,
+                  *llama_norms],
         idle=[KV_APPEND, PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION,
-              *single],
+              *single, *falcon_norms],
         reference=tokens_c)
     gc.collect()
     torch.cuda.empty_cache()
     counts_e, _ = serving_phase(
         dev, kernels, "fa_pod", "e",
         required=[POD_ATTENTION, ROPE_KV_APPEND, PREFILL_ATTENTION,
-                  DECODE_ATTENTION],
-        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, ARENA_RELOCATE, *single],
+                  DECODE_ATTENTION, *llama_norms],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, ARENA_RELOCATE, *single,
+              *falcon_norms],
         reference=tokens_c)
     f, b, c = (POD_ATTENTION.symbol, PREFILL_ATTENTION.symbol,
                DECODE_ATTENTION.symbol)
@@ -3613,9 +3971,11 @@ def main() -> int:
     log(f"(t b) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts_t = parallel_serving_phase(
-        dev, kernels, smi, tokens_c,
-        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+        dev, kernels, smi,
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                  *llama_norms],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single,
+              *falcon_norms])
     log(f"(t yi) in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3623,23 +3983,27 @@ def main() -> int:
     # (g') the same requests on the paged and POD backends
     counts_g, ref_g = mistral_phase(
         dev, kernels, "fa_vattn_2mb", "g",
-        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                  *llama_norms],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single,
+              *falcon_norms])
     gc.collect()
     torch.cuda.empty_cache()
     counts_gp, _ = mistral_phase(
         dev, kernels, "fa_paged_256", "g' paged",
-        required=[ROPE_KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
+        required=[ROPE_KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION,
+                  *llama_norms],
         idle=[KV_APPEND, PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION,
-              *single],
+              *single, *falcon_norms],
         reference=ref_g)
     gc.collect()
     torch.cuda.empty_cache()
     counts_gf, _ = mistral_phase(
         dev, kernels, "fa_pod", "g' pod",
         required=[POD_ATTENTION, ROPE_KV_APPEND, PREFILL_ATTENTION,
-                  DECODE_ATTENTION],
-        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, *single], reference=ref_g)
+                  DECODE_ATTENTION, *llama_norms],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, *single,
+              *falcon_norms], reference=ref_g)
     del ref_g
     log(f"(g' pod) F + B = {counts_gf[f]} + {counts_gf[b]} against B in (g) "
         f"{counts_g[b]}; F + C = {counts_gf[f]} + {counts_gf[c]} against C "
@@ -3650,27 +4014,42 @@ def main() -> int:
                              "(g)'s")
     gc.collect()
     torch.cuda.empty_cache()
+    # (q): qwen-14b's widths with the qkv bias inside kernel A
+    t0 = time.perf_counter()
+    counts_q = qwen_phase(
+        dev, kernels, smi,
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                  *llama_norms],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single,
+              *falcon_norms])
+    log(f"(q) in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     # (k): falcon-7b at full width on the three backends; (k long): its
     # long-context geometry from a checkpoint in falcon's layout
     counts_k, ref_k = falcon_phase(
         dev, kernels, "fa_vattn_2mb", "k", smi=smi,
-        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                  *falcon_norms],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single,
+              *llama_norms])
     gc.collect()
     torch.cuda.empty_cache()
     counts_kp, _ = falcon_phase(
         dev, kernels, "fa_paged_256", "k paged", smi=smi,
-        required=[ROPE_KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION],
+        required=[ROPE_KV_APPEND, PAGED_PREFILL_ATTENTION, DECODE_ATTENTION,
+                  *falcon_norms],
         idle=[KV_APPEND, PREFILL_ATTENTION, ARENA_RELOCATE, POD_ATTENTION,
-              *single],
+              *single, *llama_norms],
         reference=ref_k)
     gc.collect()
     torch.cuda.empty_cache()
     counts_kf, _ = falcon_phase(
         dev, kernels, "fa_pod", "k pod", smi=smi,
         required=[POD_ATTENTION, ROPE_KV_APPEND, PREFILL_ATTENTION,
-                  DECODE_ATTENTION],
-        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, *single], reference=ref_k)
+                  DECODE_ATTENTION, *falcon_norms],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, *single,
+              *llama_norms], reference=ref_k)
     del ref_k
     log(f"(k pod) F + B = {counts_kf[f]} + {counts_kf[b]} against B in (k) "
         f"{counts_k[b]}; F + C = {counts_kf[f]} + {counts_kf[c]} against C "
@@ -3683,8 +4062,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     falcon_long_phase(
         dev, kernels, smi=smi,
-        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                  *falcon_norms],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single,
+              *llama_norms])
     gc.collect()
     torch.cuda.empty_cache()
     counts_f = harness_phase(single)
@@ -3696,8 +4077,10 @@ def main() -> int:
     # (s): the serving entry points (checkpoint, OpenAI server, allocators)
     counts_s = server_phase(
         dev, kernels, smi=smi,
-        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
-        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single])
+        required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                  *llama_norms],
+        idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single,
+              *falcon_norms])
     gc.collect()
     torch.cuda.empty_cache()
     # (r) ... (r yaml): the benchmark package (its output in a temporary
@@ -3710,9 +4093,10 @@ def main() -> int:
         t0 = time.perf_counter()
         counts_rdyn = arrivals_phase(
             dev, kernels, smi, bench_dir,
-            required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION],
+            required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
+                      *llama_norms],
             idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION,
-                  *single])
+                  *single, *falcon_norms])
         log(f"(r dyn) in {time.perf_counter() - t0:.1f} s")
         launcher_phases(dev, smi, bench_dir)
     finally:
@@ -3808,6 +4192,23 @@ def main() -> int:
                                      for v in counts_l.values())})
     launches["rope_kv_append[f32]"] = (ROPE_KV_APPEND, counts_b)
     launches["rope_kv_append[mistral]"] = (ROPE_KV_APPEND, counts_g)
+    # (a norm)'s rows: bf16 from the serving phase at each model's widths,
+    # float32 from the tiny f32 models of (b) and (b falcon) on fa_vattn
+    by_model = {"yi": counts_c, "mistral": counts_g, "qwen": counts_q,
+                "falcon": counts_k}
+    by_name = {"add_rms_norm": ADD_RMS_NORM, "silu_and_mul": SILU_AND_MUL,
+               "add_layer_norm": ADD_LAYER_NORM, "gelu_new": GELU_NEW,
+               "rope_kv_append": ROPE_KV_APPEND}
+    for r in results:
+        name, _, words = r["name"].partition("[")
+        words = words.rstrip("]").split()
+        if len(words) < 2 or words[0] not in NORM_MODELS or not re.fullmatch(
+                r"T\d+", words[1]):
+            continue
+        model, f32 = words[0], words[-1] == "f32"
+        counts = (by_model[model] if not f32 else
+                  counts_bf[""] if model == "falcon" else counts_b)
+        launches[r["name"]] = (by_name[name], counts)
     for r in results:
         k, counts = launches[r["name"]]
         r["launches"] = counts[k.symbol]

@@ -69,6 +69,16 @@ version at windows 1-300 (the edge cases at 1, 63, 64, 65 and 300, also
 on 1-byte arenas), with the same bit-for-bit identities, C captured in a
 CUDA graph under a window, and a window past every depth giving the
 unwindowed bits (B on the runs' real rows, C on every slot).
+
+The layer's elementwise kernels (``ops/norm_act.py``): add_rms_norm,
+add_layer_norm, silu_and_mul and gelu_new at every hidden and MLP width
+of the registry, from one decode row to a 2048-token chunk, in float32
+and bfloat16, one launch per call: residuals bit for bit against the
+plain adds, the norms and activations within ``timing.check_elementwise``
+(1e-6 of the output's scale; bfloat16 also one ulp of each value); the
+wrappers refuse other dtypes, shapes and layouts, and capture in a CUDA
+graph.  Kernel A with a qkv bias equals its plain version bit for bit on
+every arena.
 """
 
 import numpy as np
@@ -1567,3 +1577,183 @@ def test_backend_rule_on_this_host(dev):
     assert pick_backend("cuda", ranks_per_device(n, "cuda")) == "nccl"
     assert pick_backend("cuda", ranks_per_device(n + 1, "cuda")) == "gloo"
     assert pick_backend("cuda", ranks_per_device(2 * n, "cuda")) == "gloo"
+
+
+# ---------------------------------------------------------------------- #
+# the layer's elementwise kernels (ops/norm_act.py) and A with a qkv bias
+# ---------------------------------------------------------------------- #
+# the registry's hidden widths (tiny, yi / mistral / llama, falcon, qwen-14b
+# / internlm-20b) and MLP widths (yi, qwen-14b, mistral, internlm-20b,
+# falcon's 4H)
+NORM_WIDTHS = [256, 4096, 4544, 5120]
+ACT_WIDTHS = [256, 11008, 13696, 14336, 13824, 18176]
+NORM_ROWS = [1, 8, 520, 2048]
+
+
+def _randn(gen, *shape, dtype, dev, scale=1.0, shift=0.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale
+            + shift).to(dtype)
+
+
+@pytest.mark.parametrize("rows", NORM_ROWS)
+@pytest.mark.parametrize("width", NORM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rms_norm_matches_plain(dev, dtype, width, rows):
+    """One launch per call; the residual x + r equal to the plain add bit
+    for bit, the norm within ``check_elementwise``; without r the plain
+    norm, and the residual is x itself."""
+    from vattention_tpu_torch.microbenchmarks.timing import check_elementwise
+    from vattention_tpu_torch.ops.norm_act import (ADD_RMS_NORM, add_rms_norm,
+                                                   add_rms_norm_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(width + rows)
+    x = _randn(gen, rows, width, dtype=dtype, dev=dev, scale=2, shift=0.5)
+    r = _randn(gen, rows, width, dtype=dtype, dev=dev, scale=0.7)
+    w = _randn(gen, width, dtype=dtype, dev=dev, scale=0.2, shift=1)
+    before = ADD_RMS_NORM.launches
+    res, out = add_rms_norm(x, r, w, 1e-5)
+    res0, out0 = add_rms_norm(x, None, w, 1e-6)
+    torch.cuda.synchronize()
+    assert ADD_RMS_NORM.launches == before + 2
+    eres, eout = add_rms_norm_plain(x, r, w, 1e-5)
+    assert torch.equal(res, eres) and res0 is x
+    check_elementwise("add_rms_norm", out, eout)
+    check_elementwise("rms_norm", out0, add_rms_norm_plain(x, None, w,
+                                                           1e-6)[1])
+
+
+@pytest.mark.parametrize("rows", NORM_ROWS)
+@pytest.mark.parametrize("width", NORM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_layer_norm_matches_plain(dev, dtype, width, rows):
+    """x + (o + mlp), x + o and x alone into falcon's LayerNorm (rows of
+    mean 3, where a one-pass variance would cancel): residuals bit for bit
+    against the plain adds, the norms within ``check_elementwise``."""
+    from vattention_tpu_torch.microbenchmarks.timing import check_elementwise
+    from vattention_tpu_torch.ops.norm_act import (ADD_LAYER_NORM,
+                                                   add_layer_norm,
+                                                   add_layer_norm_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(2 * width + rows)
+    x = _randn(gen, rows, width, dtype=dtype, dev=dev, scale=2, shift=3)
+    o, m = (_randn(gen, rows, width, dtype=dtype, dev=dev, scale=0.5)
+            for _ in range(2))
+    w = _randn(gen, width, dtype=dtype, dev=dev, scale=0.2, shift=1)
+    b = _randn(gen, width, dtype=dtype, dev=dev, scale=0.1)
+    before = ADD_LAYER_NORM.launches
+    for adds in ((o, m), (o, None), (None, None)):
+        res, out = add_layer_norm(x, *adds, w, b, 1e-5)
+        eres, eout = add_layer_norm_plain(x, *adds, w, b, 1e-5)
+        torch.cuda.synchronize()
+        assert torch.equal(res, eres)
+        check_elementwise(f"add_layer_norm {[a is None for a in adds]}",
+                          out, eout)
+    assert ADD_LAYER_NORM.launches == before + 3
+
+
+@pytest.mark.parametrize("rows", NORM_ROWS)
+@pytest.mark.parametrize("width", ACT_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_activations_match_plain(dev, dtype, width, rows):
+    """silu_and_mul over [rows, 2 * width] and gelu_new over [rows, width]
+    (gates to +-12) against their plain versions, one launch each."""
+    from vattention_tpu_torch.microbenchmarks.timing import check_elementwise
+    from vattention_tpu_torch.ops.norm_act import (GELU_NEW, SILU_AND_MUL,
+                                                   gelu_new, gelu_new_plain,
+                                                   silu_and_mul,
+                                                   silu_and_mul_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(3 * width + rows)
+    x = _randn(gen, rows, 2 * width, dtype=dtype, dev=dev, scale=4)
+    before = SILU_AND_MUL.launches, GELU_NEW.launches
+    got = silu_and_mul(x), gelu_new(x[:, :width].contiguous())
+    torch.cuda.synchronize()
+    assert (SILU_AND_MUL.launches, GELU_NEW.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    check_elementwise("silu_and_mul", got[0], silu_and_mul_plain(x))
+    check_elementwise("gelu_new", got[1],
+                      gelu_new_plain(x[:, :width].contiguous()))
+
+
+def test_norm_act_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from vattention_tpu_torch.ops.norm_act import (add_layer_norm,
+                                                   add_rms_norm, gelu_new,
+                                                   silu_and_mul)
+
+    x = torch.ones(4, 256, device=dev, dtype=torch.bfloat16)
+    w = torch.ones(256, device=dev, dtype=torch.bfloat16)
+    wide = torch.ones(1, 16384 + 8, device=dev, dtype=torch.bfloat16)
+    bad = [
+        lambda: add_rms_norm(x, x.float(), w, 1e-5),            # dtype
+        lambda: add_rms_norm(x, x[:2], w, 1e-5),                # shape
+        lambda: add_rms_norm(x.t(), None, w, 1e-5),             # layout
+        lambda: add_rms_norm(x, None, w[:128], 1e-5),           # weight
+        lambda: add_rms_norm(x[:, :252].contiguous(), None, w[:252],
+                             1e-5),                             # 16 bytes
+        lambda: add_rms_norm(x.half(), None, w.half(), 1e-5),   # fp16
+        lambda: add_rms_norm(x, None, w.cpu(), 1e-5),           # device
+        lambda: add_layer_norm(x, None, x, w, w, 1e-5),         # mlp, no o
+        lambda: add_rms_norm(wide, None, wide[0], 1e-5),        # 32 KB row
+        lambda: silu_and_mul(x[:, :252].contiguous()),
+        lambda: gelu_new(x.flatten()[:4].contiguous()),
+    ]
+    for i, call in enumerate(bad):
+        with pytest.raises(ValueError):
+            call()
+            pytest.fail(f"case {i} was taken")
+
+
+def test_norm_act_kernels_capture_in_a_cuda_graph(dev):
+    """The wrappers read nothing back from the device: add_rms_norm and
+    silu_and_mul capture in a CUDA graph, and a replay on new inputs
+    gives the eager bits."""
+    from vattention_tpu_torch.ops.norm_act import add_rms_norm, silu_and_mul
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x, r = (_randn(gen, 8, 4096, dtype=torch.bfloat16, dev=dev)
+            for _ in range(2))
+    w = _randn(gen, 4096, dtype=torch.bfloat16, dev=dev)
+    g = _randn(gen, 8, 2 * 11008, dtype=torch.bfloat16, dev=dev)
+    add_rms_norm(x, r, w, 1e-5)   # builds
+    silu_and_mul(g)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        res, out = add_rms_norm(x, r, w, 1e-5)
+        act = silu_and_mul(g)
+    new = [_randn(gen, *t.shape, dtype=t.dtype, dev=dev) for t in (x, r, g)]
+    for t, n in zip((x, r, g), new):
+        t.copy_(n)
+    graph.replay()
+    torch.cuda.synchronize()
+    eres, eout = add_rms_norm(*new[:2], w, 1e-5)
+    assert torch.equal(res, eres) and torch.equal(out, eout)
+    assert torch.equal(act, silu_and_mul(new[2]))
+
+
+@pytest.mark.parametrize("arena", [None, *QUANT])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_kv_append_with_bias_matches_plain(dev, dtype, arena):
+    """Kernel A with a qkv bias (added and rounded before the rotation)
+    against its plain version (qkv + bias, the rope, kv_append_plain), bit
+    for bit: q and the arena."""
+    from vattention_tpu_torch.model_executor.layers.rotary_embedding import (
+        get_rope)
+    from vattention_tpu_torch.ops.cache_append import (rope_kv_append,
+                                                       rope_kv_append_plain)
+
+    rng = np.random.default_rng(22)
+    qkv, pos, rows, cache = _rope_case(rng, 70, D, dtype, arena, dev)
+    bias = torch.from_numpy(rng.standard_normal(qkv.shape[1]).astype(
+        np.float32) * 2).to(dev, dtype)
+    rope = get_rope(D, D, 8192, 5e6, None)
+    step = STEP if arena == torch.int8 else None
+    expect = cache.clone()
+    q_ref = rope_kv_append_plain(expect, qkv, pos, rows, 1, rope, step,
+                                 bias=bias)
+    q = rope_kv_append(cache, qkv, pos, rows, 1, rope, step, bias=bias)
+    torch.cuda.synchronize()
+    assert torch.equal(q.view(torch.uint8), q_ref.view(torch.uint8))
+    assert torch.equal(cache.view(torch.uint8), expect.view(torch.uint8))
+    with pytest.raises(ValueError):
+        rope_kv_append(cache, qkv, pos, rows, 1, rope, step, bias=bias[:-8])

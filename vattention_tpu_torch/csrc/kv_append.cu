@@ -10,7 +10,10 @@
 //
 // Token t's row of the qkv projection holds Hq query heads, then Hkv K
 // heads, then Hkv V heads, D values each (float32 or bfloat16, the
-// model's type).  With the rotation on, each Q and K head is rotated
+// model's type).  A qkv bias (qwen, internlm: a row of the same layout)
+// is added first and the sum rounded to the model's type, as the JAX
+// step adds it in XLA before it splits the heads (models/llama.py:115-
+// 116).  With the rotation on, each Q and K head is rotated
 // rotate-half style at position positions[t] (times pos_scale, linear
 // scaling) with the inverse frequencies inv_freq[D/2], and multiplied by
 // post_scale (YaRN's mscale); the rotated Q goes to q_out[t] for every
@@ -207,6 +210,7 @@ struct Args {
   const int* positions;  // [T] (the rotation only)
   const int* rows;       // [T], -1 skips the token's K/V
   const float* inv_freq; // [D / 2] (the rotation only)
+  const void* bias;      // [(hq + 2 hkv) * D] of the source type, or nullptr
   int hq, hkv, head_dim, dp;
   long long rows_total;
   int layer;
@@ -234,10 +238,15 @@ rope_kv_append_kernel(Args a, Store store) {
       static_cast<long long>(kv_head < 0 ? head : kv_head < a.hkv ? kv_head : kv_head - a.hkv) *
           a.head_dim;
   // the source vectors first: nothing they need waits on another load
-  Vec<Src, E> lo, hi;
+  Vec<Src, E> lo, hi, bias_lo, bias_hi;
   if (active) {
     load_vec(lo, src + j * E);
     load_vec(hi, src + half + j * E);
+    if (a.bias != nullptr) {
+      const Src* b = static_cast<const Src*>(a.bias) + static_cast<long long>(head) * a.head_dim;
+      load_vec(bias_lo, b + j * E);
+      load_vec(bias_hi, b + half + j * E);
+    }
   }
   const int row = a.rows[t];
   if (a.rotate) {
@@ -253,6 +262,16 @@ rope_kv_append_kernel(Args a, Store store) {
   float x1[E], x2[E];
   to_floats(lo, x1);
   to_floats(hi, x2);
+  if (a.bias != nullptr) {
+    float b1[E], b2[E];
+    to_floats(bias_lo, b1);
+    to_floats(bias_hi, b2);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      x1[e] = round_to(__fadd_rn(x1[e], b1[e]), Src{});
+      x2[e] = round_to(__fadd_rn(x2[e], b2[e]), Src{});
+    }
+  }
   if (a.rotate && kv_head < a.hkv) {
 #pragma unroll
     for (int e4 = 0; e4 < E / 4; ++e4) {
@@ -330,11 +349,12 @@ int launch_any(const Args& a, int num_tokens, int src_dtype, int kv_dtype, float
 // src_dtype (float32 or bfloat16); q_out: [num_tokens, hq, head_dim] of
 // src_dtype; cache: [L, 2, hkv, rows_total, dp] of kv_dtype (src_dtype, e4m3
 // or int8 in steps of kv_scale), dp >= head_dim; positions, rows:
-// [num_tokens] int32; inv_freq: [head_dim / 2] float32.  head_dim a
-// multiple of 32.
+// [num_tokens] int32; inv_freq: [head_dim / 2] float32; bias: [(hq + 2
+// hkv) * head_dim] of src_dtype, or nullptr.  head_dim a multiple of 32.
 extern "C" int vattn_rope_kv_append(void* q_out, void* cache, const void* qkv,
                                     const int* positions, const int* rows,
-                                    const float* inv_freq, int num_tokens, int hq,
+                                    const float* inv_freq, const void* bias,
+                                    int num_tokens, int hq,
                                     int hkv, int head_dim, int dp, long long rows_total,
                                     int layer, int src_dtype, int kv_dtype,
                                     float pos_scale, float post_scale, float kv_scale,
@@ -345,7 +365,7 @@ extern "C" int vattn_rope_kv_append(void* q_out, void* cache, const void* qkv,
                base + static_cast<size_t>(hq) * head_dim * es,
                base + static_cast<size_t>(hq + hkv) * head_dim * es,
                static_cast<long long>(hq + 2 * hkv) * head_dim,
-               q_out, cache, positions, rows, inv_freq, hq, hkv, head_dim, dp,
+               q_out, cache, positions, rows, inv_freq, bias, hq, hkv, head_dim, dp,
                rows_total, layer, pos_scale, post_scale, 1};
   return launch_any(a, num_tokens, src_dtype, kv_dtype, kv_scale, stream);
 }
@@ -358,7 +378,7 @@ extern "C" int vattn_kv_append(void* cache, const void* k, const void* v,
                                int src_dtype, int kv_dtype, float kv_scale,
                                void* stream) {
   const Args a{nullptr, k, v, static_cast<long long>(hkv) * head_dim, nullptr, cache,
-               nullptr, rows, nullptr, 0, hkv, head_dim, head_dim, rows_total, layer,
+               nullptr, rows, nullptr, nullptr, 0, hkv, head_dim, head_dim, rows_total, layer,
                1.f, 1.f, 0};
   return launch_any(a, num_tokens, src_dtype, kv_dtype, kv_scale, stream);
 }

@@ -9,6 +9,11 @@ summary.json.  On a CUDA device the time is CUDA events around the N
 calls over N; on the CPU, ``time.perf_counter`` around them (host time of
 the plain versions: no device metric).
 
+The norm and activation rows run the kernels the layer runs
+(``ops/norm_act.py``): INPUT_LAYERNORM one residual add + norm of the
+decode batch (``add_rms_norm``; falcon's ``add_layer_norm`` of x + (o +
+mlp)), MLP_ACTIVATION ``silu_and_mul`` (falcon's ``gelu_new``).
+
 The attention rows run the port's own kernels: ATTN_PREFILL one 256-token
 chunk over ``ctx`` history through kernel B (kernel E on the paged pool),
 ATTN_DECODE the batch at depth ``ctx`` through kernel C, and
@@ -62,15 +67,15 @@ def profile_operations(runner, *, ctx: int = 1024,
         NoOpAttentionBackend)
     from vattention_tpu_torch.model_executor.attention.paged_backend import (
         PagedAttentionBackend)
-    from vattention_tpu_torch.model_executor.layers.activation import (
-        gelu_new, silu_and_mul)
-    from vattention_tpu_torch.model_executor.layers.layernorm import (
-        layer_norm, rms_norm)
     from vattention_tpu_torch.model_executor.layers.sampler import (
         GREEDY, sample_tokens)
+    from vattention_tpu_torch.model_executor.models.falcon import LN_EPS
     from vattention_tpu_torch.ops.cache_append import rope_kv_append
     from vattention_tpu_torch.ops.flash_decode import decode_attention
     from vattention_tpu_torch.ops.flash_prefill import prefill_attention
+    from vattention_tpu_torch.ops.norm_act import (add_layer_norm,
+                                                   add_rms_norm, gelu_new,
+                                                   silu_and_mul)
     from vattention_tpu_torch.ops.paged_attention import (
         paged_prefill_attention)
     from vattention_tpu_torch.ops.utils import cdiv, round_up
@@ -96,8 +101,10 @@ def profile_operations(runner, *, ctx: int = 1024,
         store.push_operation_time(op, seconds)
 
     # projections, MLP and norm of one layer at the decode batch (falcon:
-    # an ungated GELU MLP and a LayerNorm with a bias)
+    # an ungated GELU MLP and a LayerNorm with a bias); the norm adds its
+    # residual as the layer does
     x = randn(B, arch.hidden_size)
+    r = randn(B, arch.hidden_size)
     up_w = lp["up_w"] if model.parallel_attn else lp["gate_up_w"]
     activation = gelu_new if model.parallel_attn else silu_and_mul
     up = randn(B, up_w.shape[1])
@@ -110,10 +117,11 @@ def profile_operations(runner, *, ctx: int = 1024,
     rec(OperationMetrics.MLP_DOWN_PROJ, lambda: act @ lp["down_w"])
     if model.parallel_attn:
         rec(OperationMetrics.INPUT_LAYERNORM,
-            lambda: layer_norm(x, lp["input_norm"], lp["input_norm_b"]))
+            lambda: add_layer_norm(x, r, r, lp["input_norm"],
+                                   lp["input_norm_b"], LN_EPS))
     else:
         rec(OperationMetrics.INPUT_LAYERNORM,
-            lambda: rms_norm(x, lp["input_norm"], arch.rms_norm_eps))
+            lambda: add_rms_norm(x, r, lp["input_norm"], arch.rms_norm_eps))
 
     if not isinstance(backend, NoOpAttentionBackend):
         # kernel A at the decode batch, positions at ctx - 1; the rows it

@@ -7,7 +7,8 @@ profiled windows of two checkouts in turns.
 ``profile_window`` runs requests under ``torch.profiler`` and prints the
 lines ``chip_smoke.py`` prints as "(p <tag>)": the wall and the device's
 busy share; device time by family (the port's kernels, kernel A among
-them under every name it has had, matmuls, the rest); each port kernel's
+them under every name it has had and the elementwise kernels of
+``ops/norm_act.py`` since they exist, matmuls, the rest); each port kernel's
 time and launches; per engine step the kernel launches and the host's
 ``cudaStreamSynchronize`` calls (the profiler's CPU events); and the
 device time spent rotating Q and K and appending K/V, whatever runs it
@@ -50,8 +51,13 @@ import torch
 # kernel A: its launcher's names before and after it rotated
 A_KERNELS = ("rope_kv_append_kernel", "kv_copy_kernel", "kv_quantize_kernel",
              "kv_append_kernel")
-PORT_KERNELS = A_KERNELS + ("prefill_attention", "decode_attention_kernel",
-                            "arena_relocate", "pod_attention")
+# the layer's elementwise kernels (ops/norm_act.py), which took the norms,
+# activations and residual adds out of "other"
+NORM_KERNELS = ("add_rms_norm_kernel", "silu_and_mul_kernel",
+                "add_layer_norm_kernel", "gelu_new_kernel")
+PORT_KERNELS = A_KERNELS + NORM_KERNELS + (
+    "prefill_attention", "decode_attention_kernel", "arena_relocate",
+    "pod_attention")
 MATMUL = ("gemm", "gemv", "xmma", "nvjet", "cutlass", "matmul")
 ROPE_APPEND = "rope + KV append"
 
@@ -183,11 +189,11 @@ def profile_window(engine, requests, tag) -> dict:
             f"{wall:.1f} ms)")
         return {}
     busy = sum(ms for _, ms, _ in device)
-    families = {"port kernels A-F": 0.0, "matmul": 0.0, "other": 0.0}
+    families = {"port kernels": 0.0, "matmul": 0.0, "other": 0.0}
     port = {}
     for name, ms, count in device:
         if any(s in name for s in PORT_KERNELS):
-            families["port kernels A-F"] += ms
+            families["port kernels"] += ms
             short = re.search(r"(\w+_kernel)", name).group(1)
             ms0, n0 = port.get(short, (0.0, 0))
             port[short] = (ms0 + ms, n0 + count)
@@ -278,6 +284,11 @@ def profile_case(tag: str) -> dict:
 
 def run_trees(trees, rounds: int, out_dir: Path, timeout: float) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
+    # the card's name and power limit, beside every number of the table
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip(), flush=True)
     me = Path(__file__).resolve()
     table = {}
     for rnd in range(rounds):

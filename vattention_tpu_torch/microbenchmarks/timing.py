@@ -34,6 +34,11 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores
 # moves deep rows, whose outputs are small, by several percent
 ATTN_TOL = 2e-2
 REL_TOL = 2.0 ** -6
+# the norms and activations (ops/norm_act.py) against their plain
+# versions: within ELEMENTWISE_TOL of the output's largest value (float32
+# sums taken in another order; a LayerNorm's x - mean cancels near the
+# mean), and a bfloat16 output also within one bfloat16 ulp of each value
+ELEMENTWISE_TOL = 1e-6
 
 
 def harness_device(cpu: bool) -> torch.device:
@@ -91,6 +96,33 @@ def check_attention(what, got, ref, tol: float = ATTN_TOL,
         raise AssertionError(f"{what}: a row errs by {rel} of its largest "
                              f"output, above {REL_TOL}")
     return err.max().item(), rel
+
+
+def check_elementwise(what, got, ref) -> float:
+    """Hold a norm's or an activation's output ``got`` against ``ref``
+    (the same dtype and shape): each value within ELEMENTWISE_TOL of its
+    own size or of ``ref``'s largest |value|, or, in bfloat16, within one
+    bfloat16 ulp of itself.  Returns the max abs err."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} "
+                             f"against {ref.dtype} {tuple(ref.shape)}")
+    if ref.numel() == 0:
+        return 0.0
+    bf16 = got.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite outputs")
+    err = (got - ref).abs()
+    tol = (ELEMENTWISE_TOL * ref.abs()).clamp_min(
+        ELEMENTWISE_TOL * float(ref.abs().max()))
+    if bf16:
+        mag = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
+        tol = torch.maximum(tol, torch.exp2(torch.floor(torch.log2(mag)) - 7))
+    bad = err > tol
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} values past the "
+                             f"tolerance, max err {float(err.max())}")
+    return float(err.max())
 
 
 class Timer:

@@ -57,13 +57,15 @@ class VattnAttentionBackend:
         return out * float(torch.tensor(self.kv_scale, dtype=out.dtype))
 
     def rope_append_kv(self, kv_cache: torch.Tensor, qkv: torch.Tensor,
-                       rope, inputs: StepInputs, layer: int) -> torch.Tensor:
-        """Rotate this step's Q and K for one layer and write its K/V into
-        the cache, converted to the cache's dtype, in one launch of kernel
-        A.  qkv: [T, (Hq + 2 Hkv) * D] of the model's dtype -> q [T, Hq, D]."""
+                       rope, inputs: StepInputs, layer: int,
+                       bias: torch.Tensor | None = None) -> torch.Tensor:
+        """Add the layer's qkv ``bias`` (if any), rotate this step's Q and
+        K for one layer and write its K/V into the cache, converted to the
+        cache's dtype, in one launch of kernel A.  qkv: [T, (Hq + 2 Hkv) *
+        D] of the model's dtype -> q [T, Hq, D]."""
         return rope_kv_append(kv_cache, qkv, inputs.positions,
                               inputs.append_rows, layer, rope,
-                              kv_scale=self.kv_scale)
+                              kv_scale=self.kv_scale, bias=bias)
 
     def attend(self, q: torch.Tensor, kv_cache: torch.Tensor,
                inputs: StepInputs, layer: int, n_prefill_tokens: int, *,

@@ -5,11 +5,17 @@ are a plain dict of tensors in the JAX package's layout -- per-layer
 weights stacked on a leading [L] axis, projections as [in, out] so the
 forward is ``h @ w`` -- which makes ``weight_utils.params_from_jax`` a
 plain copy.  The forward is a Python loop over layers: each layer runs
-rms_norm -> qkv -> rope + KV append (one launch of kernel A) ->
-attention (kernels B/C) -> o-proj -> SwiGLU, one kernel launch per layer
-and op, and no host wait.  The arena is updated in place.  A sliding
-window (``ModelArch.sliding_window``, mistral) is the attention
-backend's, and a qkv bias (qwen, internlm) is a weight.  Falcon's
+residual add + rms_norm (one kernel) -> qkv -> qkv bias + rope + KV
+append (one launch of kernel A) -> attention (kernels B/C) -> o-proj ->
+residual add + rms_norm -> gate_up -> SiLU-and-mul (one kernel) -> down,
+one kernel launch per layer and op, and no host wait
+(``ops/norm_act.py``).  The residual is carried as the reference's
+serving stack carries it: each layer's MLP output is added inside the
+next layer's input norm, and the last layer's inside the final norm
+(``run_layers(..., carry=True)``, then ``head``).  The arena is updated
+in place.  A sliding window (``ModelArch.sliding_window``, mistral) is
+the attention backend's, and a qkv bias (qwen, internlm) is a weight
+that kernel A adds.  Falcon's
 parallel attention is its own subclass (``models/falcon.py``), which
 reuses this class's constructor, parameter drawing and logits.
 
@@ -18,7 +24,9 @@ the model is one rank's: ``hq``, ``hkv`` and ``inter`` are the tp shard's
 (the JAX model's per-shard widths), the weights hold the stage's layers
 (``parallel.sharding``), ``run_layers`` loops over them with the arena's
 local layer index, and the products of o and down are summed over tp
-(``ServingMesh.all_reduce_tp``) where the JAX model's ``psum``s sit.
+(``ServingMesh.all_reduce_tp``) where the JAX model's ``psum``s sit,
+before they are added to the residual.  A stage hands the next one its
+residual fully summed.
 """
 
 from __future__ import annotations
@@ -28,10 +36,9 @@ from typing import Dict
 import torch
 
 from vattention_tpu_torch.config import ModelArch
-from vattention_tpu_torch.model_executor.layers.activation import silu_and_mul
-from vattention_tpu_torch.model_executor.layers.layernorm import rms_norm
 from vattention_tpu_torch.model_executor.layers.rotary_embedding import get_rope
 from vattention_tpu_torch.model_executor.step_inputs import StepInputs
+from vattention_tpu_torch.ops.norm_act import add_rms_norm, silu_and_mul
 from vattention_tpu_torch.parallel.sharding import ShardLayout, check_tp
 
 Params = Dict[str, object]
@@ -140,32 +147,41 @@ class LlamaForCausalLM:
 
     def run_layers(self, params: Params, kv_cache: torch.Tensor,
                    x: torch.Tensor, inputs: StepInputs, backend,
-                   n_prefill_tokens: int) -> torch.Tensor:
+                   n_prefill_tokens: int, *, carry: bool = False):
+        """The stage's layers over the residual ``x`` [T, H].  Returns the
+        residual after them; with ``carry`` returns ``(x, tail)``, the
+        last layer's MLP output (``tail``, None without layers) not yet
+        added, for ``head`` to add inside the final norm."""
         a = self.arch
         D = self.head_dim
         lp = params["layers"]
         T = x.shape[0]
+        mlp = None
         # the stage's layers; ``layer`` indexes the rank's arena too
         for layer in range(lp["input_norm"].shape[0]):
-            h = rms_norm(x, lp["input_norm"][layer], a.rms_norm_eps)
-            qkv = h @ lp["qkv_w"][layer]
-            if "qkv_b" in lp:
-                qkv = qkv + lp["qkv_b"][layer]
-            q = backend.rope_append_kv(kv_cache, qkv, self.rope, inputs,
-                                       layer)
+            x, h = add_rms_norm(x, mlp, lp["input_norm"][layer],
+                                a.rms_norm_eps)
+            q = backend.rope_append_kv(
+                kv_cache, h @ lp["qkv_w"][layer], self.rope, inputs, layer,
+                bias=lp["qkv_b"][layer] if "qkv_b" in lp else None)
             attn = backend.attend(q, kv_cache, inputs, layer,
                                   n_prefill_tokens, sm_scale=self.sm_scale)
-            x = x + self._tp_sum(attn.reshape(T, self.hq * D)
-                                 @ lp["o_w"][layer])
-            h2 = rms_norm(x, lp["post_norm"][layer], a.rms_norm_eps)
-            x = x + self._tp_sum(silu_and_mul(h2 @ lp["gate_up_w"][layer])
-                                 @ lp["down_w"][layer])
-        return x
+            o = self._tp_sum(attn.reshape(T, self.hq * D) @ lp["o_w"][layer])
+            x, h2 = add_rms_norm(x, o, lp["post_norm"][layer],
+                                 a.rms_norm_eps)
+            mlp = self._tp_sum(silu_and_mul(h2 @ lp["gate_up_w"][layer])
+                               @ lp["down_w"][layer])
+        if carry:
+            return x, mlp
+        return x if mlp is None else x + mlp
 
     def head(self, params: Params, x: torch.Tensor,
-             sample_idx: torch.Tensor) -> torch.Tensor:
-        """Logits [B, V] in float32 for the rows ``sample_idx`` (clamped)."""
-        x = rms_norm(x, params["final_norm"], self.arch.rms_norm_eps)
+             sample_idx: torch.Tensor, tail=None) -> torch.Tensor:
+        """Logits [B, V] in float32 for the rows ``sample_idx`` (clamped),
+        ``tail`` (``run_layers``' carry) added to ``x`` inside the final
+        norm."""
+        _, x = add_rms_norm(x, tail, params["final_norm"],
+                            self.arch.rms_norm_eps)
         return self.logits(params, x, sample_idx)
 
     def logits(self, params: Params, x: torch.Tensor,
@@ -188,6 +204,6 @@ class LlamaForCausalLM:
                 n_prefill_tokens: int) -> torch.Tensor:
         """Returns logits [B, V] float32; the arena is updated in place."""
         x = self.embed(params, inputs.token_ids)
-        x = self.run_layers(params, kv_cache, x, inputs, backend,
-                            n_prefill_tokens)
-        return self.head(params, x, inputs.sample_idx)
+        x, tail = self.run_layers(params, kv_cache, x, inputs, backend,
+                                  n_prefill_tokens, carry=True)
+        return self.head(params, x, inputs.sample_idx, tail)

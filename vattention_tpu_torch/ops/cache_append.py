@@ -5,7 +5,8 @@ off).
 ``rope_kv_append`` takes a layer's qkv projection, rotates Q and K,
 returns the rotated Q and writes the rotated K and V into the arena (or
 the paged pool) in ONE launch: the JAX step's rope, which XLA fuses into
-the jitted step, and its append kernels.  It replaces
+the jitted step, and its append kernels; with a qkv bias (qwen,
+internlm) it adds the bias first, which XLA also fuses.  It replaces
 ``cache_append_tokens`` (``_rmw_batch_kernel``) and
 ``cache_append_run`` (``_rmw_run_kernel``) of
 ``vattention_tpu/ops/cache_append.py`` with ONE launch per layer over all
@@ -21,9 +22,9 @@ arenas get ``flush_fp8_subnormals`` (saturating at +-448), int8 arenas
 
 Bound on the H100: bytes (each token's qkv row read once, its Q written
 once, each valid token's 2*Hkv*D K/V elements written once in the arena's
-dtype).  Design: csrc/kv_append.cu -- one block per token, one thread per
-16-byte vector of each half of a head, the token's cos/sin computed once
-per block while the loads are in flight.
+dtype, the bias row read once).  Design: csrc/kv_append.cu -- one block
+per token, one thread per 16-byte vector of each half of a head, the
+token's cos/sin computed once per block while the loads are in flight.
 """
 
 from __future__ import annotations
@@ -40,10 +41,10 @@ from vattention_tpu_torch.ops.utils import pad_heads, quantize_kv
 
 ROPE_KV_APPEND = CudaKernel("kv_append", "vattn_rope_kv_append", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 KV_APPEND = CudaKernel("kv_append", "vattn_kv_append", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -68,10 +69,13 @@ def split_qkv(qkv: torch.Tensor, num_kv_heads: int, head_dim: int):
 
 def rope_kv_append_plain(kv_cache: torch.Tensor, qkv: torch.Tensor,
                          positions: torch.Tensor, rows: torch.Tensor,
-                         layer: int, rope,
-                         kv_scale: float | None = None) -> torch.Tensor:
-    """Plain PyTorch version: ``rope`` on q and k, then ``kv_append_plain``
-    of k and v zero-padded to the arena's head width."""
+                         layer: int, rope, kv_scale: float | None = None,
+                         bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version: ``qkv + bias`` (if any), ``rope`` on q and
+    k, then ``kv_append_plain`` of k and v zero-padded to the arena's head
+    width."""
+    if bias is not None:
+        qkv = qkv + bias
     q, k, v = split_qkv(qkv, kv_cache.shape[2], rope.head_dim)
     q, k = rope(positions, q, k)
     Dp = kv_cache.shape[-1]
@@ -82,21 +86,24 @@ def rope_kv_append_plain(kv_cache: torch.Tensor, qkv: torch.Tensor,
 
 def rope_kv_append(kv_cache: torch.Tensor, qkv: torch.Tensor,
                    positions: torch.Tensor, rows: torch.Tensor, layer: int,
-                   rope, kv_scale: float | None = None) -> torch.Tensor:
+                   rope, kv_scale: float | None = None,
+                   bias: torch.Tensor | None = None) -> torch.Tensor:
     """Rotate a layer's Q and K and write its K/V rows into the arena.
 
     kv_cache: [L, 2, Hkv, R, Dp]; qkv: [T, (Hq + 2 Hkv) * D] of the
     model's dtype (float32 or bfloat16), Q heads then K then V, with D =
     ``rope.head_dim`` <= Dp; positions, rows: [T] int32 (rows[t] = -1
     skips the token's K/V); ``rope`` a ``RotaryEmbedding`` of any variant
-    rotating the whole head.  Returns q [T, Hq, D], rotated, for every
+    rotating the whole head; ``bias`` None or the layer's qkv bias
+    [(Hq + 2 Hkv) * D] of qkv's dtype, added to every row (and rounded to
+    it) before the rotation.  Returns q [T, Hq, D], rotated, for every
     token.  K/V are written as ``kv_append`` writes them, zero past D.
     CPU tensors take the plain version; CUDA tensors launch kernel A.
     """
     _check_scale(kv_cache, kv_scale)
     if not kv_cache.is_cuda:
         return rope_kv_append_plain(kv_cache, qkv, positions, rows, layer,
-                                    rope, kv_scale)
+                                    rope, kv_scale, bias)
     L, two, Hkv, R, Dp = kv_cache.shape
     D = rope.head_dim
     T = qkv.shape[0]
@@ -118,13 +125,20 @@ def rope_kv_append(kv_cache: torch.Tensor, qkv: torch.Tensor,
             f"{tuple(qkv.shape)}, positions {tuple(positions.shape)}, rows "
             f"{tuple(rows.shape)}, head_dim {D}, rotary_dim "
             f"{rope.rotary_dim}, layer {layer}")
+    if bias is not None:
+        check_cuda_tensor("bias", bias, qkv.dtype, dev)
+        if bias.shape != (qkv.shape[1],):
+            raise ValueError(f"rope_kv_append: bias {tuple(bias.shape)} for "
+                             f"qkv {tuple(qkv.shape)}")
     q = torch.empty(T, Hq, D, dtype=qkv.dtype, device=dev)
     if T == 0:
         return q
     inv_freq, pos_scale, post_scale = rope.kernel_args(dev)
     ROPE_KV_APPEND(q.data_ptr(), kv_cache.data_ptr(), qkv.data_ptr(),
                    positions.data_ptr(), rows.data_ptr(),
-                   inv_freq.data_ptr(), T, Hq, Hkv, D, Dp, R, layer,
+                   inv_freq.data_ptr(),
+                   None if bias is None else bias.data_ptr(), T, Hq, Hkv,
+                   D, Dp, R, layer,
                    DTYPE_CODES[qkv.dtype], KV_DTYPE_CODES[kv_cache.dtype],
                    pos_scale, post_scale, float(kv_scale or 0.0),
                    current_stream())

@@ -29,7 +29,8 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vattention_tpu_torch"
 SOURCES = ("kv_append", "prefill_attention", "decode_attention",
-           "arena_relocate", "paged_prefill_attention", "pod_attention")
+           "arena_relocate", "paged_prefill_attention", "pod_attention",
+           "norm_act")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,0 +1,185 @@
+"""The layer's elementwise work as four kernels: residual add + RMSNorm,
+SiLU-and-mul, Falcon's residual adds + LayerNorm, and ``gelu_new``.
+
+The JAX step runs this work as plain jnp that XLA fuses into the jitted
+step (``vattention_tpu/model_executor/layers/layernorm.py``,
+``activation.py``, the residual adds of ``models/llama.py`` and
+``models/falcon.py``), so no TPU kernel is replaced: eagerly, each of
+these functions was a chain of PyTorch kernels (a cast, a square, a mean,
+an rsqrt, two products and a cast for one norm).  Each wrapper takes its
+plain version (beside it here, built from ``layers/layernorm.py`` and
+``layers/activation.py``) for a CPU tensor and launches its kernel for a
+CUDA tensor, raising on anything the kernel does not take.
+
+The models carry the residual as the reference's serving stack does: a
+layer's o-projection output is added inside ``post_norm``'s call, its
+MLP output inside the next layer's ``input_norm`` call, and the last
+layer's inside the final norm's (``add_rms_norm``); falcon adds ``x + (o
++ mlp)`` inside the next LayerNorm (``add_layer_norm``).  Rounding is the
+JAX step's, one rounding to the model's dtype per JAX op: the residual
+output equals the plain ``x + r`` bit for bit.
+
+Bound on the H100: bytes (each input read once, each output written
+once).  Source: csrc/norm_act.cu -- the norms one block per row with the
+row in registers between the sum and the scale, the activations one
+grid-stride pass of 16-byte vectors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from vattention_tpu_torch.model_executor.layers.activation import (
+    gelu_new as gelu_new_plain, silu_and_mul as silu_and_mul_plain)
+from vattention_tpu_torch.model_executor.layers.layernorm import (layer_norm,
+                                                                  rms_norm)
+from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, CudaKernel,
+                                                 check_cuda_tensor,
+                                                 current_stream)
+
+__all__ = ["add_rms_norm", "add_rms_norm_plain", "add_layer_norm",
+           "add_layer_norm_plain", "silu_and_mul", "silu_and_mul_plain",
+           "gelu_new", "gelu_new_plain"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ADD_RMS_NORM = CudaKernel("norm_act", "vattn_add_rms_norm", [
+    _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P])
+ADD_LAYER_NORM = CudaKernel("norm_act", "vattn_add_layer_norm", [
+    _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P])
+SILU_AND_MUL = CudaKernel("norm_act", "vattn_silu_and_mul", [
+    _P, _P, _I, _I, _I, _P])
+GELU_NEW = CudaKernel("norm_act", "vattn_gelu_new", [
+    _P, _P, ctypes.c_longlong, _I, _P])
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+# a normalized row's bytes at most: 8 16-byte vectors for each of a
+# block's 256 threads (bf16 rows to 16384 values, float32 to 8192)
+MAX_ROW_BYTES = 8 * 256 * 16
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_rows(what: str, x: torch.Tensor, others, params) -> None:
+    """Raise unless x is a contiguous [T, H] CUDA tensor of a kernel dtype
+    with H a whole number of 16-byte vectors (MAX_ROW_BYTES at most),
+    ``others`` (None or tensors) are its shape and dtype on its device,
+    and ``params`` [H]."""
+    check_cuda_tensor(what, x)
+    row = x.shape[-1] * x.element_size()
+    if (x.dtype not in DTYPE_CODES or x.dim() != 2 or row % 16
+            or row > MAX_ROW_BYTES):
+        raise ValueError(f"{what}: x {tuple(x.shape)} of {x.dtype}")
+    for t in others:
+        if t is not None:
+            check_cuda_tensor(what, t, x.dtype, x.device)
+            if t.shape != x.shape:
+                raise ValueError(f"{what}: {tuple(t.shape)} against x "
+                                 f"{tuple(x.shape)}")
+    for t in params:
+        check_cuda_tensor(what, t, x.dtype, x.device)
+        if t.shape != (x.shape[1],):
+            raise ValueError(f"{what}: weight {tuple(t.shape)} for x "
+                             f"{tuple(x.shape)}")
+
+
+def add_rms_norm_plain(x: torch.Tensor, r: Optional[torch.Tensor],
+                       weight: torch.Tensor, eps: float) -> Pair:
+    """Plain PyTorch version: ``s = x + r`` (x itself when r is None),
+    then ``(s, rms_norm(s, weight, eps))``."""
+    s = x if r is None else x + r
+    return s, rms_norm(s, weight, eps)
+
+
+def add_rms_norm(x: torch.Tensor, r: Optional[torch.Tensor],
+                 weight: torch.Tensor, eps: float) -> Pair:
+    """x, r: [T, H] of the model's dtype (float32 or bfloat16), r None for
+    no addend; weight [H] of the same dtype.  Returns (x + r, rms_norm(x +
+    r)), the residual rounded to the dtype before it is normalized (x
+    itself when r is None)."""
+    if not x.is_cuda:
+        return add_rms_norm_plain(x, r, weight, eps)
+    _check_rows("add_rms_norm", x, (r,), (weight,))
+    out = torch.empty_like(x)
+    res = x if r is None else torch.empty_like(x)
+    if x.shape[0] == 0:
+        return res, out
+    ADD_RMS_NORM(_ptr(None if r is None else res), out.data_ptr(),
+                 x.data_ptr(), _ptr(r), weight.data_ptr(), x.shape[0],
+                 x.shape[1], eps, DTYPE_CODES[x.dtype], current_stream())
+    return res, out
+
+
+def add_layer_norm_plain(x: torch.Tensor, o: Optional[torch.Tensor],
+                         mlp: Optional[torch.Tensor], weight: torch.Tensor,
+                         bias: torch.Tensor, eps: float) -> Pair:
+    """Plain PyTorch version: ``s = x + (o + mlp)`` in falcon's order
+    (``x + o`` without mlp, x itself without o), then ``(s,
+    layer_norm(s, weight, bias, eps))``."""
+    s = x
+    if o is not None:
+        s = x + (o if mlp is None else o + mlp)
+    return s, layer_norm(s, weight, bias, eps)
+
+
+def add_layer_norm(x: torch.Tensor, o: Optional[torch.Tensor],
+                   mlp: Optional[torch.Tensor], weight: torch.Tensor,
+                   bias: torch.Tensor, eps: float) -> Pair:
+    """x, o, mlp: [T, H] of the model's dtype (o and mlp None for no
+    addend, mlp None for x + o); weight, bias [H].  Returns (x + (o +
+    mlp), layer_norm of it), each sum rounded to the dtype; the variance
+    is the mean of squared deviations from the mean."""
+    if not x.is_cuda:
+        return add_layer_norm_plain(x, o, mlp, weight, bias, eps)
+    if o is None and mlp is not None:
+        raise ValueError("add_layer_norm: mlp without o")
+    _check_rows("add_layer_norm", x, (o, mlp), (weight, bias))
+    out = torch.empty_like(x)
+    res = x if o is None else torch.empty_like(x)
+    if x.shape[0] == 0:
+        return res, out
+    ADD_LAYER_NORM(_ptr(None if o is None else res), out.data_ptr(),
+                   x.data_ptr(), _ptr(o), _ptr(mlp), weight.data_ptr(),
+                   bias.data_ptr(), x.shape[0], x.shape[1], eps,
+                   DTYPE_CODES[x.dtype], current_stream())
+    return res, out
+
+
+def silu_and_mul(x: torch.Tensor) -> torch.Tensor:
+    """x: [T, 2I] of the model's dtype -> silu(gate) * up [T, I], silu in
+    float32 rounded to the dtype before the product (as the plain
+    version)."""
+    if not x.is_cuda:
+        return silu_and_mul_plain(x)
+    check_cuda_tensor("silu_and_mul", x)
+    inter = x.shape[-1] // 2 if x.dim() == 2 else 0
+    if (x.dtype not in DTYPE_CODES or x.dim() != 2 or x.shape[1] % 2
+            or inter == 0 or (inter * x.element_size()) % 16):
+        raise ValueError(f"silu_and_mul: x {tuple(x.shape)} of {x.dtype}")
+    out = torch.empty((x.shape[0], inter), dtype=x.dtype, device=x.device)
+    if x.shape[0] == 0:
+        return out
+    SILU_AND_MUL(out.data_ptr(), x.data_ptr(), x.shape[0], inter,
+                 DTYPE_CODES[x.dtype], current_stream())
+    return out
+
+
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """Falcon's MLP activation: tanh GELU in float32, rounded once to x's
+    dtype; x of any shape whose size is a whole number of 16-byte
+    vectors."""
+    if not x.is_cuda:
+        return gelu_new_plain(x)
+    check_cuda_tensor("gelu_new", x)
+    if x.dtype not in DTYPE_CODES or (x.numel() * x.element_size()) % 16:
+        raise ValueError(f"gelu_new: x {tuple(x.shape)} of {x.dtype}")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    GELU_NEW(out.data_ptr(), x.data_ptr(), x.numel(), DTYPE_CODES[x.dtype],
+             current_stream())
+    return out

@@ -162,9 +162,13 @@ def pipeline_stage_step(model, backend, params, kv_cache: torch.Tensor,
             x = model.embed(params, inp.token_ids)
         else:
             x = mesh.recv_prev((inp.token_ids.shape[0], H), model.dtype)
-        x = model.run_layers(params, kv_cache, x, inp, backend, n_pre)
         if not mesh.is_last_stage:
-            mesh.send_next(x)
-        elif logits is not None:
-            logits.append(model.head(params, x, inp.sample_idx))
+            mesh.send_next(model.run_layers(params, kv_cache, x, inp,
+                                            backend, n_pre))
+            continue
+        # the last stage adds its last MLP output inside the final norm
+        x, tail = model.run_layers(params, kv_cache, x, inp, backend, n_pre,
+                                   carry=True)
+        if logits is not None:
+            logits.append(model.head(params, x, inp.sample_idx, tail))
     return logits
