@@ -88,6 +88,11 @@ same kernel with the rotation off, held and timed in (a) as before.
     adds, ``F.silu(g) * u``, ``F.gelu(approximate="tanh")``) and its bytes
     bound.  At Qwen-14B's heads (40 q, 40 kv), kernel A with a qkv bias at
     the same T, q and the arena bit for bit against its plain version.
+    Before the timed rows, add_rms_norm (with and without r) and
+    silu_and_mul at every hidden and MLP width of the registry
+    (``bench_norm_act.HIDDEN_WIDTHS``, ``MLP_WIDTHS``) and T = 1, 2, 3, 8,
+    16, 127, 520 and 2048 in bf16 and float32, held the same way (not
+    timed).
 (b) f32 parity: tiny-llama-debug, float32, sarathi chunk 128 on the
     two-prompt workload of tests/test_e2e.py, through fa_vattn, then
     (b') fa_paged_16 and (b'') fa_pod (whose mixed step must run through
@@ -139,6 +144,10 @@ same kernel with the rotation off, held and timed in (a) as before.
     profiler's rows (``profile_op_level``: A′ as the KV-save row, B or E
     prefill, C decode, the projections, the fused norm and activation,
     head and sampler, by CUDA events).
+(h step) After (c): the captured decode step's device milliseconds per
+    replay (``scripts/profile_decode_step``: yi-6b-200k-l16, zero weights,
+    fa_vattn_256kb, batch 8 at ctx 1024, 30 replays between CUDA events),
+    beside 30 whole engine steps and the host's input staging.
 (c8) (c)'s 8 requests and 2 short prompts with ``kv_quant`` fp8, then
     int8 (fresh engines, no profile): A, B and C must launch; the tokens
     per 2 MB page, tok/s, and how many greedy tokens equal (c)'s
@@ -996,10 +1005,49 @@ def norm_act_phase(dev):
     positions to 8191), q and the arena bit for bit against its plain
     version, timed beside it and its bytes bound; no library call."""
     from vattention_tpu_torch.config import get_model_arch
+    from vattention_tpu_torch.microbenchmarks.bench_norm_act import (
+        HIDDEN_WIDTHS, MLP_WIDTHS, PLAN_ROWS)
     from vattention_tpu_torch.microbenchmarks.timing import check_elementwise
     from vattention_tpu_torch.ops import norm_act
 
     F = torch.nn.functional
+    # the two kernels every llama layer launches, at every registry width
+    # and the launch plans' rows: held, not timed
+    n = 0
+    for dt in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(18)
+
+        def draw(*shape, scale=1.0, shift=0.0):
+            return (torch.randn(shape, generator=gen, device=dev) * scale
+                    + shift).to(dt)
+        for H in HIDDEN_WIDTHS:
+            w = draw(H, scale=0.2, shift=1)
+            for T in PLAN_ROWS:
+                x, r = draw(T, H, scale=2, shift=0.5), draw(T, H, scale=0.7)
+                for addend in (r, None):
+                    got = norm_act.add_rms_norm(x, addend, w, 1e-5)
+                    ref = norm_act.add_rms_norm_plain(x, addend, w, 1e-5)
+                    torch.cuda.synchronize()
+                    what = f"add_rms_norm[{H} T{T} {str(dt)[6:]}]"
+                    if not torch.equal(got[0], ref[0]):
+                        raise AssertionError(f"{what}: the residual differs "
+                                             "from x + r")
+                    check_elementwise(what, got[1], ref[1])
+                    n += 1
+        for inter in MLP_WIDTHS:
+            for T in PLAN_ROWS:
+                g = draw(T, 2 * inter, scale=4)
+                got = norm_act.silu_and_mul(g)
+                torch.cuda.synchronize()
+                check_elementwise(f"silu_and_mul[{inter} T{T} {str(dt)[6:]}]",
+                                  got, norm_act.silu_and_mul_plain(g))
+                n += 1
+        del x, r, g
+        torch.cuda.empty_cache()
+    log(f"(a norm) add_rms_norm (with and without r) at hidden widths "
+        f"{HIDDEN_WIDTHS} and silu_and_mul at MLP widths {MLP_WIDTHS}, T "
+        f"{PLAN_ROWS}, bf16 and float32: {n} cases == plain (residuals bit "
+        "for bit, outputs within check_elementwise)")
     timer = Timer(dev)
     results = []
     for tag, model in NORM_MODELS.items():
@@ -2379,6 +2427,23 @@ def captured_phase(engine, rng, tag):
     if a_launches != [n_layers] * 3:
         raise AssertionError(f"({tag}) kernel A launched {a_launches} times "
                              "per step, not once per layer")
+
+
+def decode_step_phase():
+    """(h step): the captured decode step's device ms per replay on
+    yi-6b-200k-l16 at batch 8 (``scripts/profile_decode_step``)."""
+    from vattention_tpu_torch.scripts import profile_decode_step
+
+    t0 = time.perf_counter()
+    got = profile_decode_step.main(["--model", "yi-6b-200k-l16",
+                                    "--batch", "8"])
+    if not got["graph"]:
+        raise AssertionError("(h step) the decode step ran without a graph")
+    log(f"(h step) yi-6b-200k-l16, fa_vattn_256kb, batch 8, ctx 1024: the "
+        f"captured decode step {1e3 * got['device_step_s']:.4f} ms per "
+        f"replay (30 replays), engine.step() "
+        f"{1e3 * got['engine_step_s']:.4f} ms, input staging "
+        f"{1e3 * got['prepare_s']:.4f} ms; {time.perf_counter() - t0:.1f} s")
 
 
 def op_rows(engine, tag):
@@ -3926,6 +3991,9 @@ def main() -> int:
         idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION, *single,
               *falcon_norms])
     # free the (c) engine's memory before the next engine sizes its arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_step_phase()
     gc.collect()
     torch.cuda.empty_cache()
     counts_c8 = {}

@@ -72,19 +72,23 @@ unwindowed bits (B on the runs' real rows, C on every slot).
 
 The layer's elementwise kernels (``ops/norm_act.py``): add_rms_norm,
 add_layer_norm, silu_and_mul and gelu_new at every hidden and MLP width
-of the registry, from one decode row to a 2048-token chunk, in float32
-and bfloat16, one launch per call: residuals bit for bit against the
-plain adds, the norms and activations within ``timing.check_elementwise``
-(1e-6 of the output's scale; bfloat16 also one ulp of each value); the
-wrappers refuse other dtypes, shapes and layouts, and capture in a CUDA
-graph.  Kernel A with a qkv bias equals its plain version bit for bit on
-every arena.
+of the registry, at T = 1, 2, 3, 8, 16, 127, 520 and 2048 rows, in
+float32 and bfloat16, one launch per call: residuals bit for bit against
+the plain adds, the norms and activations within
+``timing.check_elementwise`` (1e-6 of the output's scale; bfloat16 also
+one ulp of each value); the wrappers refuse other dtypes, shapes and
+layouts, and capture in a CUDA graph; add_rms_norm and silu_and_mul
+captured behind a matmul replay the eager chain's bits 100 times with
+the matmul's output poisoned before each replay.  Kernel A with a qkv
+bias equals its plain version bit for bit on every arena.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vattention_tpu_torch.microbenchmarks.bench_norm_act import (
+    HIDDEN_WIDTHS, MLP_WIDTHS, PLAN_ROWS)
 from vattention_tpu_torch.microbenchmarks.decode_edges import (
     check_decode_edges)
 from vattention_tpu_torch.microbenchmarks.prefill_edges import (
@@ -1582,12 +1586,11 @@ def test_backend_rule_on_this_host(dev):
 # ---------------------------------------------------------------------- #
 # the layer's elementwise kernels (ops/norm_act.py) and A with a qkv bias
 # ---------------------------------------------------------------------- #
-# the registry's hidden widths (tiny, yi / mistral / llama, falcon, qwen-14b
-# / internlm-20b) and MLP widths (yi, qwen-14b, mistral, internlm-20b,
-# falcon's 4H)
-NORM_WIDTHS = [256, 4096, 4544, 5120]
-ACT_WIDTHS = [256, 11008, 13696, 14336, 13824, 18176]
-NORM_ROWS = [1, 8, 520, 2048]
+# every hidden and MLP width of the registry, and the rows the launch plans
+# are held at (a decode row to a 2048-token chunk)
+NORM_WIDTHS = list(HIDDEN_WIDTHS)
+ACT_WIDTHS = [256, *MLP_WIDTHS]
+NORM_ROWS = list(PLAN_ROWS)
 
 
 def _randn(gen, *shape, dtype, dev, scale=1.0, shift=0.0):
@@ -1729,6 +1732,40 @@ def test_norm_act_kernels_capture_in_a_cuda_graph(dev):
     eres, eout = add_rms_norm(*new[:2], w, 1e-5)
     assert torch.equal(res, eres) and torch.equal(out, eout)
     assert torch.equal(act, silu_and_mul(new[2]))
+
+
+@pytest.mark.parametrize("kernel", ["add_rms_norm", "silu_and_mul"])
+def test_norm_act_after_a_matmul_replays_the_eager_bits(dev, kernel):
+    """A matmul then the kernel, captured: 100 replays, each after the
+    matmul's output was poisoned with NaN, give the eager chain's bits:
+    the kernel reads its input only once the matmul has completed."""
+    from vattention_tpu_torch.ops.norm_act import add_rms_norm, silu_and_mul
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16 = dict(dtype=torch.bfloat16, dev=dev)
+    h = _randn(gen, 8, 4096, **bf16)
+    W = _randn(gen, 4096, 4096 if kernel == "add_rms_norm" else 2 * 11008,
+               scale=0.02, **bf16)
+    r = _randn(gen, 8, 4096, **bf16)
+    w = _randn(gen, 4096, scale=0.2, shift=1, **bf16)
+
+    def chain():
+        y = h @ W
+        if kernel == "add_rms_norm":
+            return (y, *add_rms_norm(y, r, w, 1e-5))
+        return y, silu_and_mul(y)
+
+    eager = chain()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = chain()
+    for _ in range(100):
+        captured[0].fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured[1:], eager[1:]):
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("arena", [None, *QUANT])

@@ -25,7 +25,9 @@ last float32 bit is a large share of a small output).  Kernel A's outputs
 as in tests/test_torch_rope_append.py; logits within 1e-5.
 """
 
+import re
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +58,8 @@ from vattention_tpu_torch.model_executor.attention.no_op_backend import \
 from vattention_tpu_torch.model_executor.layers.rotary_embedding import \
     get_rope
 from vattention_tpu_torch.model_executor.models import get_model_class
+from vattention_tpu_torch.microbenchmarks.bench_norm_act import (
+    HIDDEN_WIDTHS, MLP_WIDTHS, PLAN_ROWS)
 from vattention_tpu_torch.model_executor.weight_utils import params_from_jax
 from vattention_tpu_torch.ops import norm_act
 from vattention_tpu_torch.ops.cache_append import (rope_kv_append,
@@ -212,6 +216,107 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors(dtype):
 
 
 # ---------------------------------------------------------------------- #
+# the launch plans of add_rms_norm and silu_and_mul (the kernels run on the
+# card; each plan's index map is the kernel's, written out here)
+# ---------------------------------------------------------------------- #
+SOURCE = Path(norm_act.__file__).resolve().parents[1] / "csrc" / "norm_act.cu"
+ELEMENT_SIZES = {"float32": 4, "bfloat16": 2}
+
+
+def source_constant(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         SOURCE.read_text()).group(1))
+
+
+def test_plan_limits_are_the_sources():
+    assert (norm_act.MAX_VECS, norm_act.NORM_THREADS, norm_act.MAX_ACT_VECS,
+            norm_act.ACT_THREADS, norm_act.MAX_ACT_TILES) == tuple(
+        source_constant(n) for n in ("kMaxVecs", "kNormThreads",
+                                     "kMaxActVecs", "kActThreads",
+                                     "kMaxActTiles"))
+
+
+def test_plan_widths_are_the_registrys():
+    from vattention_tpu_torch.config import _ARCH_REGISTRY
+
+    archs = _ARCH_REGISTRY.values()
+    assert HIDDEN_WIDTHS == tuple(sorted({a.hidden_size for a in archs}))
+    assert MLP_WIDTHS == tuple(sorted({a.intermediate_size for a in archs}))
+
+
+@pytest.mark.parametrize("dtype", list(ELEMENT_SIZES))
+@pytest.mark.parametrize("width", HIDDEN_WIDTHS)
+def test_norm_plan_covers_each_row_once(width, dtype):
+    """At every T of PLAN_ROWS, on cards of 1 and 132 SMs: block b's row
+    group g takes row b * rows_per_block + g, its thread t the row's
+    vectors t + i * row_threads (i < vpt), as add_rms_norm_kernel does;
+    every row and every vector of it is taken once, no block and no warp
+    of a row is left without work, and the plan keeps the source's limits
+    (vectors a thread, threads a block, 15 named barriers)."""
+    es = ELEMENT_SIZES[dtype]
+    nvec = width * es // 16
+    for sms in (1, 132):
+        for T in PLAN_ROWS:
+            p = norm_act.norm_plan(T, width, es, sms)
+            assert p.vpt in (1, 2, 4, norm_act.MAX_VECS)
+            assert p.row_threads % 32 == 0
+            assert p.row_threads * p.rows_per_block <= norm_act.NORM_THREADS
+            assert p.row_threads == 32 or p.rows_per_block <= 15
+            assert p.row_threads * p.vpt >= nvec > (p.row_threads - 32) * p.vpt
+            rows = (np.arange(p.blocks)[:, None] * p.rows_per_block
+                    + np.arange(p.rows_per_block)).ravel()
+            assert np.array_equal(rows[rows < T], np.arange(T))
+            assert (p.blocks - 1) * p.rows_per_block < T
+            cols = (np.arange(p.row_threads)[:, None]
+                    + np.arange(p.vpt) * p.row_threads).ravel()
+            assert np.array_equal(np.sort(cols[cols < nvec]),
+                                  np.arange(nvec))
+
+
+@pytest.mark.parametrize("dtype", list(ELEMENT_SIZES))
+@pytest.mark.parametrize("inter", MLP_WIDTHS)
+def test_silu_plan_covers_each_row_once(inter, dtype):
+    """At every T of PLAN_ROWS, on cards of 1 and 132 SMs: block (row, y)'s
+    thread t takes the row's output vectors y * threads * vpt + i *
+    threads + t (i < vpt), as silu_and_mul_kernel does; every vector of a
+    row is taken once, no tile is left without work, and the plan keeps
+    the source's limits."""
+    es = ELEMENT_SIZES[dtype]
+    per_row = inter * es // 16
+    for sms in (1, 132):
+        for T in PLAN_ROWS:
+            p = norm_act.silu_plan(T, inter, es, sms)
+            assert p.vpt in (1, norm_act.MAX_ACT_VECS)
+            assert p.threads % 32 == 0
+            assert 0 < p.threads <= norm_act.ACT_THREADS
+            assert 1 <= p.tiles <= norm_act.MAX_ACT_TILES
+            tile = p.threads * p.vpt
+            assert tile * p.tiles >= per_row > tile * (p.tiles - 1)
+            cols = (np.arange(p.tiles)[:, None, None] * tile
+                    + np.arange(p.vpt)[:, None] * p.threads
+                    + np.arange(p.threads)).ravel()
+            assert np.array_equal(np.sort(cols[cols < per_row]),
+                                  np.arange(per_row))
+
+
+@pytest.mark.parametrize("plan", ["norm", "silu"])
+def test_plans_refuse_what_the_kernels_do_not_take(plan):
+    """Widths that are not whole 16-byte vectors, negative rows, a norm row
+    past MAX_ROW_BYTES and silu rows past MAX_ACT_TILES tiles raise."""
+    fn = norm_act.norm_plan if plan == "norm" else norm_act.silu_plan
+    for width, es in ((4100, 2), (4098, 4), (7, 2), (0, 2), (-8, 2)):
+        with pytest.raises(ValueError):
+            fn(8, width, es, 132)
+    with pytest.raises(ValueError):
+        fn(-1, 4096, 2, 132)
+    too_wide = (norm_act.MAX_ROW_BYTES // 2 + 8 if plan == "norm"
+                else 8 * norm_act.ACT_BLOCK * norm_act.MAX_ACT_VECS
+                * (norm_act.MAX_ACT_TILES + 1))
+    with pytest.raises(ValueError):
+        fn(8, too_wide, 2, 132)
+
+
+# ---------------------------------------------------------------------- #
 # the qkv bias inside kernel A
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("arena", ["model", "fp8", "int8"])
@@ -349,7 +454,8 @@ def test_forward_matches_jax(family, qkv_bias):
 def test_bench_norm_act_on_the_cpu(capsys):
     """The call-by-call harness of the four kernels with ``--device cpu``:
     each case held against its plain version, then one line of min /
-    median / max times for each model, dtype, T and kernel."""
+    median / max times (the kernel, its plain version, a copy of its
+    bytes, a copy of 16 bytes) for each model, dtype, T and kernel."""
     from vattention_tpu_torch.microbenchmarks import bench_norm_act
 
     assert bench_norm_act.main(["--device", "cpu", "--model", "yi-6b-200k",
@@ -361,4 +467,16 @@ def test_bench_norm_act_on_the_cpu(capsys):
     assert len(rows) == 2 * 2 * 2 * 2
     assert {r[0] for r in rows} == {"add_rms_norm", "silu_and_mul",
                                     "add_layer_norm", "gelu_new"}
-    assert all(len(r[4].split(" / ")) == 3 for r in rows)
+    assert all(len(r) == 9 and all(len(r[i].split(" / ")) == 3
+                                   for i in (4, 5, 7, 8)) for r in rows)
+    with pytest.raises(ValueError):
+        bench_norm_act.main(["--device", "cpu", "--plans"])
+    # the plans it would time are the ones the source takes, the wrapper's
+    # among them
+    for name, width, es, plan_of in (
+            ("add_rms_norm", 5120, 2, norm_act.norm_plan),
+            ("silu_and_mul", 11008, 4, norm_act.silu_plan)):
+        for T in (1, 2048):
+            got = list(bench_norm_act.plans(name, T, width, es))
+            assert tuple(plan_of(T, width, es, 132))[:3] in got
+            assert len(set(got)) == len(got) > 1

@@ -25,23 +25,48 @@
 // Bound: bytes.  A norm reads each input row once and writes its output
 // (and the residual) once; at T = 2048, H = 4096, bf16, add_rms_norm
 // moves 4 x 16.8 MB, 20 us at 3.35 TB/s; a decode row is a few KB, so
-// there a launch and one DRAM round trip are the floor.  Design: the row
-// norms are one block per row; each thread owns VPT 16-byte vectors of
-// the row, kept packed in registers between the sum and the scale (no
-// second read), the sum taken in float32 with warp shuffles and one pass through
-// shared memory, which every warp reads whole, so no broadcast follows.
-// Widths need not fill the block: falcon's 4544 bf16 values are 568
-// vectors, 142 threads of 4 in a block of 160.  The activations are one
-// grid-stride pass of 16-byte vectors.
+// there a launch and one DRAM round trip are the floor.
+//
+// add_rms_norm and silu_and_mul, the two that every llama layer launches
+// (2L + 1 and L a step), take their launch plan from the Python wrapper
+// (ops/norm_act.py norm_plan, silu_plan), which checks it against the
+// limits below; the entry points check it again.
+// - add_rms_norm: a row group of row_threads threads (whole warps) per
+//   row, rows_per_block rows a block.  Each thread loads all its VPT
+//   16-byte vectors of x, r and w at once, so a row has one DRAM round
+//   trip on its critical path, and keeps them packed in registers from
+//   the sum to the scale.  The sum is warp shuffles, and for a row of
+//   several warps one pass through shared memory behind a named barrier
+//   of the row's warps only (bar.sync 1 + group): no block-wide
+//   __syncthreads, so the rows of a block never wait for each other.  A
+//   row lives in one block, on one SM: it holds all of a row's loads in
+//   flight, so splitting a row over SMs buys no latency.
+// - silu_and_mul: a 2-D grid, the row from blockIdx.x and a tile of
+//   threads x VPT vectors of the row from blockIdx.y, column indices in
+//   32 bits (no 64-bit division); each thread loads its VPT gate/up pairs
+//   before it computes any of them.
+// Both launch plainly: launched with programmatic dependent launch (so
+// each may start while the projection before it finishes, reading its
+// inputs after griddepcontrol.wait), the captured decode step measured
+// slower on the H100, though stream capture kept every programmatic edge.
+//
+// add_layer_norm is one block per row (block_sum's __syncthreads), each
+// thread VPT vectors; falcon's 4544 bf16 values are 568 vectors, 142
+// threads of 4 in a block of 160.  gelu_new is one grid-stride pass of
+// 16-byte vectors.
 #include "common.cuh"
 
 using namespace vattn;
 
 namespace {
 
-constexpr int kRowThreads = 256;   // a row block's threads at most
+constexpr int kRowThreads = 256;   // add_layer_norm's block (one row) at most
 constexpr int kMaxVecs = 8;        // 16-byte vectors a thread at most
-constexpr int kPassThreads = 128;  // the activations' blocks
+constexpr int kNormThreads = 256;  // an add_rms_norm block's threads at most
+constexpr int kActThreads = 256;   // a silu_and_mul block's threads at most
+constexpr int kMaxActVecs = 2;     // silu_and_mul's gate/up pairs a thread at most
+constexpr int kMaxActTiles = 65535;  // silu_and_mul's column tiles (gridDim.y)
+constexpr int kPassThreads = 128;  // gelu_new's blocks
 constexpr int kPassBlocks = 132 * 16;
 // sqrt(2 / pi) and the cubic's coefficient, as PyTorch's tanh GELU
 // rounds them to float
@@ -116,12 +141,97 @@ __device__ __forceinline__ float block_sum(float v, float* partial) {
   return warp_sum(lane < static_cast<int>(blockDim.x >> 5) ? partial[lane] : 0.f);
 }
 
-// ---- the row norms: block b normalizes row b ------------------------- //
+// ---- add_rms_norm: a row group of whole warps per row ---------------- //
+struct RmsArgs {
+  uint4* res_out;      // [rows, nvec] x + r, or nullptr (no addend)
+  uint4* out;          // [rows, nvec]
+  const uint4* x;      // [rows, nvec]
+  const uint4* r;      // [rows, nvec], or nullptr
+  const uint4* w;      // [nvec]
+  int rows, nvec;      // nvec: 16-byte vectors a row
+  int row_threads;     // a row group's threads, a multiple of 32
+  float eps, inv_width;
+};
+
+// Row group g = threadIdx.x / row_threads of block b normalizes row
+// b * rows_per_block + g; its thread t holds the row's vectors t + i *
+// row_threads, i < VPT.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kNormThreads) add_rms_norm_kernel(RmsArgs a) {
+  constexpr int E = V16<T>::E;
+  __shared__ float partial[kNormThreads / 32];
+  const int group = threadIdx.x / a.row_threads;
+  const int t = threadIdx.x - group * a.row_threads;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (blockDim.x / a.row_threads) + group;
+  const bool live = row < a.rows;
+  const long long base = row * a.nvec;
+  uint4 v[VPT], u[VPT], w[VPT];
+  // every load of the row, the weight's too, before any use: one round trip
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = t + i * a.row_threads;
+    if (!live || c >= a.nvec) continue;
+    v[i] = a.x[base + c];
+    if (a.r != nullptr) u[i] = a.r[base + c];
+    w[i] = a.w[c];
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = t + i * a.row_threads;
+    if (!live || c >= a.nvec) continue;
+    if (a.r != nullptr) {
+      v[i] = add_rounded<T>(v[i], u[i]);
+      a.res_out[base + c] = v[i];
+    }
+    float f[E];
+    V16<T>::unpack(v[i], f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) ss = fmaf(f[e], f[e], ss);
+  }
+  ss = warp_sum(ss);
+  if (a.row_threads > 32) {
+    // the row's warps only: their partials, then every warp sums them all
+    const int lane = threadIdx.x & 31, warps = a.row_threads >> 5;
+    if (lane == 0) partial[threadIdx.x >> 5] = ss;
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "r"(a.row_threads) : "memory");
+    ss = warp_sum(lane < warps ? partial[group * warps + lane] : 0.f);
+  }
+  if (!live) return;
+  const float inv = rsqrtf(__fadd_rn(__fmul_rn(ss, a.inv_width), a.eps));
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = t + i * a.row_threads;
+    if (c >= a.nvec) continue;
+    float f[E], g[E];
+    V16<T>::unpack(v[i], f);
+    V16<T>::unpack(w[i], g);
+#pragma unroll
+    for (int e = 0; e < E; ++e) f[e] = __fmul_rn(__fmul_rn(f[e], inv), g[e]);
+    a.out[base + c] = V16<T>::pack(f);
+  }
+}
+
+template <typename T>
+int launch_rms(const RmsArgs& a, int vpt, int rows_per_block, cudaStream_t s) {
+  const dim3 grid((a.rows + rows_per_block - 1) / rows_per_block);
+  const dim3 block(a.row_threads * rows_per_block);
+  switch (vpt) {
+    case 1: add_rms_norm_kernel<T, 1><<<grid, block, 0, s>>>(a); break;
+    case 2: add_rms_norm_kernel<T, 2><<<grid, block, 0, s>>>(a); break;
+    case 4: add_rms_norm_kernel<T, 4><<<grid, block, 0, s>>>(a); break;
+    default: add_rms_norm_kernel<T, kMaxVecs><<<grid, block, 0, s>>>(a); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- add_layer_norm: block b normalizes row b ------------------------- //
 struct RowArgs {
   void* res_out;       // [rows, width] x + r, or nullptr (no addend)
   void* out;           // [rows, width]
   const void* x;       // [rows, width]
-  const void* add1;    // r (rms) or o (layer norm), or nullptr
+  const void* add1;    // o, or nullptr
   const void* add2;    // mlp (layer norm; added to o first), or nullptr
   const void* w;       // [width]
   const void* b;       // [width] (layer norm)
@@ -159,36 +269,6 @@ __device__ __forceinline__ void load_residual(const RowArgs& a, uint4 (&v)[VPT])
     if (a.add2 != nullptr) u1[i] = add_rounded<T>(u1[i], u2[i]);  // o + mlp
     v[i] = add_rounded<T>(v[i], u1[i]);
     (static_cast<uint4*>(a.res_out) + base)[c] = v[i];
-  }
-}
-
-template <typename T, int VPT>
-__global__ void __launch_bounds__(kRowThreads) add_rms_norm_kernel(RowArgs a) {
-  constexpr int E = V16<T>::E;
-  __shared__ float partial[32];
-  uint4 v[VPT];
-  load_residual<T, VPT>(a, v);
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    if (vec_of(i, a.nvec) < 0) continue;
-    float f[E];
-    V16<T>::unpack(v[i], f);
-#pragma unroll
-    for (int e = 0; e < E; ++e) ss = fmaf(f[e], f[e], ss);
-  }
-  const float inv = rsqrtf(__fadd_rn(__fmul_rn(block_sum(ss, partial), a.inv_width), a.eps));
-  uint4* out = static_cast<uint4*>(a.out) + static_cast<long long>(blockIdx.x) * a.nvec;
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int c = vec_of(i, a.nvec);
-    if (c < 0) continue;
-    float f[E], w[E];
-    V16<T>::unpack(v[i], f);
-    V16<T>::unpack(static_cast<const uint4*>(a.w)[c], w);
-#pragma unroll
-    for (int e = 0; e < E; ++e) f[e] = __fmul_rn(__fmul_rn(f[e], inv), w[e]);
-    out[c] = V16<T>::pack(f);
   }
 }
 
@@ -238,12 +318,6 @@ __global__ void __launch_bounds__(kRowThreads) add_layer_norm_kernel(RowArgs a) 
 }
 
 template <typename T, int VPT>
-struct RmsLaunch {
-  static void launch(const RowArgs& a, int rows, int threads, cudaStream_t s) {
-    add_rms_norm_kernel<T, VPT><<<rows, threads, 0, s>>>(a);
-  }
-};
-template <typename T, int VPT>
 struct LayerNormLaunch {
   static void launch(const RowArgs& a, int rows, int threads, cudaStream_t s) {
     add_layer_norm_kernel<T, VPT><<<rows, threads, 0, s>>>(a);
@@ -280,27 +354,54 @@ int launch_rows_any(const RowArgs& a, int rows, int width, int dtype, void* stre
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ---- the activations: one grid-stride pass of 16-byte vectors -------- //
-// out [rows, inter] = round(silu(gate)) * up, gate and up the two halves
-// of x [rows, 2 inter]; silu(g) = g / (1 + exp(-g)) as PyTorch's
-template <typename T>
-__global__ void __launch_bounds__(kPassThreads)
-silu_and_mul_kernel(uint4* out, const uint4* x, int per_row, long long n_vec) {
+// ---- silu_and_mul: a block per (row, column tile) ---------------------- //
+// out [rows, per_row] = round(silu(gate)) * up, gate and up the two halves
+// of x's row [2 per_row] (16-byte vectors); silu(g) = g / (1 + exp(-g)) as
+// PyTorch's.  Block (b, y) computes row b's vectors y * blockDim.x * VPT
+// + i * blockDim.x + threadIdx.x, i < VPT.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kActThreads)
+silu_and_mul_kernel(uint4* out, const uint4* x, int per_row) {
   constexpr int E = V16<T>::E;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n_vec;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long t = i / per_row;
-    const long long g = i + t * per_row;  // gate's vector in x's row t
-    float gate[E], up[E];
-    V16<T>::unpack(x[g], gate);
-    V16<T>::unpack(x[g + per_row], up);
+  const long long row = blockIdx.x;
+  const uint4* gate = x + row * 2 * per_row;
+  const uint4* up = gate + per_row;
+  uint4* o = out + row * per_row;
+  const int c0 = blockIdx.y * blockDim.x * VPT + threadIdx.x;
+  uint4 g[VPT], u[VPT];
+  // every pair in flight before the first is computed
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = c0 + i * blockDim.x;
+    if (c >= per_row) continue;
+    g[i] = gate[c];
+    u[i] = up[c];
+  }
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = c0 + i * blockDim.x;
+    if (c >= per_row) continue;
+    float gf[E], uf[E];
+    V16<T>::unpack(g[i], gf);
+    V16<T>::unpack(u[i], uf);
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      const float silu = V16<T>::round(__fdiv_rn(gate[e], __fadd_rn(1.f, expf(-gate[e]))));
-      gate[e] = __fmul_rn(silu, up[e]);
+      const float silu = V16<T>::round(__fdiv_rn(gf[e], __fadd_rn(1.f, expf(-gf[e]))));
+      gf[e] = __fmul_rn(silu, uf[e]);
     }
-    out[i] = V16<T>::pack(gate);
+    o[c] = V16<T>::pack(gf);
   }
+}
+
+template <typename T>
+int launch_silu(uint4* out, const uint4* x, int rows, int per_row, int vpt, int threads,
+                int tiles, cudaStream_t s) {
+  const dim3 grid(rows, tiles), block(threads);
+  if (vpt == 1)
+    silu_and_mul_kernel<T, 1><<<grid, block, 0, s>>>(out, x, per_row);
+  else
+    silu_and_mul_kernel<T, kMaxActVecs><<<grid, block, 0, s>>>(out, x, per_row);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out = 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))), in float32 in
@@ -333,12 +434,29 @@ int pass_blocks(long long n_vec) {
 
 // x, r, res_out, out: [rows, width] of dtype (float32 or bfloat16); w:
 // [width].  r == nullptr: the plain norm of x, res_out unused.  width a
-// multiple of one 16-byte vector, at most 8 x 256 vectors.
+// multiple of one 16-byte vector.  The plan (ops/norm_act.py norm_plan):
+// vpt vectors a thread (1, 2, 4 or 8), row_threads threads a row (whole
+// warps, together at least the row's vectors, no warp without one),
+// rows_per_block rows a block of at most kNormThreads threads.
 extern "C" int vattn_add_rms_norm(void* res_out, void* out, const void* x, const void* r,
                                   const void* w, int rows, int width, float eps, int dtype,
-                                  void* stream) {
-  const RowArgs a{res_out, out, x, r, nullptr, w, nullptr, 0, eps, 0.f};
-  return launch_rows_any<RmsLaunch>(a, rows, width, dtype, stream);
+                                  int vpt, int row_threads, int rows_per_block, void* stream) {
+  const int E = dtype == kFloat32 ? 4 : 8;
+  if ((dtype != kFloat32 && dtype != kBFloat16) || rows < 0 || width <= 0 || width % E ||
+      (vpt != 1 && vpt != 2 && vpt != 4 && vpt != kMaxVecs) || row_threads <= 0 ||
+      row_threads % 32 || rows_per_block <= 0 || row_threads * rows_per_block > kNormThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nvec = width / E;
+  if (row_threads * vpt < nvec || (row_threads - 32) * vpt >= nvec)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  const RmsArgs a{static_cast<uint4*>(res_out), static_cast<uint4*>(out),
+                  static_cast<const uint4*>(x), static_cast<const uint4*>(r),
+                  static_cast<const uint4*>(w), rows, nvec, row_threads, eps,
+                  1.f / static_cast<float>(width)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == kFloat32 ? launch_rms<float>(a, vpt, rows_per_block, s)
+                           : launch_rms<__nv_bfloat16>(a, vpt, rows_per_block, s);
 }
 
 // x, o, mlp, res_out, out: [rows, width]; w, b: [width].  res_out = x +
@@ -353,23 +471,27 @@ extern "C" int vattn_add_layer_norm(void* res_out, void* out, const void* x, con
 }
 
 // x: [rows, 2 inter] -> out: [rows, inter]; inter a multiple of one
-// 16-byte vector.
+// 16-byte vector.  The plan (ops/norm_act.py silu_plan): blocks of
+// `threads` (whole warps, at most kActThreads), vpt vectors a thread (1
+// or kMaxActVecs), tiles blocks a row (at most kMaxActTiles), together at
+// least the row's vectors and no tile without one.
 extern "C" int vattn_silu_and_mul(void* out, const void* x, int rows, int inter, int dtype,
-                                  void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                  int vpt, int threads, int tiles, void* stream) {
   const int E = dtype == kFloat32 ? 4 : 8;
-  if (rows < 0 || inter <= 0 || inter % E || (dtype != kFloat32 && dtype != kBFloat16))
+  if ((dtype != kFloat32 && dtype != kBFloat16) || rows < 0 || inter <= 0 || inter % E ||
+      (vpt != 1 && vpt != kMaxActVecs) || threads <= 0 || threads % 32 || threads > kActThreads ||
+      tiles <= 0 || tiles > kMaxActTiles)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_vec = static_cast<long long>(rows) * (inter / E);
-  if (n_vec == 0) return 0;
+  const int per_row = inter / E;
+  const long long tile = static_cast<long long>(threads) * vpt;
+  if (tile * tiles < per_row || tile * (tiles - 1) >= per_row)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
   uint4* o = static_cast<uint4*>(out);
   const uint4* i = static_cast<const uint4*>(x);
-  if (dtype == kFloat32)
-    silu_and_mul_kernel<float><<<pass_blocks(n_vec), kPassThreads, 0, s>>>(o, i, inter / E, n_vec);
-  else
-    silu_and_mul_kernel<__nv_bfloat16><<<pass_blocks(n_vec), kPassThreads, 0, s>>>(o, i, inter / E,
-                                                                                  n_vec);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) return launch_silu<float>(o, i, rows, per_row, vpt, threads, tiles, s);
+  return launch_silu<__nv_bfloat16>(o, i, rows, per_row, vpt, threads, tiles, s);
 }
 
 // x, out: n values (a multiple of one 16-byte vector).
@@ -388,3 +510,4 @@ extern "C" int vattn_gelu_new(void* out, const void* x, long long n, int dtype, 
     gelu_new_kernel<__nv_bfloat16><<<pass_blocks(n_vec), kPassThreads, 0, s>>>(o, i, n_vec);
   return static_cast<int>(cudaGetLastError());
 }
+

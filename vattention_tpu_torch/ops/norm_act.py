@@ -20,15 +20,20 @@ JAX step's, one rounding to the model's dtype per JAX op: the residual
 output equals the plain ``x + r`` bit for bit.
 
 Bound on the H100: bytes (each input read once, each output written
-once).  Source: csrc/norm_act.cu -- the norms one block per row with the
-row in registers between the sum and the scale, the activations one
-grid-stride pass of 16-byte vectors.
+once).  Source: csrc/norm_act.cu.  ``add_rms_norm`` and ``silu_and_mul``
+take their launch plan from here (``norm_plan``, ``silu_plan``): a row
+group of whole warps per row, several narrow rows a block, every load of
+a row (the weight's too) in flight at once; and a 2-D grid of (row, column
+tile) blocks whose threads each load their one or two gate/up pairs
+before computing.  ``add_layer_norm`` is one block per row, ``gelu_new``
+one grid-stride pass of 16-byte vectors.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,22 +47,125 @@ from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, CudaKernel,
 
 __all__ = ["add_rms_norm", "add_rms_norm_plain", "add_layer_norm",
            "add_layer_norm_plain", "silu_and_mul", "silu_and_mul_plain",
-           "gelu_new", "gelu_new_plain"]
+           "gelu_new", "gelu_new_plain", "norm_plan", "silu_plan"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ADD_RMS_NORM = CudaKernel("norm_act", "vattn_add_rms_norm", [
-    _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P])
+    _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P])
 ADD_LAYER_NORM = CudaKernel("norm_act", "vattn_add_layer_norm", [
     _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P])
 SILU_AND_MUL = CudaKernel("norm_act", "vattn_silu_and_mul", [
-    _P, _P, _I, _I, _I, _P])
+    _P, _P, _I, _I, _I, _I, _I, _I, _P])
 GELU_NEW = CudaKernel("norm_act", "vattn_gelu_new", [
     _P, _P, ctypes.c_longlong, _I, _P])
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
-# a normalized row's bytes at most: 8 16-byte vectors for each of a
-# block's 256 threads (bf16 rows to 16384 values, float32 to 8192)
-MAX_ROW_BYTES = 8 * 256 * 16
+# the source's limits (csrc/norm_act.cu): add_rms_norm's 16-byte vectors
+# a thread and threads a block at most (kMaxVecs, kNormThreads);
+# silu_and_mul's gate/up pairs a thread, threads a block and column tiles
+# (the grid's y) at most (kMaxActVecs, kActThreads, kMaxActTiles)
+MAX_VECS = 8
+NORM_THREADS = 256
+MAX_ACT_VECS = 2
+ACT_THREADS = 256
+MAX_ACT_TILES = 65535
+# a normalized row's bytes at most: MAX_VECS 16-byte vectors for each of
+# NORM_THREADS threads (bf16 rows to 16384 values, float32 to 8192)
+MAX_ROW_BYTES = MAX_VECS * NORM_THREADS * 16
+# silu_and_mul's plan: a block's threads, and the blocks a launch per SM
+# below which a thread takes one gate/up pair instead of two
+ACT_BLOCK = 128
+ACT_BLOCKS_PER_SM = 2
+
+
+class NormPlan(NamedTuple):
+    """add_rms_norm's launch: ``vpt`` 16-byte vectors a thread,
+    ``row_threads`` threads (whole warps) a row, ``rows_per_block`` rows
+    a block, ``blocks`` blocks."""
+    vpt: int
+    row_threads: int
+    rows_per_block: int
+    blocks: int
+
+
+class SiluPlan(NamedTuple):
+    """silu_and_mul's launch: blocks of ``threads``, ``vpt`` output
+    vectors a thread, ``tiles`` blocks a row (the grid is rows x
+    tiles)."""
+    vpt: int
+    threads: int
+    tiles: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _vectors(what: str, width: int, element_size: int) -> int:
+    """16-byte vectors in ``width`` values; raises unless whole."""
+    n_bytes = width * element_size
+    if width <= 0 or n_bytes % 16:
+        raise ValueError(f"{what}: {width} values of {element_size} bytes "
+                         "are not a whole number of 16-byte vectors")
+    return n_bytes // 16
+
+
+@functools.lru_cache(maxsize=4096)
+def norm_plan(rows: int, width: int, element_size: int,
+              sms: int) -> NormPlan:
+    """add_rms_norm's launch over [rows, width] values of
+    ``element_size`` bytes on a card of ``sms`` SMs.  A thread takes the
+    fewest of 1, 2, 4 or 8 vectors that fit the row in NORM_THREADS
+    threads (so rows of at most MAX_ROW_BYTES); a block takes as many
+    rows as fit NORM_THREADS threads while every SM still gets a block,
+    else one.  (On the H100 fewer threads a row, with more vectors each,
+    measured no faster at a 2048-row chunk and slower at decode rows.)"""
+    nvec = _vectors("add_rms_norm", width, element_size)
+    if rows < 0 or width * element_size > MAX_ROW_BYTES:
+        raise ValueError(f"add_rms_norm: [{rows}, {width}] of "
+                         f"{element_size}-byte values (rows at most "
+                         f"{MAX_ROW_BYTES} bytes)")
+    vpt = 1
+    while vpt < MAX_VECS and _cdiv(nvec, vpt) > NORM_THREADS:
+        vpt *= 2
+    row_threads = _cdiv(_cdiv(nvec, vpt), 32) * 32
+    per_block = max(1, min(NORM_THREADS // row_threads, rows // sms))
+    return NormPlan(vpt, row_threads, per_block, _cdiv(rows, per_block))
+
+
+@functools.lru_cache(maxsize=4096)
+def silu_plan(rows: int, inter: int, element_size: int,
+              sms: int) -> SiluPlan:
+    """silu_and_mul's launch over [rows, 2 inter] values of
+    ``element_size`` bytes on a card of ``sms`` SMs.  A thread takes
+    MAX_ACT_VECS vectors (pairs of gate and up), or 1 when that would
+    leave fewer than ACT_BLOCKS_PER_SM blocks an SM of ACT_BLOCK
+    threads; a row's tiles are then cut even, each of the fewest whole
+    warps that cover it.  (On the H100 4 and 8 pairs a thread measured
+    slower in bfloat16.)"""
+    per_row = _vectors("silu_and_mul", inter, element_size)
+    if rows < 0:
+        raise ValueError(f"silu_and_mul: {rows} rows")
+    for vpt in (MAX_ACT_VECS, 1):
+        tiles = _cdiv(per_row, ACT_BLOCK * vpt)
+        if rows * tiles >= ACT_BLOCKS_PER_SM * sms:
+            break
+    threads = _cdiv(_cdiv(per_row, tiles * vpt), 32) * 32
+    if tiles > MAX_ACT_TILES:
+        raise ValueError(f"silu_and_mul: {inter} values a row need "
+                         f"{tiles} tiles, above {MAX_ACT_TILES}")
+    return SiluPlan(vpt, threads, tiles)
+
+
+_sms: Dict[torch.device, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -108,9 +216,12 @@ def add_rms_norm(x: torch.Tensor, r: Optional[torch.Tensor],
     res = x if r is None else torch.empty_like(x)
     if x.shape[0] == 0:
         return res, out
+    plan = norm_plan(x.shape[0], x.shape[1], x.element_size(),
+                     _sm_count(x.device))
     ADD_RMS_NORM(_ptr(None if r is None else res), out.data_ptr(),
                  x.data_ptr(), _ptr(r), weight.data_ptr(), x.shape[0],
-                 x.shape[1], eps, DTYPE_CODES[x.dtype], current_stream())
+                 x.shape[1], eps, DTYPE_CODES[x.dtype], plan.vpt,
+                 plan.row_threads, plan.rows_per_block, current_stream())
     return res, out
 
 
@@ -163,8 +274,11 @@ def silu_and_mul(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((x.shape[0], inter), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return out
+    plan = silu_plan(x.shape[0], inter, x.element_size(),
+                     _sm_count(x.device))
     SILU_AND_MUL(out.data_ptr(), x.data_ptr(), x.shape[0], inter,
-                 DTYPE_CODES[x.dtype], current_stream())
+                 DTYPE_CODES[x.dtype], plan.vpt, plan.threads, plan.tiles,
+                 current_stream())
     return out
 
 
