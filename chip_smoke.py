@@ -88,11 +88,11 @@ same kernel with the rotation off, held and timed in (a) as before.
     adds, ``F.silu(g) * u``, ``F.gelu(approximate="tanh")``) and its bytes
     bound.  At Qwen-14B's heads (40 q, 40 kv), kernel A with a qkv bias at
     the same T, q and the arena bit for bit against its plain version.
-    Before the timed rows, add_rms_norm (with and without r) and
-    silu_and_mul at every hidden and MLP width of the registry
-    (``bench_norm_act.HIDDEN_WIDTHS``, ``MLP_WIDTHS``) and T = 1, 2, 3, 8,
-    16, 127, 520 and 2048 in bf16 and float32, held the same way (not
-    timed).
+    Before the timed rows, add_rms_norm (with and without r) at every
+    hidden width of the registry (``bench_norm_act.HIDDEN_WIDTHS``), and
+    silu_and_mul and gelu_new at every MLP width (``MLP_WIDTHS``), at T =
+    1, 2, 3, 8, 16, 127, 520 and 2048 in bf16 and float32, held the same
+    way (not timed).
 (b) f32 parity: tiny-llama-debug, float32, sarathi chunk 128 on the
     two-prompt workload of tests/test_e2e.py, through fa_vattn, then
     (b') fa_paged_16 and (b'') fa_pod (whose mixed step must run through
@@ -313,7 +313,11 @@ same kernel with the rotation off, held and timed in (a) as before.
     run, A, B and C launch and E, F, G, H do not, D launches once per
     relocation plan; request e2e time per token p50/p90/p99, TTFT p50/p99,
     TBT p99, scheduling delay p99, the moves, D's launches and the
-    fragmentation are printed.
+    fragmentation are printed.  Then D's row at this geometry (JSON
+    ``arena_relocate[r dyn]``): the allocator's plan of
+    ``bench_relocate``'s rdyn geometry on the engine's arena, byte for
+    byte against the plain version, timed beside it, one ``copy_`` per
+    move, a ``copy_`` of its bytes and its bound, as (a)'s D rows.
 (r rep) ``BenchmarkRunnerLauncher``: 2 replicas of yi-6b-200k-l16 on the
     card (each arena from half of gpu_memory_utilization 0.9), 8 static
     requests of 2048 + 32 tokens on fa_vattn_2mb: 4 completed per replica,
@@ -400,7 +404,9 @@ H, then the falcon instances ``<name>[falcon]`` with launches from (k),
 ``bound_real_ms``; then ``rope_kv_append`` and its ``[e4m3]``,
 ``[int8]``, ``[f32]``, ``[mistral]`` and falcon instances with launches
 from (c), (c8), (b), (g), (k) and (b falcon); the bf16 ``arena_relocate``
-row's launches from (r dyn), the one serving run that relocates;
+row's launches from (r dyn), the one serving run that relocates, and
+``arena_relocate[r dyn]`` (D at that run's geometry) with the same; every
+D row also gives ``copy_ms``, a ``copy_`` of its bytes;
 ``kv_append``, which serving no longer runs, shows 0; the ``[tp2]`` and
 ``[tp4]`` rows from (t yi); the ``[128K]`` rows of B, E and C with
 launches from (l)'s fa_vattn_2mb, fa_paged_256 and all four cells; the
@@ -437,6 +443,8 @@ try:
         profile_window, serve)
     from vattention_tpu_torch.microbenchmarks.timing import (
         ATTN_TOL, Timer, bound, check_attention, seeded)
+    from vattention_tpu_torch.microbenchmarks.bench_relocate import (
+        relocation_bytes, slice_copies, strict_relocation_plan)
 except ImportError as e:  # chip_smoke.py without the port beside it
     sys.exit(f"chip_smoke: the port is not importable here ({e})")
 
@@ -795,27 +803,10 @@ def kernel_phase(dev, arena=torch.bfloat16, geo=YI):
             raise AssertionError("a live slot's KV did not survive relocation")
     del before
     moves = [(m.src, m.dst) for m in plan.moves]
-
-    def library_moves():
-        for s_, d_ in moves:
-            cache[:, :, :, d_ * bt:(d_ + 1) * bt].copy_(
-                cache[:, :, :, s_ * bt:(s_ + 1) * bt])
-
-    b_ms, b_by = bound(n_moves * L * 2 * HKV * bt * D * kv_es * 2
-                       + n_moves * 8, 0)
-    results.append(dict(
-        name="arena_relocate" + suffix, route="cuda",
-        source="vattention_tpu_torch/csrc/arena_relocate.cu",
-        replaces="vattention_tpu/ops/arena_copy.py:59",
-        max_abs_err=0.0,
-        ms=timer(lambda: arena_copy.arena_relocate(cache, src, dst, n_moves,
-                                                   bt)),
-        plain_ms=timer(lambda: arena_copy.arena_relocate_plain(
-            cache, src, dst, n_moves, bt)),
-        library_ms=timer(library_moves),
-        bound_ms=b_ms, bound_by=b_by,
-        shape=f"{n_moves} chained moves {moves} of {bt}-row blocks, "
-              f"L={L} Hkv={HKV} D={D} {cache.dtype}"))
+    results.append(relocation_row(
+        cache, src, dst, bt, timer, suffix,
+        f"{n_moves} chained moves {moves} of {bt}-row blocks, L={L} "
+        f"Hkv={HKV} D={D} {cache.dtype}"))
     del cache
     torch.cuda.empty_cache()
     for r in results:
@@ -827,10 +818,12 @@ def kernel_phase(dev, arena=torch.bfloat16, geo=YI):
         real = ("" if "bound_real_ms" not in r else
                 f", at head dim {geo['DR']} {r['bound_real_ms']:.5f} "
                 f"({100 * r['bound_real_ms'] / r['ms']:.1f}%)")
+        copy = ("" if "copy_ms" not in r else
+                f"; a copy_ of its bytes {r['copy_ms']:.4f}")
         log(f"{lbl} {r['name']}: {r['shape']}: max_abs_err {r['max_abs_err']}"
             f" ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library {lib} "
             f"bound {r['bound_ms']:.5f} ({r['bound_by']}, "
-            f"{100 * r['bound_ms'] / r['ms']:.1f}%){real}"
+            f"{100 * r['bound_ms'] / r['ms']:.1f}%){real}{copy}"
             + (f"; host us per call {host[r['name'].split('[')[0]]:.1f}"
                if r["name"].split("[")[0] in host else ""))
     return results
@@ -1011,7 +1004,7 @@ def norm_act_phase(dev):
     from vattention_tpu_torch.ops import norm_act
 
     F = torch.nn.functional
-    # the two kernels every llama layer launches, at every registry width
+    # add_rms_norm, silu_and_mul and gelu_new at every registry width
     # and the launch plans' rows: held, not timed
     n = 0
     for dt in (torch.bfloat16, torch.float32):
@@ -1041,13 +1034,18 @@ def norm_act_phase(dev):
                 torch.cuda.synchronize()
                 check_elementwise(f"silu_and_mul[{inter} T{T} {str(dt)[6:]}]",
                                   got, norm_act.silu_and_mul_plain(g))
-                n += 1
-        del x, r, g
+                u = g[:, :inter].contiguous()
+                got = norm_act.gelu_new(u)
+                torch.cuda.synchronize()
+                check_elementwise(f"gelu_new[{inter} T{T} {str(dt)[6:]}]",
+                                  got, norm_act.gelu_new_plain(u))
+                n += 2
+        del x, r, g, u
         torch.cuda.empty_cache()
     log(f"(a norm) add_rms_norm (with and without r) at hidden widths "
-        f"{HIDDEN_WIDTHS} and silu_and_mul at MLP widths {MLP_WIDTHS}, T "
-        f"{PLAN_ROWS}, bf16 and float32: {n} cases == plain (residuals bit "
-        "for bit, outputs within check_elementwise)")
+        f"{HIDDEN_WIDTHS}, silu_and_mul and gelu_new at MLP widths "
+        f"{MLP_WIDTHS}, T {PLAN_ROWS}, bf16 and float32: {n} cases == plain "
+        "(residuals bit for bit, outputs within check_elementwise)")
     timer = Timer(dev)
     results = []
     for tag, model in NORM_MODELS.items():
@@ -2043,62 +2041,33 @@ def window_phase(dev, arena=torch.bfloat16):
     return results
 
 
-def strict_relocation_plan(L, HKV, D, es, seed=0, blocks=14):
-    """A relocation plan with chained moves from the allocator in strict
-    contiguity (max_segments=1) on a seeded dynamic workload, plus the
-    arena rows of every live slot's tokens before and after the plan.
-    Lengths scale with the block (2048 tokens at Yi's kv heads, 8192 at
-    falcon's one), so requests cross blocks as often at any geometry."""
-    from vattention_tpu_torch.memory.allocator import VAttentionAllocator
+def relocation_row(cache, src, dst, bt, timer, suffix, shape):
+    """Kernel D's row for the plan ``src``, ``dst`` (int32 on the card) on
+    ``cache``: its time beside its plain version's, one ``copy_`` per move
+    of the block slices (the library call), a ``copy_`` of a contiguous
+    buffer of its bytes (``copy_ms``, the practical ceiling) and its bytes
+    bound.  The caller has held D's result against the plain version's."""
+    from vattention_tpu_torch.ops import arena_copy
 
-    scale = max(1, 2 * 2**20 // (HKV * D * es) // 2048)
-    a = VAttentionAllocator()
-    a.init_kvcache(num_layers=L, num_kv_heads=HKV, head_size=D,
-                   max_batch_size=8, max_context_length=8192 * scale,
-                   dtype_bytes=es, page_size=2 * 2**20, max_segments=1)
-    a.reserve_physical_pages(blocks * a.kvblock_bytes)
-    rng = np.random.default_rng(seed)
-    active = {}
-
-    def rows_of(seg, slot, n):
-        seg_row, seg_tok = seg
-        rows = []
-        for j in range(a.max_segments):
-            rows.extend(range(seg_row[slot, j], seg_row[slot, j]
-                              + seg_tok[slot, j]))
-        return np.asarray(rows[:n], np.int64)
-
-    for _ in range(5000):
-        if len(active) < 7 and rng.random() < 0.5:
-            prompt = int(rng.integers(10, 6000)) * scale
-            if a.tokens_to_blocks(prompt) < a.num_free_kvblocks():
-                sid = a.alloc_new_batch_idx(prompt)
-                if sid >= 0:
-                    active[sid] = int(rng.integers(4, 3000))
-        while a.num_free_kvblocks() < len(active) and len(active) > 1:
-            victim = list(active)[-1]
-            a.free_batch_idx(victim)
-            del active[victim]
-        old_lens = a.seq_lens.copy()
-        for sid in list(active):
-            a.seq_lens[sid] += scale
-            active[sid] -= 1
-        before = a.get_batch_segments()
-        plan = a.step_async(a.seq_lens.copy())
-        srcs = [m.src for m in plan.moves]
-        dsts = [m.dst for m in plan.moves]
-        chained = any(dsts[i] in srcs[:i] or srcs[i] in dsts[:i]
-                      for i in range(len(srcs)))
-        if chained:
-            after = a.get_batch_segments()
-            live = [(rows_of(before, s, int(old_lens[s])),
-                     rows_of(after, s, int(old_lens[s])))
-                    for s in active if old_lens[s] > 0]
-            return plan, live
-        for sid in [s for s, d in active.items() if d <= 0]:
-            a.free_batch_idx(sid)
-            del active[sid]
-    raise AssertionError("no chained relocation plan found")
+    n = src.numel()
+    n_bytes = relocation_bytes(cache.shape, bt, n, cache.element_size())
+    pair = torch.empty(2, n_bytes // 2, dtype=torch.uint8,
+                       device=cache.device)
+    b_ms, b_by = bound(n_bytes, 0)
+    row = dict(
+        name="arena_relocate" + suffix, route="cuda",
+        source="vattention_tpu_torch/csrc/arena_relocate.cu",
+        replaces="vattention_tpu/ops/arena_copy.py:59",
+        max_abs_err=0.0,
+        ms=timer(lambda: arena_copy.arena_relocate(cache, src, dst, n, bt)),
+        plain_ms=timer(lambda: arena_copy.arena_relocate_plain(
+            cache, src, dst, n, bt)),
+        library_ms=timer(slice_copies(cache, src.tolist(), dst.tolist(),
+                                      bt)),
+        copy_ms=timer(lambda: pair[1].copy_(pair[0])),
+        bound_ms=b_ms, bound_by=b_by, shape=shape)
+    del pair
+    return row
 
 
 # --------------------------------------------------------------------- #
@@ -3236,9 +3205,15 @@ def arrivals_phase(dev, kernels, smi, out_dir, required, idle):
     launches once per relocation plan.  Each plan is held against
     ``arena_relocate_plain`` on a clone of the arena taken just before it,
     byte for byte (the plans' moves reach D through the engine's pinned,
-    non-blocking copy; the plain version gets them from the plan).
-    Returns the counts."""
+    non-blocking copy; the plain version gets them from the plan).  Then
+    D's row at this geometry, on the engine's arena ([16, 2, 4, R, 128]
+    bf16, 64-token blocks) with the allocator's plan of ``bench_relocate``
+    rdyn (990 moves), held byte for byte against the plain version and
+    timed as (a)'s D rows.  Returns the counts and that row."""
     from vattention_tpu_torch.microbenchmarks import benchmark_phase as phase
+    from vattention_tpu_torch.microbenchmarks.bench_relocate import (
+        GEOMETRIES, dynamic_relocation_plan)
+    from vattention_tpu_torch.ops import arena_copy
     from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
 
     kw = bench_kwargs(out_dir, attention_backend="fa_vattn_64kb",
@@ -3301,10 +3276,46 @@ def arrivals_phase(dev, kernels, smi, out_dir, required, idle):
             or not all(ok for _, ok in res["relocations"])):
         raise AssertionError(f"(r dyn) relocation checks "
                              f"{res['relocations']} for {res['plans']} plans")
+    # D at this geometry on the engine's arena, with the allocator's plan
+    # of bench_relocate's rdyn geometry (the run itself may plan none)
+    g = GEOMETRIES["rdyn"]
+    bt, plan = dynamic_relocation_plan(g["L"], g["HKV"], g["D"], 2,
+                                       g["page"], g["segments"], g["blocks"])
+    cache = ce.kv_cache
+    if (bt != ce.block_tokens or cache.shape[3] < g["blocks"] * bt
+            or tuple(cache.shape[:3]) != (g["L"], 2, g["HKV"])):
+        raise AssertionError(f"(r dyn) arena {tuple(cache.shape)} at "
+                             f"{ce.block_tokens}-token blocks is not "
+                             "bench_relocate's rdyn")
+    src, dst = (torch.tensor([getattr(m, k) for m in plan.moves],
+                             dtype=torch.int32, device=dev)
+                for k in ("src", "dst"))
+    n = src.numel()
+    expect = cache.clone()
+    arena_copy.arena_relocate_plain(expect, src, dst, n, bt)
+    arena_copy.arena_relocate(cache, src, dst, n, bt)
+    torch.cuda.synchronize()
+    if not torch.equal(cache.view(torch.uint8), expect.view(torch.uint8)):
+        raise AssertionError("(r dyn) D differs from arena_relocate_plain on "
+                             "the allocator's plan")
+    del expect
+    batches = arena_copy.relocation_batches(src.tolist(), dst.tolist(), n,
+                                            arena_copy.BATCH_VECS)
+    row = relocation_row(
+        cache, src, dst, bt, Timer(dev), "[r dyn]",
+        f"the allocator's plan of {n} moves of {bt}-row blocks (at most "
+        f"{len(batches)} batches; equal byte for byte to the plain "
+        f"version's), arena {tuple(cache.shape)} {cache.dtype}")
+    del cache
+    log(f"(r dyn) {row['name']}: {row['shape']}: ms {row['ms']:.4f} plain "
+        f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
+        f"{row['bound_ms']:.5f} ({row['bound_by']}, "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}%); a copy_ of its bytes "
+        f"{row['copy_ms']:.4f}; on {smi}")
     engine.cleanup()
     del res, engine, ce
     phase.free(dev)
-    return got
+    return got, row
 
 
 def launcher_phases(dev, smi, out_dir):
@@ -4159,12 +4170,13 @@ def main() -> int:
         bench_phase(dev, kernels, smi, bench_dir)
         log(f"(r) three backends in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        counts_rdyn = arrivals_phase(
+        counts_rdyn, row = arrivals_phase(
             dev, kernels, smi, bench_dir,
             required=[ROPE_KV_APPEND, PREFILL_ATTENTION, DECODE_ATTENTION,
                       *llama_norms],
             idle=[KV_APPEND, PAGED_PREFILL_ATTENTION, POD_ATTENTION,
                   *single, *falcon_norms])
+        results.append(row)
         log(f"(r dyn) in {time.perf_counter() - t0:.1f} s")
         launcher_phases(dev, smi, bench_dir)
     finally:
@@ -4196,6 +4208,7 @@ def main() -> int:
         "decode_attention": (DECODE_ATTENTION, counts_c),
         # D launches on a serving path only under memory pressure
         "arena_relocate": (ARENA_RELOCATE, counts_rdyn),
+        "arena_relocate[r dyn]": (ARENA_RELOCATE, counts_rdyn),
         "paged_prefill_attention": (PAGED_PREFILL_ATTENTION, counts_d),
         "pod_attention": (POD_ATTENTION, counts_e),
         "segment_prefill_attention": (SEGMENT_PREFILL_ATTENTION, counts_f),
@@ -4284,10 +4297,11 @@ def main() -> int:
         "the kernels' build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # falcon's rows add the bound at the real head dim (bound_real_ms)
+    # falcon's rows add the bound at the real head dim (bound_real_ms), D's
+    # a copy_ of its bytes (copy_ms)
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
-         **{k: r[k] for k in ("bound_real_ms",) if k in r}}
+         **{k: r[k] for k in ("bound_real_ms", "copy_ms") if k in r}}
         for r in results]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -79,8 +79,17 @@ the plain adds, the norms and activations within
 one ulp of each value); the wrappers refuse other dtypes, shapes and
 layouts, and capture in a CUDA graph; add_rms_norm and silu_and_mul
 captured behind a matmul replay the eager chain's bits 100 times with
-the matmul's output poisoned before each replay.  Kernel A with a qkv
-bias equals its plain version bit for bit on every arena.
+the matmul's output poisoned before each replay (gelu_new too).  gelu_new
+also on every bfloat16 value from -16 to 16, at +-inf, NaN and past -10,
+and on tensors of any shape whose size is whole 16-byte vectors.  Kernel
+A with a qkv bias equals its plain version bit for bit on every arena.
+
+Kernel D (``ops/arena_copy.py``): random chained plans of 1 to 500 moves
+among 12 blocks (moves that read what earlier ones wrote, free what later
+ones write, write one block twice; a padded tail) on bf16, e4m3 and int8
+arenas at 1, 2 and 4 kv heads and 64-, 256- and 2048-row blocks, byte for
+byte against arena_relocate_plain, one launch a plan; and under every
+launch plan its source takes.
 """
 
 import numpy as np
@@ -888,6 +897,66 @@ def test_quantized_pod_attention_equals_b_then_c(dev, dtype, arena):
     _close("F decode", got_d, exp_d, dtype, arena)
 
 
+def _random_plan(rng, n_moves, blocks):
+    """A plan of ``n_moves`` moves among ``blocks`` blocks, drawn so that
+    moves read what earlier ones wrote, free what later ones write and
+    write one block twice (D must give the moves' sequential result
+    whatever the plan), with a padded tail of 3 entries."""
+    src = rng.integers(0, blocks, n_moves + 3).astype(np.int32)
+    dst = rng.integers(0, blocks, n_moves + 3).astype(np.int32)
+    return torch.from_numpy(src), torch.from_numpy(dst)
+
+
+@pytest.mark.parametrize("bt", [64, 256, 2048])
+@pytest.mark.parametrize("hkv", [1, 2, 4])
+@pytest.mark.parametrize("arena", [torch.bfloat16, *QUANT])
+def test_arena_relocate_chained_plans_bit_for_bit(dev, arena, hkv, bt):
+    """D against arena_relocate_plain, byte for byte, on bf16, e4m3 and int8
+    arenas at 1, 2 and 4 kv heads and 64-, 256- and 2048-row blocks, for
+    chained plans of 1, 7, 64 and 500 moves among 12 blocks; one launch a
+    plan."""
+    from vattention_tpu_torch.ops.arena_copy import ARENA_RELOCATE
+
+    rng = np.random.default_rng(bt + hkv)
+    blocks = 12
+    shape = (2, 2, hkv, blocks * bt, D)
+    cache = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    cache = (cache.to(arena) if arena == torch.bfloat16
+             else _quant(cache, arena)).to(dev)
+    for n_moves in (1, 7, 64, 500):
+        src, dst = _random_plan(rng, n_moves, blocks)
+        expect = cache.clone()
+        arena_relocate_plain(expect, src, dst, n_moves, bt)
+        before = ARENA_RELOCATE.launches
+        arena_relocate(cache, src.to(dev), dst.to(dev), n_moves, bt)
+        torch.cuda.synchronize()
+        assert ARENA_RELOCATE.launches == before + 1
+        assert torch.equal(cache.view(torch.uint8),
+                           expect.view(torch.uint8)), n_moves
+
+
+def test_arena_relocate_under_every_plan_its_source_takes(dev):
+    """D under every launch plan of ``bench_relocate.plans`` (1, 2 or 4
+    offsets a thread, 128 or 256 threads, batches of 1 to the most the
+    source holds) gives the sequential plan's bytes on a 500-move chained
+    plan at 64- and 2048-row blocks."""
+    from vattention_tpu_torch.microbenchmarks.bench_relocate import (
+        plans, with_plan)
+
+    rng = np.random.default_rng(21)
+    for bt in (64, 2048):
+        shape = (2, 2, 2, 12 * bt, D)
+        cache = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        src, dst = _random_plan(rng, 500, 12)
+        for plan in plans(8, bt * D * 2 // 16):
+            expect = cache.clone()
+            arena_relocate_plain(expect, src, dst, 500, bt)
+            with_plan(cache, src.to(dev), dst.to(dev), 500, bt, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(cache, expect), plan
+
+
 @pytest.mark.parametrize("arena", QUANT)
 def test_arena_relocate_moves_one_byte_rows(dev, arena):
     rng = np.random.default_rng(13)
@@ -1678,6 +1747,48 @@ def test_activations_match_plain(dev, dtype, width, rows):
                       gelu_new_plain(x[:, :width].contiguous()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gelu_new_on_every_bfloat16_value(dev, dtype):
+    """gelu_new on every bfloat16 value from -16 to 16 (each a float32 in
+    the f32 case), against its plain version within check_elementwise,
+    and at +-inf, NaN and the values past -10 where both give 0: the
+    fast exponential and division against PyTorch's tanh form over the
+    whole range a falcon MLP meets."""
+    from vattention_tpu_torch.microbenchmarks.timing import check_elementwise
+    from vattention_tpu_torch.ops.norm_act import gelu_new, gelu_new_plain
+
+    bits = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32)
+    every = bits.to(torch.int16).view(torch.bfloat16).float()
+    x = every[every.isfinite() & (every.abs() <= 16)]
+    x = x[:x.numel() // 64 * 64].reshape(8, -1).to(dev, dtype)
+    check_elementwise(f"gelu_new {dtype}", gelu_new(x), gelu_new_plain(x))
+    odd = torch.tensor([float("inf"), float("-inf"), float("nan"), -10.5,
+                        -40.0, -1e30, 1e30, 0.0], device=dev).to(dtype)
+    got, ref = gelu_new(odd), gelu_new_plain(odd)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(got[~got.isnan()], ref[~ref.isnan()])
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 1024), (4, 6), (2, 8, 3),
+                                   (18176,), (2, 1, 18176)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gelu_new_takes_any_shape_of_whole_vectors(dev, dtype, shape):
+    """x of any shape whose size is whole 16-byte vectors (rows of a last
+    dimension that is not: the wrapper's flat view), one launch each."""
+    from vattention_tpu_torch.microbenchmarks.timing import check_elementwise
+    from vattention_tpu_torch.ops.norm_act import (GELU_NEW, gelu_new,
+                                                   gelu_new_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(len(shape))
+    x = _randn(gen, *shape, dtype=dtype, dev=dev, scale=3)
+    before = GELU_NEW.launches
+    got = gelu_new(x)
+    torch.cuda.synchronize()
+    assert GELU_NEW.launches == before + 1 and got.shape == x.shape
+    check_elementwise("gelu_new", got, gelu_new_plain(x))
+
+
 def test_norm_act_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from vattention_tpu_torch.ops.norm_act import (add_layer_norm,
                                                    add_rms_norm, gelu_new,
@@ -1734,18 +1845,20 @@ def test_norm_act_kernels_capture_in_a_cuda_graph(dev):
     assert torch.equal(act, silu_and_mul(new[2]))
 
 
-@pytest.mark.parametrize("kernel", ["add_rms_norm", "silu_and_mul"])
+@pytest.mark.parametrize("kernel", ["add_rms_norm", "silu_and_mul",
+                                    "gelu_new"])
 def test_norm_act_after_a_matmul_replays_the_eager_bits(dev, kernel):
     """A matmul then the kernel, captured: 100 replays, each after the
     matmul's output was poisoned with NaN, give the eager chain's bits:
     the kernel reads its input only once the matmul has completed."""
-    from vattention_tpu_torch.ops.norm_act import add_rms_norm, silu_and_mul
+    from vattention_tpu_torch.ops.norm_act import (add_rms_norm, gelu_new,
+                                                   silu_and_mul)
 
     gen = torch.Generator(device=dev).manual_seed(5)
     bf16 = dict(dtype=torch.bfloat16, dev=dev)
     h = _randn(gen, 8, 4096, **bf16)
-    W = _randn(gen, 4096, 4096 if kernel == "add_rms_norm" else 2 * 11008,
-               scale=0.02, **bf16)
+    W = _randn(gen, 4096, {"add_rms_norm": 4096, "silu_and_mul": 2 * 11008,
+                           "gelu_new": 18176}[kernel], scale=0.02, **bf16)
     r = _randn(gen, 8, 4096, **bf16)
     w = _randn(gen, 4096, scale=0.2, shift=1, **bf16)
 
@@ -1753,7 +1866,7 @@ def test_norm_act_after_a_matmul_replays_the_eager_bits(dev, kernel):
         y = h @ W
         if kernel == "add_rms_norm":
             return (y, *add_rms_norm(y, r, w, 1e-5))
-        return y, silu_and_mul(y)
+        return y, (silu_and_mul if kernel == "silu_and_mul" else gelu_new)(y)
 
     eager = chain()
     torch.cuda.synchronize()

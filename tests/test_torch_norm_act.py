@@ -230,10 +230,11 @@ def source_constant(name: str) -> int:
 
 def test_plan_limits_are_the_sources():
     assert (norm_act.MAX_VECS, norm_act.NORM_THREADS, norm_act.MAX_ACT_VECS,
-            norm_act.ACT_THREADS, norm_act.MAX_ACT_TILES) == tuple(
+            norm_act.ACT_THREADS, norm_act.MAX_ACT_TILES,
+            norm_act.MAX_GELU_VECS) == tuple(
         source_constant(n) for n in ("kMaxVecs", "kNormThreads",
                                      "kMaxActVecs", "kActThreads",
-                                     "kMaxActTiles"))
+                                     "kMaxActTiles", "kMaxGeluVecs"))
 
 
 def test_plan_widths_are_the_registrys():
@@ -299,6 +300,55 @@ def test_silu_plan_covers_each_row_once(inter, dtype):
                                   np.arange(per_row))
 
 
+# gelu_new's widths: falcon-7b's MLP (the registry's only gelu width),
+# the tiny falcons' of the tests, and the CPU tests' of gelu_new
+GELU_WIDTHS = (256, 1024, 4544, 18176)
+
+
+@pytest.mark.parametrize("dtype", list(ELEMENT_SIZES))
+@pytest.mark.parametrize("width", GELU_WIDTHS)
+def test_gelu_plan_covers_each_vector_once(width, dtype):
+    """At every T of PLAN_ROWS: block b's thread t takes the flat
+    tensor's vectors b * threads * vpt + i * threads + t (i < vpt), as
+    gelu_new_kernel does; every vector is taken once, no block is left
+    without work, and the plan keeps the source's limits."""
+    es = ELEMENT_SIZES[dtype]
+    for T in PLAN_ROWS:
+        n_vec = T * width * es // 16
+        p = norm_act.gelu_plan(T * width, es)
+        assert p.vpt in (1, 2, norm_act.MAX_GELU_VECS)
+        assert p.threads % 32 == 0
+        assert 0 < p.threads <= norm_act.ACT_THREADS
+        tile = p.threads * p.vpt
+        assert tile * p.blocks >= n_vec > tile * (p.blocks - 1)
+        assert n_vec <= norm_act.GELU_MAX_VECTORS
+        vecs = (np.arange(p.blocks)[:, None, None] * tile
+                + np.arange(p.vpt)[:, None] * p.threads
+                + np.arange(p.threads)).ravel()
+        assert np.array_equal(np.sort(vecs[vecs < n_vec]), np.arange(n_vec))
+
+
+@pytest.mark.parametrize("shape,dtype,whole", [
+    ((2048, 18176), "bfloat16", True),    # falcon's chunk
+    ((1, 18176), "float32", True),
+    ((3, 5, 1024), "bfloat16", True),     # rows of any rank
+    ((4, 6), "float32", True),            # rows of 1.5 vectors
+    ((5, 3, 16), "bfloat16", True),
+    ((7, 3), "float32", False),           # 84 bytes
+])
+def test_gelu_plan_takes_any_shape_of_whole_vectors(shape, dtype, whole):
+    """The plan needs only the size: x of any shape whose values fill whole
+    16-byte vectors is taken (one block at least), any other refused."""
+    es = ELEMENT_SIZES[dtype]
+    numel = int(np.prod(shape))
+    if not whole:
+        with pytest.raises(ValueError):
+            norm_act.gelu_plan(numel, es)
+        return
+    p = norm_act.gelu_plan(numel, es)
+    assert p.blocks * p.threads * p.vpt >= numel * es // 16 > 0
+
+
 @pytest.mark.parametrize("plan", ["norm", "silu"])
 def test_plans_refuse_what_the_kernels_do_not_take(plan):
     """Widths that are not whole 16-byte vectors, negative rows, a norm row
@@ -314,6 +364,17 @@ def test_plans_refuse_what_the_kernels_do_not_take(plan):
                 * (norm_act.MAX_ACT_TILES + 1))
     with pytest.raises(ValueError):
         fn(8, too_wide, 2, 132)
+
+
+def test_gelu_plan_refuses_what_the_kernel_does_not_take():
+    """Sizes that are not whole 16-byte vectors, none, negative ones and
+    more vectors than the kernel's 32-bit indices reach raise."""
+    for numel, es in ((4100, 2), (4098, 4), (7, 2), (0, 2), (-8, 2)):
+        with pytest.raises(ValueError):
+            norm_act.gelu_plan(numel, es)
+    with pytest.raises(ValueError):
+        norm_act.gelu_plan((norm_act.GELU_MAX_VECTORS + 1) * 8, 2)
+    norm_act.gelu_plan(norm_act.GELU_MAX_VECTORS * 8, 2)
 
 
 # ---------------------------------------------------------------------- #
@@ -455,7 +516,8 @@ def test_bench_norm_act_on_the_cpu(capsys):
     """The call-by-call harness of the four kernels with ``--device cpu``:
     each case held against its plain version, then one line of min /
     median / max times (the kernel, its plain version, a copy of its
-    bytes, a copy of 16 bytes) for each model, dtype, T and kernel."""
+    bytes, a copy of 16 bytes, the library call) for each model, dtype, T
+    and kernel."""
     from vattention_tpu_torch.microbenchmarks import bench_norm_act
 
     assert bench_norm_act.main(["--device", "cpu", "--model", "yi-6b-200k",
@@ -467,16 +529,17 @@ def test_bench_norm_act_on_the_cpu(capsys):
     assert len(rows) == 2 * 2 * 2 * 2
     assert {r[0] for r in rows} == {"add_rms_norm", "silu_and_mul",
                                     "add_layer_norm", "gelu_new"}
-    assert all(len(r) == 9 and all(len(r[i].split(" / ")) == 3
-                                   for i in (4, 5, 7, 8)) for r in rows)
+    assert all(len(r) == 10 and all(len(r[i].split(" / ")) == 3
+                                    for i in (4, 5, 7, 8, 9)) for r in rows)
     with pytest.raises(ValueError):
         bench_norm_act.main(["--device", "cpu", "--plans"])
     # the plans it would time are the ones the source takes, the wrapper's
     # among them
-    for name, width, es, plan_of in (
-            ("add_rms_norm", 5120, 2, norm_act.norm_plan),
-            ("silu_and_mul", 11008, 4, norm_act.silu_plan)):
+    for name, width, es in (("add_rms_norm", 5120, 2),
+                            ("silu_and_mul", 11008, 4),
+                            ("gelu_new", 18176, 2)):
         for T in (1, 2048):
             got = list(bench_norm_act.plans(name, T, width, es))
-            assert tuple(plan_of(T, width, es, 132))[:3] in got
+            plan = bench_norm_act.PLAN_OF[name](T, width, es, 132)
+            assert tuple(plan)[:3] in got
             assert len(set(got)) == len(got) > 1

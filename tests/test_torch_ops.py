@@ -21,6 +21,7 @@ from vattention_tpu.ops.cache_append import (WINDOW, cache_append_run,
 from vattention_tpu.ops.flash_decode import flash_decode
 from vattention_tpu.ops.flash_prefill import flash_prefill_multi
 from vattention_tpu_torch.ops import utils as tutils
+from vattention_tpu_torch.ops import arena_copy
 from vattention_tpu_torch.ops.arena_copy import arena_relocate
 from vattention_tpu_torch.ops.cache_append import kv_append
 from vattention_tpu_torch.ops.flash_decode import decode_attention
@@ -159,6 +160,150 @@ def test_arena_relocate_matches_apply_relocations():
     got = t(cache)
     arena_relocate(got, t(src), t(dst), 4, bt)
     np.testing.assert_array_equal(got.numpy(), np.asarray(expect))
+
+
+# kernel D's batches (ops/arena_copy.relocation_batches): plans from the
+# allocator at one and four kv heads (chip_smoke (a)'s strict plans at
+# Yi's and falcon's arenas, (r dyn)'s geometry's dynamic plan), and hand-
+# made ones: (src, dst, n_moves) with entries past n_moves as padding
+HAND_PLANS = {
+    "chained": ([3, 1, 7, 0, 5], [5, 3, 1, 7, 2], 4),
+    "each reads the last's dst": ([0, 1, 2, 3, 4], [1, 2, 3, 4, 5], 5),
+    "each frees the next's dst": ([3, 2, 1, 0], [4, 3, 2, 1], 4),
+    "a block written twice": ([1, 2, 5, 4, 4], [4, 4, 6, 0, 7], 4),
+    "a swap through a free block": ([0, 1, 9, 6], [9, 0, 1, 2], 3),
+    "padded tail": ([2, 6, 0, 0, 0, 0], [6, 8, 0, 0, 0, 0], 2),
+}
+ALLOCATOR_PLANS = ("yi", "falcon", "rdyn")
+MAX_BATCHES = (1, 4, 8, 16)
+_plans = {}
+
+
+def relocation_case(name):
+    """(arena float32 numpy, src, dst, n_moves, block tokens, JAX
+    apply_relocations' arena), computed once per plan."""
+    from vattention_tpu_torch.microbenchmarks.bench_relocate import (
+        GEOMETRIES, geometry)
+
+    if name not in _plans:
+        if name in HAND_PLANS:
+            src, dst, n = HAND_PLANS[name]
+            shape, bt = (L, 2, HKV, 10 * 32, 16), 32
+        else:
+            (l, two, _, rows, _), bt, src, dst = geometry(name, tiny=True)
+            n = len(src)
+            shape = (l, two, GEOMETRIES[name]["HKV"], rows, 16)
+        cache = np.random.default_rng(7).standard_normal(shape).astype(
+            np.float32)
+        src_a, dst_a = np.array(src, np.int32), np.array(dst, np.int32)
+        expect = np.asarray(apply_relocations(
+            jnp.asarray(cache), jnp.asarray(src_a), jnp.asarray(dst_a),
+            jnp.asarray([n], jnp.int32), block_tokens=bt))
+        _plans[name] = (cache, src_a, dst_a, n, bt, expect)
+    return _plans[name]
+
+
+@pytest.mark.parametrize("max_batch", MAX_BATCHES)
+@pytest.mark.parametrize("plan", [*ALLOCATOR_PLANS, *HAND_PLANS])
+def test_relocation_batches_equal_apply_relocations(plan, max_batch):
+    """Kernel D's cut of a plan, applied batch by batch in plain PyTorch
+    (every load of a batch, then its stores in plan order), gives the JAX
+    apply_relocations' arena bit for bit, as does arena_relocate on CPU
+    tensors (the moves one by one)."""
+    cache, src, dst, n, bt, expect = relocation_case(plan)
+    got = t(cache)
+    for start, end in arena_copy.relocation_batches(src.tolist(),
+                                                    dst.tolist(), n,
+                                                    max_batch):
+        loads = [got[:, :, :, s * bt:(s + 1) * bt].clone()
+                 for s in src[start:end]]
+        for d, v in zip(dst[start:end], loads):
+            got[:, :, :, d * bt:(d + 1) * bt] = v
+    np.testing.assert_array_equal(got.numpy(), expect)
+    one_by_one = t(cache)
+    arena_relocate(one_by_one, t(src), t(dst), n, bt)
+    np.testing.assert_array_equal(one_by_one.numpy(), expect)
+
+
+@pytest.mark.parametrize("max_batch", MAX_BATCHES)
+@pytest.mark.parametrize("plan", [*ALLOCATOR_PLANS, *HAND_PLANS])
+def test_relocation_batches_cut_only_before_a_read_of_a_write(plan,
+                                                              max_batch):
+    """The batches tile the first n_moves moves in order; within one, no
+    move reads a block an earlier move of it writes, and each ends full,
+    at the plan's end, or before a move that would."""
+    _, src, dst, n, _, _ = relocation_case(plan)
+    batches = arena_copy.relocation_batches(src.tolist(), dst.tolist(), n,
+                                            max_batch)
+    assert [m for b in batches for m in range(*b)] == list(range(n))
+    for start, end in batches:
+        assert 0 < end - start <= max_batch
+        for m in range(start + 1, end):
+            assert src[m] not in dst[start:m]
+        assert (end - start == max_batch or end == n
+                or src[end] in dst[start:end])
+    if plan == "each reads the last's dst":
+        assert batches == [(m, m + 1) for m in range(n)]
+
+
+# the arenas D relocates: Yi's (32 layers x 2 x 4 kv heads, 2048-row
+# blocks), one kv head (falcon's, Yi's on a tp4 rank: 8192-row blocks),
+# Yi's on a tp2 rank, and (r dyn)'s (16 layers x 2 x 4, 64-row blocks),
+# as (slices, 16-byte vectors a block) of 128 bf16 lanes
+RELOC_GEOMETRIES = {"yi": (256, 2048 * 16), "falcon": (64, 8192 * 16),
+                    "tp2": (128, 4096 * 16), "tp4": (64, 8192 * 16),
+                    "rdyn": (128, 64 * 16)}
+
+
+def test_relocate_plan_limits_are_the_sources():
+    import re
+    from pathlib import Path
+
+    text = (Path(arena_copy.__file__).resolve().parents[1] / "csrc"
+            / "arena_relocate.cu").read_text()
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             text).group(1))
+    assert (arena_copy.RELOC_THREADS, arena_copy.MAX_RELOC_VECS,
+            arena_copy.BATCH_VECS, arena_copy.MAX_SLICES) == tuple(
+        constant(n) for n in ("kRelocThreads", "kMaxRelocVecs", "kBatchVecs",
+                              "kMaxSlices"))
+
+
+@pytest.mark.parametrize("geo", list(RELOC_GEOMETRIES))
+def test_relocate_plan_covers_every_vector_of_every_slice_once(geo):
+    """On cards of 1 and 132 SMs, D's grid (chunks x slices) gives thread t
+    of block (x, y) the offsets x * threads * vpt + i * threads + t (i <
+    vpt) of slice y's blocks, as arena_relocate_kernel does: every vector
+    of every slice is taken once, no chunk is left without work, and the
+    plan keeps the source's limits (the 132-SM card several blocks an
+    SM)."""
+    slices, block_vecs = RELOC_GEOMETRIES[geo]
+    for sms in (1, 132):
+        p = arena_copy.relocate_plan(slices, block_vecs, sms)
+        assert p.vpt in (1, 2, arena_copy.MAX_RELOC_VECS)
+        assert p.threads % 32 == 0 and 0 < p.threads <= arena_copy.RELOC_THREADS
+        assert 0 < p.batch and p.vpt * p.batch <= arena_copy.BATCH_VECS
+        assert 0 < slices <= arena_copy.MAX_SLICES
+        tile = p.threads * p.vpt
+        assert tile * p.chunks >= block_vecs > tile * (p.chunks - 1)
+        offsets = (np.arange(p.chunks)[:, None, None] * tile
+                   + np.arange(p.vpt)[:, None] * p.threads
+                   + np.arange(p.threads)).ravel()
+        offsets = offsets[offsets < block_vecs]
+        vectors = (np.arange(slices)[:, None] * block_vecs + offsets).ravel()
+        assert np.array_equal(np.sort(vectors),
+                              np.arange(slices * block_vecs))
+        if sms == 132:
+            assert slices * p.chunks >= 2 * sms
+
+
+def test_relocate_plan_refuses_what_the_kernel_does_not_take():
+    for slices, block_vecs in ((0, 1024), (arena_copy.MAX_SLICES + 1, 1024),
+                               (64, 0)):
+        with pytest.raises(ValueError):
+            arena_copy.relocate_plan(slices, block_vecs, 132)
 
 
 @pytest.mark.parametrize("sub,n_sub", [(64, 20), (128, 8), (256, 4)])

@@ -8,7 +8,7 @@
 //   add_rms_norm   (x, r) -> (x + r, rms_norm(x + r, w))       llama family
 //   add_layer_norm (x, o, mlp) -> (x + (o + mlp), layer_norm(...))  falcon
 //   silu_and_mul   [T, 2I] -> bf16(silu(f32(gate))) * up
-//   gelu_new       tanh GELU in float32, one rounding
+//   gelu_new       tanh GELU in float32 (as x sigmoid(2u)), one rounding
 //
 // Rounding follows the JAX step, one rounding to the model's type per
 // JAX op boundary: the residual x + r (and falcon's o + mlp, then x + it)
@@ -27,10 +27,9 @@
 // moves 4 x 16.8 MB, 20 us at 3.35 TB/s; a decode row is a few KB, so
 // there a launch and one DRAM round trip are the floor.
 //
-// add_rms_norm and silu_and_mul, the two that every llama layer launches
-// (2L + 1 and L a step), take their launch plan from the Python wrapper
-// (ops/norm_act.py norm_plan, silu_plan), which checks it against the
-// limits below; the entry points check it again.
+// add_rms_norm, silu_and_mul and gelu_new take their launch plan from the
+// Python wrapper (ops/norm_act.py norm_plan, silu_plan, gelu_plan), which
+// checks it against the limits below; the entry points check it again.
 // - add_rms_norm: a row group of row_threads threads (whole warps) per
 //   row, rows_per_block rows a block.  Each thread loads all its VPT
 //   16-byte vectors of x, r and w at once, so a row has one DRAM round
@@ -45,6 +44,9 @@
 //   threads x VPT vectors of the row from blockIdx.y, column indices in
 //   32 bits (no 64-bit division); each thread loads its VPT gate/up pairs
 //   before it computes any of them.
+// - gelu_new: one vector a thread over the flat tensor, blocks in memory
+//   order, and x / (1 + exp(-2u)) with __expf and __fdividef (the error
+//   argument is at the kernel).
 // Both launch plainly: launched with programmatic dependent launch (so
 // each may start while the projection before it finishes, reading its
 // inputs after griddepcontrol.wait), the captured decode step measured
@@ -52,8 +54,7 @@
 //
 // add_layer_norm is one block per row (block_sum's __syncthreads), each
 // thread VPT vectors; falcon's 4544 bf16 values are 568 vectors, 142
-// threads of 4 in a block of 160.  gelu_new is one grid-stride pass of
-// 16-byte vectors.
+// threads of 4 in a block of 160.
 #include "common.cuh"
 
 using namespace vattn;
@@ -63,15 +64,12 @@ namespace {
 constexpr int kRowThreads = 256;   // add_layer_norm's block (one row) at most
 constexpr int kMaxVecs = 8;        // 16-byte vectors a thread at most
 constexpr int kNormThreads = 256;  // an add_rms_norm block's threads at most
-constexpr int kActThreads = 256;   // a silu_and_mul block's threads at most
+constexpr int kActThreads = 256;   // a silu_and_mul or gelu_new block's threads at most
 constexpr int kMaxActVecs = 2;     // silu_and_mul's gate/up pairs a thread at most
 constexpr int kMaxActTiles = 65535;  // silu_and_mul's column tiles (gridDim.y)
-constexpr int kPassThreads = 128;  // gelu_new's blocks
-constexpr int kPassBlocks = 132 * 16;
-// sqrt(2 / pi) and the cubic's coefficient, as PyTorch's tanh GELU
-// rounds them to float
-constexpr float kGeluBeta = 0.7978845608028654f;
-constexpr float kGeluKappa = 0.044715f;
+constexpr int kMaxGeluVecs = 4;    // gelu_new's vectors a thread at most
+// gelu_new's vectors at most: its 32-bit indices run a block past them
+constexpr long long kMaxGeluVectors = 0x7fffffffLL - kActThreads * kMaxGeluVecs;
 
 // one 16-byte vector of T (E values, kept packed) as E floats and back;
 // round(x): x rounded to T
@@ -404,30 +402,84 @@ int launch_silu(uint4* out, const uint4* x, int rows, int per_row, int vpt, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// out = 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))), in float32 in
-// PyTorch's order of operations
-template <typename T>
-__global__ void __launch_bounds__(kPassThreads)
-gelu_new_kernel(uint4* out, const uint4* x, long long n_vec) {
+// ---- gelu_new: one vector a thread over the flat tensor ---------------- //
+// gelu_new(x) = 0.5 x (1 + tanh(u)), u = sqrt(2/pi) (x + 0.044715 x^3),
+// computed as x sigmoid(2u) = x / (1 + exp(t)), t = -2u, in float32:
+//   t = x (c1 + c2 x^2)     (c1 = -2 sqrt(2/pi), c2 = c1 * 0.044715; FMA)
+//   out = __fdividef(x, 1 + __expf(t))
+// Two MUFU operations and about seven others a value, where tanhf costs
+// some twenty and the form PyTorch rounds (__fmul_rn, no FMA) seven more.
+// (The kernel was not issue bound with those: what its time lost was the
+// block order, below.)
+// Error, against the exact function, in units of a float32 ulp of the
+// output (2^-23 relative at most): t is off by a few ulps of itself;
+// __expf by at most 2 + 1.173|t| ulps (CUDA's table) plus that of t; the
+// sigmoid 1 / (1 + e) passes a relative error of e on damped by e / (1 +
+// e); the sum rounds once and __fdividef errs by 2 ulps.  For x >= 0 (t
+// <= 0, e <= 1), where the outputs are largest, e (2 + 3.2|t|) / (1 + e)
+// stays below 2.2, so the output is within about 5 ulps of the function
+// (3 in a float32 emulation with __expf's worst error, every 1.2e-5 from
+// -12 to 12), and PyTorch's rounding adds about 1 (no cancellation there:
+// 1 + tanh is in [1, 2]): under 1e-6 of itself.  For x < 0 the relative
+// error grows with t, but the output |x| / (1 + e^t) shrinks faster: the
+// absolute error stays below 1e-7 (largest near x = -1.2).  PyTorch's
+// form itself cancels there: 1 + tanh(u) -> 0 keeps tanh's last bits
+// only, and it rounds to 0 from x = -5.06, where the function is -1.5e-7,
+// the largest gap between the two forms (tanh.approx in that form would
+// cancel the same way at 2^-11 relative, so it is out).  This form does
+// not cancel: 1 + e >= 1.  Past x = -10 (t > 87) e is infinite or above
+// 2^126 and the output is 0, as PyTorch's.  So each output is within
+// check_elementwise's 1e-6 of itself or of the largest output wherever
+// that is 0.2 or more (any row of falcon's MLP), and in bfloat16 within
+// one bf16 ulp (a float32 difference of a few ulps moves at most one
+// rounding).  NaN and +-inf give what PyTorch gives.
+constexpr float kGeluC1 = -1.5957691216057308f;        // -2 sqrt(2 / pi)
+constexpr float kGeluC2 = -1.5957691216057308f * 0.044715f;
+
+__device__ __forceinline__ float gelu_new_value(float x) {
+  const float t = x * fmaf(kGeluC2, x * x, kGeluC1);
+  return __fdividef(x, 1.f + __expf(t));
+}
+
+// One grid dimension over the flat tensor in memory order (an elementwise
+// function has no rows): block b's thread t takes vectors b * blockDim.x
+// * VPT + i * blockDim.x + t, i < VPT, loading all of them before it
+// computes any; 32-bit indices (the plan keeps them below 2^31).  A
+// (row, column tile) grid as silu_and_mul's pads each row's last tile
+// and put neighbouring blocks a row apart: it measured slower call by
+// call and inside falcon's captured steps.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kActThreads)
+gelu_new_kernel(uint4* out, const uint4* x, int n_vec) {
   constexpr int E = V16<T>::E;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n_vec;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float f[E];
-    V16<T>::unpack(x[i], f);
+  const int c0 = blockIdx.x * blockDim.x * VPT + threadIdx.x;
+  uint4 v[VPT];
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const float v = f[e];
-      const float cube = __fmul_rn(__fmul_rn(v, v), v);
-      const float inner = __fmul_rn(kGeluBeta, __fadd_rn(v, __fmul_rn(kGeluKappa, cube)));
-      f[e] = __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.f, tanhf(inner)));
-    }
-    out[i] = V16<T>::pack(f);
+  for (int i = 0; i < VPT; ++i) {
+    const int c = c0 + i * blockDim.x;
+    if (c < n_vec) v[i] = x[c];
+  }
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = c0 + i * blockDim.x;
+    if (c >= n_vec) continue;
+    float f[E];
+    V16<T>::unpack(v[i], f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) f[e] = gelu_new_value(f[e]);
+    out[c] = V16<T>::pack(f);
   }
 }
 
-int pass_blocks(long long n_vec) {
-  const long long b = (n_vec + kPassThreads - 1) / kPassThreads;
-  return static_cast<int>(b < kPassBlocks ? b : kPassBlocks);
+template <typename T>
+int launch_gelu(uint4* out, const uint4* x, int n_vec, int vpt, int threads, int blocks,
+                cudaStream_t s) {
+  switch (vpt) {
+    case 1: gelu_new_kernel<T, 1><<<blocks, threads, 0, s>>>(out, x, n_vec); break;
+    case 2: gelu_new_kernel<T, 2><<<blocks, threads, 0, s>>>(out, x, n_vec); break;
+    default: gelu_new_kernel<T, kMaxGeluVecs><<<blocks, threads, 0, s>>>(out, x, n_vec); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -494,20 +546,26 @@ extern "C" int vattn_silu_and_mul(void* out, const void* x, int rows, int inter,
   return launch_silu<__nv_bfloat16>(o, i, rows, per_row, vpt, threads, tiles, s);
 }
 
-// x, out: n values (a multiple of one 16-byte vector).
-extern "C" int vattn_gelu_new(void* out, const void* x, long long n, int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// x, out: n values (a multiple of one 16-byte vector).  The plan
+// (ops/norm_act.py gelu_plan): blocks of `threads` (whole warps, at most
+// kActThreads), vpt vectors a thread (1, 2 or kMaxGeluVecs; the plan takes
+// 1, the others are there to be timed), `blocks` blocks, together at
+// least the vectors and no block without one; at most kMaxGeluVectors.
+extern "C" int vattn_gelu_new(void* out, const void* x, long long n, int dtype, int vpt,
+                              int threads, int blocks, void* stream) {
   const int E = dtype == kFloat32 ? 4 : 8;
-  if (n < 0 || n % E || (dtype != kFloat32 && dtype != kBFloat16))
+  if ((dtype != kFloat32 && dtype != kBFloat16) || n <= 0 || n % E ||
+      (vpt != 1 && vpt != 2 && vpt != kMaxGeluVecs) || threads <= 0 || threads % 32 ||
+      threads > kActThreads || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n_vec = n / E;
-  if (n_vec == 0) return 0;
+  const long long tile = static_cast<long long>(threads) * vpt;
+  if (n_vec > kMaxGeluVectors || tile * blocks < n_vec || tile * (blocks - 1) >= n_vec)
+    return static_cast<int>(cudaErrorInvalidValue);
   uint4* o = static_cast<uint4*>(out);
   const uint4* i = static_cast<const uint4*>(x);
-  if (dtype == kFloat32)
-    gelu_new_kernel<float><<<pass_blocks(n_vec), kPassThreads, 0, s>>>(o, i, n_vec);
-  else
-    gelu_new_kernel<__nv_bfloat16><<<pass_blocks(n_vec), kPassThreads, 0, s>>>(o, i, n_vec);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nv = static_cast<int>(n_vec);
+  if (dtype == kFloat32) return launch_gelu<float>(o, i, nv, vpt, threads, blocks, s);
+  return launch_gelu<__nv_bfloat16>(o, i, nv, vpt, threads, blocks, s);
 }
-

@@ -9,24 +9,29 @@ gelu_new over [T, I]), each ``--rows`` T and each ``--dtype``: the
 kernel's output is first held against its plain version
 (``timing.check_elementwise``; the residual bit for bit), then
 ``--calls`` single calls are timed with ``timing.Timer`` (each after an L2
-flush), in turns with single calls of the plain version and of two
+flush), in turns with single calls of the plain version and of three
 yardsticks: a ``copy_`` that moves the kernel's bytes (half read, half
 written: what a memory-bound kernel of these bytes costs under this
-timer) and a ``copy_`` of 16 bytes (the timer's floor: one launch and
-one dependent DRAM round trip).  One line per case: the min, median and
-max ms of those calls for the kernel, the plain version and the two
-copies, and the kernel's bytes bound at 3.35 TB/s (each input read once,
-each output written once), so one slow call shows as a max far above the
-median.  Inputs: seeded normal rows (x of mean 0.5, the
+timer), a ``copy_`` of 16 bytes (the timer's floor: one launch and one
+dependent DRAM round trip) and the library call that computes the same
+function (``F.rms_norm`` after the add, ``F.silu(g) * u``,
+``F.layer_norm`` after the adds, ``F.gelu(approximate="tanh")``), as
+chip_smoke (a norm) times it.  One line per case: the min, median and
+max ms of those calls for the kernel, the plain version and the
+yardsticks, and the kernel's bytes bound at 3.35 TB/s (each input read
+once, each output written once), so one slow call shows as a max far
+above the median.  Inputs: seeded normal rows (x of mean 0.5, the
 addends 0.7, gates to +-12), as chip_smoke (a norm) draws them.
 
-With ``--plans`` (on the card) add_rms_norm and silu_and_mul are also
-timed under every launch plan their source takes (add_rms_norm: 1, 2, 4
-or 8 vectors a thread, the fewest warps that fit the row, 1-8 rows a
-block; silu_and_mul: 1 or 2 gate/up pairs a thread in blocks of 64, 128
-or 256 threads), one line ``plan,kernel,model,dtype,T,vpt x threads x
-rows a block (tiles),ms min / median / max,chosen`` each, ``chosen`` 1
-for the plan the wrapper takes (``norm_act.norm_plan``, ``silu_plan``).
+With ``--plans`` (on the card) add_rms_norm, silu_and_mul and gelu_new
+are also timed under every launch plan their source takes (add_rms_norm:
+1, 2, 4 or 8 vectors a thread, the fewest warps that fit the row, 1-8
+rows a block; silu_and_mul: 1 or 2 gate/up pairs a thread in blocks of
+64, 128 or 256 threads; gelu_new: 1, 2 or 4 vectors a thread in blocks of
+64, 128 or 256 over the flat tensor), one line ``plan,kernel,model,
+dtype,T,vpt x threads x rows a block (tiles; gelu_new: blocks),ms min /
+median / max,chosen`` each, ``chosen`` 1 for the plan the wrapper takes
+(``norm_act.norm_plan``, ``silu_plan``, ``gelu_plan``).
 
 With ``--device cpu`` the plain versions run at a tiny width (H 256, I
 688, at most 8 rows and 3 calls) and times are host wall clock; without
@@ -59,6 +64,12 @@ PLAN_ROWS = (1, 2, 3, 8, 16, 127, 520, 2048)
 LN_EPS = 1e-5   # falcon's LayerNorm epsilon
 CPU_WIDTHS = (256, 688)
 CPU_MAX = dict(rows=8, calls=3)
+# the wrapper's plan of each kernel that --plans sweeps, at (T, width,
+# element size, SMs)
+PLAN_OF = {"add_rms_norm": norm_act.norm_plan,
+           "silu_and_mul": norm_act.silu_plan,
+           "gelu_new": lambda T, width, es, sms: norm_act.gelu_plan(
+               T * width, es)}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -69,8 +80,9 @@ def parser() -> argparse.ArgumentParser:
                    default=["bf16", "f32"])
     p.add_argument("--calls", type=int, default=40)
     p.add_argument("--plans", action="store_true",
-                   help="also time add_rms_norm and silu_and_mul under "
-                        "every launch plan their source takes")
+                   help="also time add_rms_norm, silu_and_mul and "
+                        "gelu_new under every launch plan their source "
+                        "takes")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
@@ -82,7 +94,7 @@ def _cdiv(a: int, b: int) -> int:
 def plans(name: str, T: int, width: int, element_size: int):
     """Every launch plan the source takes for ``name`` over [T, width]:
     add_rms_norm's (vpt, row_threads, rows_per_block), silu_and_mul's
-    (vpt, threads, tiles)."""
+    (vpt, threads, tiles), gelu_new's (vpt, threads, blocks)."""
     nvec = width * element_size // 16
     if name == "add_rms_norm":
         for vpt in (1, 2, 4, norm_act.MAX_VECS):
@@ -90,13 +102,17 @@ def plans(name: str, T: int, width: int, element_size: int):
             for rpb in (1, 2, 4, 8):
                 if rt * rpb <= norm_act.NORM_THREADS and rpb <= T:
                     yield vpt, rt, rpb
+    elif name == "gelu_new":
+        for vpt in (1, 2, norm_act.MAX_GELU_VECS):
+            for threads in (64, 128, 256):
+                yield vpt, threads, _cdiv(T * nvec, threads * vpt)
     else:
         for vpt in (1, norm_act.MAX_ACT_VECS):
             for threads in (64, 128, 256):
                 yield vpt, threads, _cdiv(nvec, threads * vpt)
 
 
-def with_plan(name: str, plan, x, r, w, eps, g):
+def with_plan(name: str, plan, x, r, w, eps, g, u=None):
     """One launch of ``name`` under ``plan`` (no checks: ``plans`` makes
     only plans the source takes)."""
     if name == "add_rms_norm":
@@ -104,6 +120,11 @@ def with_plan(name: str, plan, x, r, w, eps, g):
         norm_act.ADD_RMS_NORM(res.data_ptr(), out.data_ptr(), x.data_ptr(),
                               r.data_ptr(), w.data_ptr(), *x.shape, eps,
                               DTYPE_CODES[x.dtype], *plan, current_stream())
+        return
+    if name == "gelu_new":
+        out = torch.empty_like(u)
+        norm_act.GELU_NEW(out.data_ptr(), u.data_ptr(), u.numel(),
+                          DTYPE_CODES[u.dtype], *plan, current_stream())
         return
     out = torch.empty((g.shape[0], g.shape[1] // 2), dtype=g.dtype,
                       device=g.device)
@@ -113,8 +134,9 @@ def with_plan(name: str, plan, x, r, w, eps, g):
 
 
 def cases(arch, T: int, H: int, inter: int, dt, dev):
-    """(name, kernel call, plain call, bytes, its call under a plan or
-    None) for one model, T and dtype."""
+    """(name, kernel call, plain call, library call, bytes, its call
+    under a plan or None) for one model, T and dtype."""
+    F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(16)
 
     def randn(*shape, scale=1.0, shift=0.0):
@@ -130,18 +152,23 @@ def cases(arch, T: int, H: int, inter: int, dt, dev):
             ("add_layer_norm",
              lambda: norm_act.add_layer_norm(x, o, m, w, b, LN_EPS),
              lambda: norm_act.add_layer_norm_plain(x, o, m, w, b, LN_EPS),
+             lambda: F.layer_norm(x + (o + m), (H,), w, b, LN_EPS),
              (5 * T * H + 2 * H) * es, None),
             ("gelu_new", lambda: norm_act.gelu_new(u),
-             lambda: norm_act.gelu_new_plain(u), 2 * T * inter * es, None)]
+             lambda: norm_act.gelu_new_plain(u),
+             lambda: F.gelu(u, approximate="tanh"), 2 * T * inter * es,
+             lambda plan: with_plan("gelu_new", plan, x, o, None, None,
+                                    None, u))]
     g = randn(T, 2 * inter, scale=4)
     eps = arch.rms_norm_eps
     return [
         ("add_rms_norm", lambda: norm_act.add_rms_norm(x, o, w, eps),
          lambda: norm_act.add_rms_norm_plain(x, o, w, eps),
-         (4 * T * H + H) * es,
+         lambda: F.rms_norm(x + o, (H,), w, eps), (4 * T * H + H) * es,
          lambda plan: with_plan("add_rms_norm", plan, x, o, w, eps, g)),
         ("silu_and_mul", lambda: norm_act.silu_and_mul(g),
-         lambda: norm_act.silu_and_mul_plain(g), 3 * T * inter * es,
+         lambda: norm_act.silu_and_mul_plain(g),
+         lambda: F.silu(g[:, :inter]) * g[:, inter:], 3 * T * inter * es,
          lambda plan: with_plan("silu_and_mul", plan, x, o, w, eps, g))]
 
 
@@ -163,7 +190,8 @@ def run(args) -> None:
     print("kernel,model,dtype,T,kernel ms min / median / max,"
           "plain ms min / median / max,bound ms,"
           "copy of its bytes ms min / median / max,"
-          "copy of 16 bytes ms min / median / max", flush=True)
+          "copy of 16 bytes ms min / median / max,"
+          "library ms min / median / max", flush=True)
     tiny = torch.empty(2, 16, dtype=torch.uint8, device=dev)
     for model in args.model:
         arch = get_model_arch(model)
@@ -172,7 +200,7 @@ def run(args) -> None:
         for name_dt in args.dtype:
             dt = DTYPES[name_dt]
             for T in args.rows:
-                for name, fn, plain, n_bytes, planned in cases(
+                for name, fn, plain, lib, n_bytes, planned in cases(
                         arch, T, H, inter, dt, dev):
                     got, ref = fn(), plain()
                     if isinstance(got, tuple):
@@ -185,7 +213,8 @@ def run(args) -> None:
                                        device=dev)
                     calls = {"kernel": fn, "plain": plain,
                              "copy": lambda: pair[1].copy_(pair[0]),
-                             "floor": lambda: tiny[1].copy_(tiny[0])}
+                             "floor": lambda: tiny[1].copy_(tiny[0]),
+                             "library": lib}
                     ms = {k: [] for k in calls}
                     for _ in range(args.calls):
                         for k, call in calls.items():
@@ -194,16 +223,15 @@ def run(args) -> None:
                     print(f"{name},{model},{name_dt},{T},"
                           f"{spread(ms['kernel'])},{spread(ms['plain'])},"
                           f"{bound(n_bytes, 0)[0]:.5f},{spread(ms['copy'])},"
-                          f"{spread(ms['floor'])}", flush=True)
+                          f"{spread(ms['floor'])},{spread(ms['library'])}",
+                          flush=True)
                     if not args.plans or planned is None:
                         continue
                     width = H if name == "add_rms_norm" else inter
                     es = torch.empty((), dtype=dt).element_size()
                     sms = torch.cuda.get_device_properties(
                         dev).multi_processor_count
-                    chosen = tuple((norm_act.norm_plan if name ==
-                                    "add_rms_norm" else norm_act.silu_plan)(
-                        T, width, es, sms))[:3]
+                    chosen = tuple(PLAN_OF[name](T, width, es, sms))[:3]
                     for plan in plans(name, T, width, es):
                         times = [timer(lambda: planned(plan), iters=1,
                                        warmup=0) for _ in range(args.calls)]

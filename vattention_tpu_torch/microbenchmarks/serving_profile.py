@@ -22,12 +22,14 @@ outside waits for the device (the profiled wall less the time in
 With ``--trees`` each pass runs this file in a process of its own, from
 the checkout it profiles and with that checkout first on ``sys.path``:
 the file uses only the engine's public API, so it profiles earlier
-checkouts too.  A pass serves, after a warm-up request, (c) yi-6b-200k on
-fa_vattn_2mb (sarathi chunk 512, max_model_len 8192, batch 8; 4 requests
-of 2048 prompt tokens and 16 greedy tokens) and (g) mistral-7b on
-fa_vattn_2mb (max_model_len 16384; 2 requests of 6144 + 16), random
-weights from seed 0, each case's requests once without the profiler (its
-wall is "wall unprofiled ms") and then once more under it.  The trees run in turns, reversed every other round
+checkouts too.  A pass serves, after a warm-up request, each ``--case``:
+(c) yi-6b-200k on fa_vattn_2mb (sarathi chunk 512, max_model_len 8192,
+batch 8; 4 requests of 2048 prompt tokens and 16 greedy tokens), (g)
+mistral-7b on fa_vattn_2mb (max_model_len 16384; 2 requests of 6144 +
+16) and (k) falcon-7b on fa_vattn_2mb as (c) (its add_layer_norm and
+gelu_new), random weights from seed 0, each case's requests once without
+the profiler (its wall is "wall unprofiled ms") and then once more under
+it; every port kernel's device ms and launches go into the table.  The trees run in turns, reversed every other round
 (A B, B A, ...); each pass's output goes to ``<out>/<tree>_<round>.txt``
 and a table of every pass's numbers with each tree's mean to
 ``<out>/summary.json``.  Needs the card.
@@ -64,6 +66,7 @@ ROPE_APPEND = "rope + KV append"
 CASES = {
     "c": dict(model="yi-6b-200k", max_model_len=8192, n=4, prompt=2048),
     "g": dict(model="mistral-7b", max_model_len=16384, n=2, prompt=6144),
+    "k": dict(model="falcon-7b", max_model_len=8192, n=4, prompt=2048),
 }
 
 
@@ -238,6 +241,8 @@ def profile_window(engine, requests, tag) -> dict:
     return {"wall ms": wall, "busy ms": busy, "busy share": busy / wall,
             **{f"{k} ms": v for k, v in families.items()},
             "A ms": a_ms, "launches per step": launches / steps,
+            **{f"{k} ms": ms for k, (ms, _) in port.items()},
+            **{f"{k} launches": n for k, (_, n) in port.items()},
             "syncs per step": syncs / steps,
             **{f"{k} per step": v for k, v in api.items()},
             "host ms per step": host_ms, "steps": steps,
@@ -282,7 +287,8 @@ def profile_case(tag: str) -> dict:
     return out
 
 
-def run_trees(trees, rounds: int, out_dir: Path, timeout: float) -> int:
+def run_trees(trees, rounds: int, out_dir: Path, timeout: float,
+              cases=("c", "g")) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     # the card's name and power limit, beside every number of the table
     print(subprocess.run(
@@ -300,7 +306,7 @@ def run_trees(trees, rounds: int, out_dir: Path, timeout: float) -> int:
             t0 = time.perf_counter()
             with open(path, "w") as f:
                 proc = subprocess.run(
-                    [sys.executable, str(me), "--case", "c", "g", "--json"],
+                    [sys.executable, str(me), "--case", *cases, "--json"],
                     cwd=tree, env=env, stdout=f, stderr=subprocess.STDOUT,
                     timeout=timeout)
             text = path.read_text()
@@ -325,7 +331,9 @@ def run_trees(trees, rounds: int, out_dir: Path, timeout: float) -> int:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--case", nargs="+", choices=sorted(CASES), default=["c"])
+    p.add_argument("--case", nargs="+", choices=sorted(CASES),
+                   help="the windows to serve (default: c; c g with "
+                        "--trees)")
     p.add_argument("--json", action="store_true",
                    help="print the numbers as one JSON line last")
     p.add_argument("--trees", nargs=2, type=Path,
@@ -337,14 +345,14 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.trees:
         return run_trees([t.resolve() for t in args.trees], args.rounds,
-                         args.out, args.timeout)
+                         args.out, args.timeout, args.case or ("c", "g"))
     if not torch.cuda.is_available():
         print("serving_profile: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}")
     nums = {}
-    for tag in args.case:
+    for tag in args.case or ["c"]:
         nums.update({f"(p {tag}) {k}": v
                      for k, v in profile_case(tag).items()})
     if args.json:

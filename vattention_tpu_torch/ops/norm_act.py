@@ -20,13 +20,15 @@ JAX step's, one rounding to the model's dtype per JAX op: the residual
 output equals the plain ``x + r`` bit for bit.
 
 Bound on the H100: bytes (each input read once, each output written
-once).  Source: csrc/norm_act.cu.  ``add_rms_norm`` and ``silu_and_mul``
-take their launch plan from here (``norm_plan``, ``silu_plan``): a row
-group of whole warps per row, several narrow rows a block, every load of
-a row (the weight's too) in flight at once; and a 2-D grid of (row, column
-tile) blocks whose threads each load their one or two gate/up pairs
-before computing.  ``add_layer_norm`` is one block per row, ``gelu_new``
-one grid-stride pass of 16-byte vectors.
+once).  Source: csrc/norm_act.cu.  ``add_rms_norm``, ``silu_and_mul`` and
+``gelu_new`` take their launch plan from here (``norm_plan``,
+``silu_plan``, ``gelu_plan``): a row group of whole warps per row, several
+narrow rows a block, every load of a row (the weight's too) in flight at
+once; a 2-D grid of (row, column tile) blocks whose threads each load
+their one or two gate/up pairs before computing; and one vector a thread
+over the flat tensor.  ``add_layer_norm`` is one block per row.
+``gelu_new`` computes x / (1 + exp(-2u)) with the card's fast
+exponential and division (the error argument is in the source).
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ from vattention_tpu_torch.ops.cuda_build import (DTYPE_CODES, CudaKernel,
 
 __all__ = ["add_rms_norm", "add_rms_norm_plain", "add_layer_norm",
            "add_layer_norm_plain", "silu_and_mul", "silu_and_mul_plain",
-           "gelu_new", "gelu_new_plain", "norm_plan", "silu_plan"]
+           "gelu_new", "gelu_new_plain", "norm_plan", "silu_plan",
+           "gelu_plan"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ADD_RMS_NORM = CudaKernel("norm_act", "vattn_add_rms_norm", [
@@ -57,18 +60,23 @@ ADD_LAYER_NORM = CudaKernel("norm_act", "vattn_add_layer_norm", [
 SILU_AND_MUL = CudaKernel("norm_act", "vattn_silu_and_mul", [
     _P, _P, _I, _I, _I, _I, _I, _I, _P])
 GELU_NEW = CudaKernel("norm_act", "vattn_gelu_new", [
-    _P, _P, ctypes.c_longlong, _I, _P])
+    _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P])
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 # the source's limits (csrc/norm_act.cu): add_rms_norm's 16-byte vectors
 # a thread and threads a block at most (kMaxVecs, kNormThreads);
 # silu_and_mul's gate/up pairs a thread, threads a block and column tiles
-# (the grid's y) at most (kMaxActVecs, kActThreads, kMaxActTiles)
+# (the grid's y) at most (kMaxActVecs, kActThreads, kMaxActTiles);
+# gelu_new's threads a block (kActThreads too), vectors a thread (1, 2 or
+# kMaxGeluVecs for bench_norm_act --plans; gelu_plan takes 1) and vectors
+# (kMaxGeluVectors: 32-bit indices) at most
 MAX_VECS = 8
 NORM_THREADS = 256
 MAX_ACT_VECS = 2
 ACT_THREADS = 256
 MAX_ACT_TILES = 65535
+MAX_GELU_VECS = 4
+GELU_MAX_VECTORS = 2**31 - 1 - ACT_THREADS * MAX_GELU_VECS
 # a normalized row's bytes at most: MAX_VECS 16-byte vectors for each of
 # NORM_THREADS threads (bf16 rows to 16384 values, float32 to 8192)
 MAX_ROW_BYTES = MAX_VECS * NORM_THREADS * 16
@@ -76,6 +84,8 @@ MAX_ROW_BYTES = MAX_VECS * NORM_THREADS * 16
 # below which a thread takes one gate/up pair instead of two
 ACT_BLOCK = 128
 ACT_BLOCKS_PER_SM = 2
+# gelu_new's plan: a block's threads (one vector each)
+GELU_BLOCK = 128
 
 
 class NormPlan(NamedTuple):
@@ -95,6 +105,14 @@ class SiluPlan(NamedTuple):
     vpt: int
     threads: int
     tiles: int
+
+
+class GeluPlan(NamedTuple):
+    """gelu_new's launch over the flat tensor: ``vpt`` vectors a thread,
+    blocks of ``threads``, ``blocks`` blocks."""
+    vpt: int
+    threads: int
+    blocks: int
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -155,6 +173,22 @@ def silu_plan(rows: int, inter: int, element_size: int,
         raise ValueError(f"silu_and_mul: {inter} values a row need "
                          f"{tiles} tiles, above {MAX_ACT_TILES}")
     return SiluPlan(vpt, threads, tiles)
+
+
+@functools.lru_cache(maxsize=4096)
+def gelu_plan(numel: int, element_size: int) -> GeluPlan:
+    """gelu_new's launch over ``numel`` values of ``element_size`` bytes,
+    whatever their shape: one 16-byte vector a thread, blocks of
+    GELU_BLOCK threads over the flat tensor in memory order.  (On the
+    H100, (row, column tile) plans as silu_plan's, their blocks in a 2-D
+    grid or in one dimension, measured 1-3% slower call by call and about
+    6% slower inside falcon's captured steps; 2 or 4 vectors a thread and
+    blocks of 64 or 256 threads within 1% call by call.)"""
+    n_vec = _vectors("gelu_new", numel, element_size)
+    if n_vec > GELU_MAX_VECTORS:
+        raise ValueError(f"gelu_new: {numel} values, above "
+                         f"{GELU_MAX_VECTORS} 16-byte vectors")
+    return GeluPlan(1, GELU_BLOCK, _cdiv(n_vec, GELU_BLOCK))
 
 
 _sms: Dict[torch.device, int] = {}
@@ -289,11 +323,12 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         return gelu_new_plain(x)
     check_cuda_tensor("gelu_new", x)
-    if x.dtype not in DTYPE_CODES or (x.numel() * x.element_size()) % 16:
+    es = x.element_size()
+    if x.dtype not in DTYPE_CODES or (x.numel() * es) % 16:
         raise ValueError(f"gelu_new: x {tuple(x.shape)} of {x.dtype}")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     GELU_NEW(out.data_ptr(), x.data_ptr(), x.numel(), DTYPE_CODES[x.dtype],
-             current_stream())
+             *gelu_plan(x.numel(), es), current_stream())
     return out
