@@ -39,8 +39,8 @@ from vattention_tpu_torch.core.sequence_manager.engine_sequence_manager import (
     EngineSequenceManager,
 )
 from vattention_tpu_torch.logger import init_logger
-from vattention_tpu_torch.metrics.constants import CpuOperationMetrics
 from vattention_tpu_torch.metrics.metrics_store import MetricsStore
+from vattention_tpu_torch.metrics.timer import OUTPUTS, SCHEDULE, STEP, span
 from vattention_tpu_torch.transformers_utils.tokenizer import get_tokenizer
 from vattention_tpu_torch.utils.counter import Counter
 from vattention_tpu_torch.worker.base_worker import BaseWorker
@@ -163,16 +163,18 @@ class BaseLLMEngine:
     def step(self) -> List[RequestOutput]:
         """One serving iteration.  Sync mode returns this step's outputs;
         async mode those of older steps whose samples have landed."""
+        with span(self.metrics_store, STEP):
+            return self._run_step()
+
+    def _run_step(self) -> List[RequestOutput]:
         if self.control is not None:
             self.control.tick(self._tick)
             self._tick += 1
         if hasattr(self.scheduler.block_manager, "set_free_blocks"):
             self.scheduler.block_manager.set_free_blocks(
                 self.worker.get_free_blocks())
-        t0 = time.perf_counter()
-        scheduler_outputs = self.scheduler.schedule()
-        self.metrics_store.push_cpu_operation_time(
-            CpuOperationMetrics.SCHEDULE, time.perf_counter() - t0)
+        with span(self.metrics_store, SCHEDULE):
+            scheduler_outputs = self.scheduler.schedule()
         if scheduler_outputs.has_no_output():
             if self.worker.has_inflight_steps():
                 return self._process_resolved(self.worker.flush_inflight())
@@ -209,6 +211,7 @@ class BaseLLMEngine:
         # prompt progress, pause transitions, pending placeholders, length
         # stops
         self.seq_manager.on_step_dispatched(scheduler_outputs)
+        self.metrics_store.on_prompts_dispatched(seq_metadata_list)
         self.scheduler.on_step_completed()
         if ignored_seqs:
             outputs += self.seq_manager.generate_request_outputs(
@@ -220,22 +223,25 @@ class BaseLLMEngine:
         """Apply the samples of earlier dispatched steps: patch the token
         values in, run the stops that depend on them, free finished
         sequences and emit their RequestOutputs."""
-        t0 = time.perf_counter()
-        outputs: List[RequestOutput] = []
-        for scheduler_outputs, seq_metadata_list, sampler_outputs in resolved:
-            self.seq_manager.on_step_resolved(sampler_outputs)
-            self.worker.on_step_completed(seq_metadata_list)
-            # EOS and stop strings finish sequences between scheduler
-            # ticks; retire them from the running queue
-            self.scheduler.free_finished_seqs()
-            self.scheduler.remove_finished_seqs()
-            self._end_finished(seq_metadata_list)
-            outputs += self.seq_manager.generate_request_outputs(
-                [], seq_metadata_list)
-        if resolved:
-            self.metrics_store.push_cpu_operation_time(
-                CpuOperationMetrics.PROCESS_MODEL_OUTPUTS,
-                time.perf_counter() - t0)
+        if not resolved:
+            return []
+        with span(self.metrics_store, OUTPUTS) as s:
+            outputs: List[RequestOutput] = []
+            for scheduler_outputs, seq_metadata_list, sampler_outputs \
+                    in resolved:
+                self.seq_manager.on_step_resolved(sampler_outputs)
+                self.worker.on_step_completed(seq_metadata_list)
+                # EOS and stop strings finish sequences between scheduler
+                # ticks; retire them from the running queue
+                self.scheduler.free_finished_seqs()
+                self.scheduler.remove_finished_seqs()
+                self._end_finished(seq_metadata_list)
+                outputs += self.seq_manager.generate_request_outputs(
+                    [], seq_metadata_list)
+            if s.recording:
+                s.counts.update(
+                    outputs=len(outputs),
+                    tokens_copied=sum(len(o.token_ids) for o in outputs))
         return outputs
 
     def _end_finished(self, seq_metadata_list) -> None:
@@ -255,6 +261,7 @@ class BaseLLMEngine:
                            sampler_outputs) -> List[RequestOutput]:
         self.seq_manager.on_step_completed(scheduler_outputs,
                                            sampler_outputs)
+        self.metrics_store.on_prompts_dispatched(seq_metadata_list)
         self.worker.on_step_completed(seq_metadata_list)
         self.scheduler.on_step_completed()
         self._end_finished(seq_metadata_list)

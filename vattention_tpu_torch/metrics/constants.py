@@ -37,7 +37,5 @@ class CpuOperationMetrics(enum.Enum):
 
     SCHEDULE = "schedule"
     PREPARE_INPUTS = "prepare_inputs_e2e"
-    MODEL_EXECUTION = "model_execution_e2e"
-    SAMPLER_E2E = "sampler_e2e"
     PROCESS_MODEL_OUTPUTS = "process_model_outputs"
     KV_STEP = "kv_cache_step"            # allocator step_async time

@@ -3,18 +3,21 @@
 Singleton collecting request-, batch- and token-level distributions:
 request e2e / scheduling delay / prefill-e2e / TBT, batch sizes & token
 counts, step latency.  Outputs CSV summaries and (optionally) a chrome
-trace of batches.  Plot/wandb layers of the reference map to the CSVs
+trace of the host spans (``metrics/timer.span``), which it keeps while
+they are recorded.  Plot/wandb layers of the reference map to the CSVs
 (plotting is out of scope for the serving core).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
+from torch.autograd import _profiler_enabled
 
 from vattention_tpu_torch.config import MetricsConfig
 from vattention_tpu_torch.logger import init_logger
@@ -81,14 +84,33 @@ class CDFSketch(DataSeries):
         self.put(len(self.ys), y)
 
 
+class SpanRecord(NamedTuple):
+    """One recorded host span; stamps in ``time.monotonic_ns()``."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[str]   # the enclosing span's name
+    step: Optional[int]     # the enclosing ``vattn.step``'s id
+    counts: dict
+
+
 class MetricsStore:
     """Process singleton (ref metrics_store.py:66 + Singleton metaclass)."""
 
     _instance: Optional["MetricsStore"] = None
 
+    # the newest spans kept in memory
+    SPAN_LIMIT = 1 << 17
+    # one request's first scheduling -> the dispatch of its last prompt
+    # chunk; it overlaps steps, so it is kept in memory only
+    REQUEST_PREFILL = "vattn.request.prefill"
+
     def __init__(self, config: MetricsConfig):
         self.config = config
         self.enabled = config.write_metrics
+        # the recorded spans open on this process's engine thread
+        self.open_spans: list = []
+        self._step_id = 0
         self.reset()
 
     @classmethod
@@ -152,8 +174,14 @@ class MetricsStore:
         self._pending_phase: Optional[str] = None
         self._last_dispatch_ts: Optional[float] = None
         self._last_batch_start: Optional[float] = None
-        self._chrome_events: List[dict] = []
         self._run_start = time.monotonic()
+        # the spans by field, so that recording one allocates no object
+        # the garbage collector tracks: a record (a tuple holding a dict)
+        # would stay tracked, and a full collection of the many kept
+        # would stall the engine for a few hundred ms
+        self._span_fields = tuple(
+            collections.deque(maxlen=self.SPAN_LIMIT)
+            for _ in SpanRecord._fields)
 
     # ------------------------------------------------------------------ #
     # ingest hooks (ref :281-535)
@@ -174,8 +202,66 @@ class MetricsStore:
             sketch = self.cpu_operation_times[name] = CDFSketch(name)
         sketch.add(seconds)
 
+    # ------------------------------------------------------------------ #
+    # spans (metrics/timer.span)
+    # ------------------------------------------------------------------ #
+    def recording(self) -> bool:
+        """Spans are recorded while a torch profiler session records or
+        the config asks for a chrome trace."""
+        return _profiler_enabled() or self.config.enable_chrome_trace
+
+    def new_step_id(self) -> int:
+        self._step_id += 1
+        return self._step_id
+
+    def record_span(self, *fields) -> None:
+        """Keep one span: ``SpanRecord``'s fields, in order."""
+        for column, value in zip(self._span_fields, fields):
+            column.append(value)
+
+    @property
+    def spans(self) -> List[SpanRecord]:
+        """The recorded spans, oldest first."""
+        return [SpanRecord(*f) for f in zip(*self._span_fields)]
+
     def on_request_arrival(self, seq) -> None:
         pass
+
+    def on_prompts_dispatched(self, seq_metadata_list) -> None:
+        """While recording, keep the prefill of each request whose last
+        prompt chunk was just dispatched (a prompt chunk that finished the
+        prompt): its first scheduling -> its state's stamp of the
+        dispatch."""
+        if not self.recording():
+            return
+        step = self.open_spans[-1].step if self.open_spans else None
+        for m in seq_metadata_list:
+            if m.is_prompt and m.seq.prompt_processing_finished:
+                state = m.seq.state
+                self.record_span(
+                    self.REQUEST_PREFILL, _ns(state.scheduled_at),
+                    _ns(state.prompt_processing_completed_at), None, step,
+                    {"seq_id": m.seq_id})
+
+    def chrome_trace_events(self) -> List[dict]:
+        """The spans as chrome trace events (µs on the monotonic clock):
+        the nested spans on one track, each request's prefill an async
+        span keyed by its ``seq_id``."""
+        events = []
+        for r in self.spans:
+            ts, dur = r.start_ns / 1e3, (r.end_ns - r.start_ns) / 1e3
+            if r.name == self.REQUEST_PREFILL:
+                key = dict(cat="request", id=str(r.counts["seq_id"]),
+                           pid=0, tid=0, name=r.name)
+                events.append(dict(key, ph="b", ts=ts))
+                events.append(dict(key, ph="e", ts=ts + dur))
+            else:
+                events.append({
+                    "name": r.name, "ph": "X", "pid": 0, "tid": 0,
+                    "ts": ts, "dur": dur,
+                    "args": {**r.counts, "parent": r.parent,
+                             "step": r.step}})
+        return events
 
     def on_request_end(self, seq) -> None:
         state = seq.state
@@ -227,23 +313,9 @@ class MetricsStore:
                 self.num_decode_tokens += 1
         if not self.enabled:
             return
-        now = time.monotonic()
         if self._last_batch_start is not None:
-            dt = now - self._last_batch_start
-            self.batch_execution_time.add(dt)
-            if self.config.enable_chrome_trace:
-                self._chrome_events.append({
-                    "name": f"batch_{scheduler_outputs.id}",
-                    "ph": "X", "pid": 0, "tid": 0,
-                    "ts": int((self._last_batch_start - self._run_start)
-                              * 1e6),
-                    "dur": int(dt * 1e6),
-                    "args": {
-                        "batch_size": len(seq_metadata_list),
-                        "num_tokens":
-                            scheduler_outputs.num_batched_tokens,
-                    },
-                })
+            self.batch_execution_time.add(
+                time.monotonic() - self._last_batch_start)
         self._last_batch_start = None
         num_tokens = sum(
             max(m.prompt_chunk_len, 1) for m in seq_metadata_list)
@@ -280,6 +352,8 @@ class MetricsStore:
         self.num_decode_tokens += other.num_decode_tokens
         for k, v in other.phase_stats.items():
             self.phase_stats[k] += v
+        for mine, theirs in zip(self._span_fields, other._span_fields):
+            mine.extend(theirs)
         # aggregate wall clock spans every merged replica's run
         self._run_start = min(self._run_start, other._run_start)
 
@@ -337,10 +411,10 @@ class MetricsStore:
         with open(os.path.join(self.config.output_dir,
                                "summary.json"), "w") as f:
             json.dump(self.summary(), f, indent=2)
-        if self.config.enable_chrome_trace and self._chrome_events:
+        if self.config.enable_chrome_trace and self._span_fields[0]:
             with open(os.path.join(self.config.output_dir,
                                    "chrome_trace.json"), "w") as f:
-                json.dump({"traceEvents": self._chrome_events}, f)
+                json.dump({"traceEvents": self.chrome_trace_events()}, f)
         if getattr(self.config, "enable_plots", False):
             self._write_plots()
         logger.info("metrics written to %s", self.config.output_dir)
@@ -380,3 +454,8 @@ class MetricsStore:
             fig.savefig(os.path.join(self.config.output_dir,
                                      f"{name}.png"), dpi=110)
             plt.close(fig)
+
+
+def _ns(t: float) -> int:
+    """A ``time.monotonic()`` stamp in ``time.monotonic_ns()``'s unit."""
+    return round(t * 1e9)

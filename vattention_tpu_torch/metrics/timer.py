@@ -1,14 +1,24 @@
-"""Timers (counterpart of vattention_tpu/metrics/timer.py).
+"""Host spans and profiler sessions (counterpart of
+vattention_tpu/metrics/timer.py).
 
-  - CpuTimer: wall-clock context manager for host phases (scheduling,
-    prepare_inputs, allocator step) feeding the MetricsStore.
-  - DeviceTimer: a ``torch.profiler.record_function`` range, so the ops
-    inside it appear under ``name`` in profiler traces; with ``sync=True``
-    it also times the block with CUDA events and waits for the second one
-    (for debugging only: the wait stops the host from running ahead of
-    the device, which async serving relies on).
+  - span: a named host phase of the component that owns ``store`` (each
+    replica's engine, worker and runner share one store).  Its duration
+    always lands in the store's host-phase sketch of its name, where it
+    has one (``SKETCHES``).  While a ``torch.profiler`` session is
+    recording, or the store's ``enable_chrome_trace`` is set, it is also
+    recorded: the store keeps
+    ``SpanRecord(name, start_ns, end_ns, parent, step, counts)`` on
+    ``time.monotonic_ns()`` (the clock of the sequence state's stamps),
+    and a profiler range of the same name puts it in the profiler's trace
+    beside the kernels it launched.  The range is ``record_function``'s
+    cheap form, ``_RecordFunctionFast`` (an op range, ~1 µs a span on the
+    CPU against ~10 for ``record_function``'s annotation).  Not
+    recording, a span costs one boolean check beyond the stamps.
   - profile_session: ``torch.profiler`` around a block, written out as a
     chrome trace.
+
+Span names start with ``vattn.``; every span opened inside ``vattn.step``
+carries that step's id.
 """
 
 from __future__ import annotations
@@ -19,57 +29,76 @@ import time
 from typing import Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
-from vattention_tpu_torch.metrics.metrics_store import CDFSketch
+from vattention_tpu_torch.metrics.constants import CpuOperationMetrics
+from vattention_tpu_torch.metrics.metrics_store import MetricsStore
+
+STEP = "vattn.step"
+SCHEDULE = "vattn.schedule"
+KV_STEP = "vattn.kv_step"
+PREPARE = "vattn.prepare"
+LAUNCH = "vattn.launch"
+RESOLVE_WAIT = "vattn.resolve_wait"
+OUTPUTS = "vattn.outputs"
+REQUEST_PREFILL = MetricsStore.REQUEST_PREFILL
+NAMES = (STEP, SCHEDULE, KV_STEP, PREPARE, LAUNCH, RESOLVE_WAIT, OUTPUTS,
+         REQUEST_PREFILL)
+
+# the host-phase sketch each span feeds
+SKETCHES = {
+    SCHEDULE: CpuOperationMetrics.SCHEDULE.value,
+    KV_STEP: CpuOperationMetrics.KV_STEP.value,
+    PREPARE: CpuOperationMetrics.PREPARE_INPUTS.value,
+    OUTPUTS: CpuOperationMetrics.PROCESS_MODEL_OUTPUTS.value,
+}
 
 
-class CpuTimer:
-    def __init__(self, sketch: Optional[CDFSketch] = None,
-                 name: str = ""):
-        self.sketch = sketch
+class span:
+    """``with span(store, name, **counts) as s:`` around a host phase;
+    while ``s.recording``, ``s.counts`` may take more counts before the
+    block ends."""
+
+    __slots__ = ("name", "counts", "recording", "_store", "_t0", "_range",
+                 "_parent", "step")
+
+    def __init__(self, store: MetricsStore, name: str, **counts):
+        self._store = store
         self.name = name
-        self.last = 0.0
+        self.counts = counts
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
+    def __enter__(self) -> "span":
+        store = self._store
+        self.recording = store.recording()
+        if self.recording:
+            self._open(store)
+        self._t0 = time.monotonic_ns()
         return self
 
-    def __exit__(self, *exc):
-        self.last = time.perf_counter() - self._t0
-        if self.sketch is not None:
-            self.sketch.add(self.last)
-        return False
-
-
-class DeviceTimer:
-    """Named profiler range; with ``sync`` (a CUDA device needed) the
-    block's device seconds on the current stream land in ``last`` (and
-    ``sketch``)."""
-
-    def __init__(self, name: str, sync: bool = False,
-                 sketch: Optional[CDFSketch] = None):
-        self.name = name
-        self.sync = sync
-        self.sketch = sketch
-        self.last = None
-
-    def __enter__(self):
-        self._range = torch.profiler.record_function(self.name)
+    def _open(self, store: MetricsStore) -> None:
+        stack = store.open_spans
+        parent = stack[-1] if stack else None
+        self._parent = parent.name if parent is not None else None
+        if self.name == STEP:
+            self.step = store.new_step_id()
+            self.counts["step"] = self.step
+        else:
+            self.step = parent.step if parent is not None else None
+        stack.append(self)
+        self._range = _RecordFunctionFast(self.name)
         self._range.__enter__()
-        if self.sync:
-            self._start = torch.cuda.Event(enable_timing=True)
-            self._end = torch.cuda.Event(enable_timing=True)
-            self._start.record()
-        return self
 
-    def __exit__(self, *exc):
-        if self.sync:
-            self._end.record()
-            self._end.synchronize()
-            self.last = self._start.elapsed_time(self._end) / 1e3
-            if self.sketch is not None:
-                self.sketch.add(self.last)
-        self._range.__exit__(*exc)
+    def __exit__(self, *exc) -> bool:
+        t1 = time.monotonic_ns()
+        sketch = SKETCHES.get(self.name)
+        if sketch is not None:
+            self._store.push_cpu_operation_time(sketch,
+                                                (t1 - self._t0) / 1e9)
+        if self.recording:
+            self._range.__exit__(*exc)
+            self._store.open_spans.pop()
+            self._store.record_span(self.name, self._t0, t1, self._parent,
+                                    self.step, self.counts)
         return False
 
 

@@ -54,8 +54,8 @@ from vattention_tpu_torch.config import PREFILL_TOKEN_PAD, SystemConfig
 from vattention_tpu_torch.core.datatypes.sequence import (
     SamplerOutput, SamplerOutputs, SequenceMetadata)
 from vattention_tpu_torch.logger import init_logger
-from vattention_tpu_torch.metrics.constants import CpuOperationMetrics
 from vattention_tpu_torch.metrics.metrics_store import MetricsStore
+from vattention_tpu_torch.metrics.timer import LAUNCH, PREPARE, span
 from vattention_tpu_torch.model_executor.attention import AttentionBackend
 from vattention_tpu_torch.model_executor.attention.no_op_backend import (
     NoOpAttentionBackend)
@@ -105,6 +105,12 @@ class StepHandle:
 
     def is_ready(self) -> bool:
         return self.event is None or self.event.query()
+
+    def wait(self) -> None:
+        """Block until the samples are on the host."""
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
 
 
 class StepGraph(NamedTuple):
@@ -450,11 +456,13 @@ class ModelRunner:
         The sampled tokens stay on the device (the next step reads them
         from the token buffer) and are copied to pinned host memory behind
         the step, so ``resolve`` later finds them there."""
-        t0 = time.perf_counter()
-        inputs, n_pre, mode = self._prepare_inputs(seq_metadata_list)
-        self._metrics_store.push_cpu_operation_time(
-            CpuOperationMetrics.PREPARE_INPUTS, time.perf_counter() - t0)
-        samples = self._launch(inputs, n_pre, mode)
+        with span(self._metrics_store, PREPARE):
+            inputs, n_pre, mode = self._prepare_inputs(seq_metadata_list)
+        with span(self._metrics_store, LAUNCH) as s:
+            graphs = len(self.graphs)
+            samples = self._launch(inputs, n_pre, mode)
+            if s.recording:
+                s.counts["captured"] = len(self.graphs) - graphs
         if inputs.pod:
             self.backend.pod_steps += 1
         event = None
@@ -481,8 +489,7 @@ class ModelRunner:
     @staticmethod
     def resolve(handle: StepHandle) -> SamplerOutputs:
         """The dispatched step's samples (waits for their copy to land)."""
-        if handle.event is not None:
-            handle.event.synchronize()
+        handle.wait()
         tokens, lps, top_ids, top_lps = unpack_samples(
             handle.samples.numpy(), handle.n_top)
         return [SamplerOutput(

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import List, Optional
 
 import torch
@@ -36,8 +35,8 @@ from vattention_tpu_torch.core.sequence_manager.worker_sequence_manager import (
     WorkerSequenceManager,
 )
 from vattention_tpu_torch.logger import init_logger
-from vattention_tpu_torch.metrics.constants import CpuOperationMetrics
 from vattention_tpu_torch.metrics.metrics_store import MetricsStore
+from vattention_tpu_torch.metrics.timer import KV_STEP, RESOLVE_WAIT, span
 
 logger = init_logger(__name__)
 
@@ -143,10 +142,13 @@ class BaseWorker:
         return self.cache_engine.get_free_blocks()
 
     def _cache_step(self, seq_metadata_list) -> None:
-        t0 = time.perf_counter()
-        self.cache_engine.step(seq_metadata_list)
-        self.metrics_store.push_cpu_operation_time(
-            CpuOperationMetrics.KV_STEP, time.perf_counter() - t0)
+        with span(self.metrics_store, KV_STEP) as s:
+            if s.recording:
+                moves = getattr(self.cache_engine, "pending_moves", 0)
+            self.cache_engine.step(seq_metadata_list)
+            if s.recording:
+                s.counts["moves"] = getattr(
+                    self.cache_engine, "pending_moves", 0) - moves
         allocator = getattr(self.cache_engine, "allocator", None)
         if allocator is not None:
             self.metrics_store.fragmentation.add(
@@ -158,10 +160,7 @@ class BaseWorker:
         for seq_id in scheduler_outputs.preempted_seq_ids:
             self.cache_engine.free_seq(seq_id)
         self._cache_step(seq_metadata_list)
-        t0 = time.perf_counter()
         sampler_outputs = self.model_runner.run(seq_metadata_list)
-        self.metrics_store.push_cpu_operation_time(
-            CpuOperationMetrics.MODEL_EXECUTION, time.perf_counter() - t0)
         self.metrics_store.on_batch_end(seq_metadata_list, scheduler_outputs)
         return sampler_outputs
 
@@ -187,8 +186,10 @@ class BaseWorker:
             resolved.append(self._resolve_oldest())
         return resolved
 
-    def _resolve_oldest(self) -> tuple:
+    def _resolve_oldest(self, flush: int = 0) -> tuple:
         scheduler_outputs, handle = self._inflight.pop(0)
+        with span(self.metrics_store, RESOLVE_WAIT, flush=flush):
+            handle.wait()
         sampler_outputs = self.model_runner.resolve(handle)
         return scheduler_outputs, handle.seq_metadata_list, sampler_outputs
 
@@ -196,7 +197,7 @@ class BaseWorker:
         """Resolve every dispatched step (waits for the last one)."""
         resolved = []
         while self._inflight:
-            resolved.append(self._resolve_oldest())
+            resolved.append(self._resolve_oldest(flush=1))
         return resolved
 
     def has_inflight_steps(self) -> bool:
