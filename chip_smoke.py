@@ -8,7 +8,9 @@ kernels) from the seven sources of ``vattention_tpu_torch/csrc`` (one
 nvcc per source, in parallel) and
 prints ptxas's registers and spills of kernels A, B, C, E, F, G and H,
 with the shared memory per block of the bf16 prefill body's instances and
-of kernel C, for each K/V storage type (and any ptxas note on wgmma), then
+of kernel C, for each K/V storage type, and the registers the bf16
+prefill body's roles keep after setmaxnreg (and any ptxas note on wgmma
+or setmaxnreg), then
 runs its phases; any failure raises and the script exits non-zero without
 printing a result.  Every engine serves with the port's defaults: async
 execution (samples read up to two steps late, the next step's tokens fed
@@ -763,8 +765,9 @@ def kernel_phase(dev, arena=torch.bfloat16, geo=YI):
                                   geo)
     err, rel = check_prefill_edges(cache, HQ, layer, sm_scale=sm,
                                    out_scale=out_scale)
-    log(f"{lbl} prefill body edge cases (kv_len 1, 63, 64, 65, 200, 4133; "
-        "q_start 40, 56, 60 mod 64; the empty run; B over 16-token block "
+    log(f"{lbl} prefill body edge cases (kv_len 1, 63, 64, 65, 127, 128, "
+        "129, 200, 257, 4133; q_start 40, 56, 60 mod 64 and 104, 120, 124 "
+        "mod 128; the empty run; B over 16-token block "
         "tables with poisoned tails and over unaligned extents): max abs err "
         f"{err} (row worst {rel:.5f}); E = B, F = B and C, G = B, H = E bit "
         "for bit")
@@ -1330,14 +1333,18 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
     of the G = 8 instances of the others (C's shared memory in both
     dtypes), and registers and spills of each instance of kernel A, from
     each library's ptxas log (written when the library is built) and the
-    dynamic shared memory the launchers ask for; ptxas's notes on wgmma,
-    if any, follow."""
+    dynamic shared memory the launchers ask for.  An instance that runs
+    the bf16 prefill body (B, E, F, G, H) gives its registers at launch,
+    then the producer's and the consumers' after setmaxnreg; ptxas's notes
+    on wgmma and setmaxnreg, if any, follow."""
     import ctypes
 
     from vattention_tpu_torch.ops.cuda_build import library, library_path
 
     pre = library("prefill_attention").vattn_prefill_smem_bytes
     pre.argtypes = [ctypes.c_int, ctypes.c_int]
+    role_regs = library("prefill_attention").vattn_prefill_role_regs
+    role_regs.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     dec = library("decode_attention").vattn_decode_smem_bytes
     dec.argtypes = [ctypes.c_int, ctypes.c_int]
 
@@ -1358,7 +1365,7 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
             continue
         fn = None
         for line in path.read_text().splitlines():
-            if "wgmma" in line:
+            if "wgmma" in line or "setmaxnreg" in line:
                 log(f"ptxas {name}.cu: {line.strip()}")
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
@@ -1382,7 +1389,7 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
                                   r"Segments", fn)
                 if maps:
                     kernel += f"<{', '.join(maps)}>"
-                smem = ""
+                smem = regs = ""
                 kv, code = storage(fn)
                 if name == "decode_attention":
                     code = int(bf16) if code is None else code
@@ -1395,11 +1402,17 @@ def ptxas_report(names=("prefill_attention", "paged_prefill_attention",
                     smem = (f", shared memory {pre(1, code or 1)} B dynamic + "
                             f"{static.group(1) if static else 0} B static "
                             "per block")
+                    seg = int("Segments" in maps)
+                    pr = role_regs(code or 1, seg, 0)
+                    cr = role_regs(code or 1, seg, 1)
+                    regs = (f" at launch, then producer {pr} / consumers "
+                            f"{cr} after setmaxnreg" if pr != cr else
+                            " in every role (no setmaxnreg)")
                 log(f"ptxas {name}.cu: {kernel} "
                     f"({'bf16' if bf16 else 'f32'}"
                     f"{f', {kv} K/V' if kv else ''}"
                     f"{'' if 'tc_kernel' in fn else ', G=8'}): "
-                    f"{m.group(1)} registers, {spills}{smem}")
+                    f"{m.group(1)} registers{regs}, {spills}{smem}")
 
 
 def paged_kernels(dev, cache, pool_rows, timer, randn, layer, sm, suffix,

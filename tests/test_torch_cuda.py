@@ -357,8 +357,8 @@ def test_prefill_attention_matches_plain(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_prefill_attention_matches_plain(dev, dtype, bs):
     """Kernel E over permuted blocks, tables poisoned past each run's last
-    valid block (2**30: a read there faults), one 64-key tile spanning
-    four 16-token blocks."""
+    valid block (2**30: a read there faults), one key tile spanning
+    several 16-token blocks (two at f32's 32 keys, eight at bf16's 128)."""
     rng = np.random.default_rng(4)
     cache = _cache(rng, dtype, dev)
     pad = 128
@@ -536,9 +536,10 @@ def test_paged_prefill_single_matches_plain_and_e(dev, dtype, bs):
 def test_prefill_body_edge_cases(dev, hq):
     """The bf16 prefill body at G = 4, 8 and 71 (32- and 16-token q tiles;
     at 71, 128-row blocks that end inside a token):
-    kv_len 1, 63, 64, 65, 200 and 4133, q_start 40, 56 and 60 mod 64 (a
-    key tile above a whole warpgroup, or above some of its rows) and the
-    empty run in one multi-run launch; B against its plain version over
+    kv_len 1, 63, 64, 65, 127, 128, 129, 200, 257 and 4133, q_start 40,
+    56 and 60 mod 64 and 104, 120 and 124 mod 128 (a key tile above a
+    whole warpgroup, or above some of its rows) and the empty run in one
+    multi-run launch; B against its plain version over
     16-token block tables with poisoned tails and over unaligned extents,
     and E = B, F = B and C, G = B, H = E bit for bit."""
     rng = np.random.default_rng(9)

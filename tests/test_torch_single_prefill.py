@@ -31,7 +31,8 @@ import torch
 
 from vattention_tpu.ops.flash_prefill import flash_prefill
 from vattention_tpu.ops.paged_attention import paged_flash_prefill
-from vattention_tpu_torch.microbenchmarks import (bench_pagesize, bench_pod,
+from vattention_tpu_torch.microbenchmarks import (bench_pagesize,
+                                                  bench_pod, bench_prefill,
                                                   kernel_sweep,
                                                   probe_pod_depth)
 from vattention_tpu_torch.ops.flash_prefill import (
@@ -336,10 +337,38 @@ def test_probe_pod_depth_finds_f_equal_to_g_then_c(capsys, n_prefill):
 
 
 @pytest.mark.parametrize("harness", [kernel_sweep, bench_pagesize, bench_pod,
-                                     probe_pod_depth],
+                                     probe_pod_depth, bench_prefill],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_harness_raises_without_a_gpu_unless_cpu(harness):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="--cpu"):
         harness.main([])
+
+
+def test_bench_prefill_checks_and_times_each_kernel_on_the_cpu(capsys):
+    """bench_prefill's plain versions at tiny shapes: B, G, E, H and F at
+    (a)'s case over bf16, B over both 1-byte arenas, B and G at depth,
+    each row with its bound."""
+    assert bench_prefill.main(["--device", "cpu", "--calls", "1"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("kernel,case,arena,")
+    rows = [line.split(",") for line in lines[1:]]
+    assert [(r[0], r[1], r[2]) for r in rows] == [
+        *[(k, "a", "bf16") for k in "BGEHF"], ("B", "a", "e4m3"),
+        ("B", "a", "int8"), ("B", "deep32k", "bf16"),
+        ("G", "deep32k", "bf16"), ("B", "deep64k", "bf16"),
+        ("G", "deep64k", "bf16")]
+    assert all(float(r[4]) > 0 and r[5] in ("bytes", "operations")
+               for r in rows)
+
+
+def test_bench_prefill_bounds_are_the_per_call_tables():
+    """At Yi's heads the bound of (a)'s chunk is PERF.md's 0.0326 ms of
+    operations, and F's with the decode batch 0.0328 ms."""
+    heads = bench_prefill.HEADS
+    b_ms, by = bench_prefill.prefill_bound(512, 4096, heads, 2)
+    assert by == "operations" and round(b_ms, 4) == 0.0326
+    f_ms, by = bench_prefill.prefill_bound(512, 4096, heads, 2,
+                                           bench_prefill.DEC_DEPTHS)
+    assert by == "operations" and round(f_ms, 4) == 0.0328

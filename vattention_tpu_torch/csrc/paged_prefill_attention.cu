@@ -10,7 +10,7 @@
 // paged_attention.py:55-63); only positions p < kv_len are loaded, so no
 // table entry past a run's last valid block is read.  The body is kernel
 // B's (prefill_attention.cuh), as the JAX kernels reuse _prefill_kernel:
-// the key tile (64 keys in bf16, 32 in f32) does not depend on the block
+// the key tile (128 keys in bf16, 32 in f32) does not depend on the block
 // size and may span several blocks.  H is E's row map with a one-run q map
 // (tile i is run 0's local tile i), so H equals E bit for bit on one run.
 //

@@ -27,10 +27,13 @@
 // decode output is C's bit for bit when n_dec is C's grid).  The TPU kernel
 // weaves the two streams evenly on its one core (build_pod_schedule,
 // pod_fused.py:134-138) so that decode DMAs overlap prefill MXU work.  Here
-// a bf16 block holds a whole SM (the prefill body's 161 KB of shared
-// memory, 225 KB over a 1-byte arena, 168 registers x 384 threads), so the
-// roles never share one, and a decode block woven ahead of a prefill block
-// only delays it.  Blocks are dispatched roughly in index order, so the
+// a bf16 block holds a whole SM (the prefill body's 230,448 B of shared
+// memory, 230,464 B over a 1-byte arena, 168 registers x 384 threads at
+// launch), so the roles never share one, and a decode block woven ahead of
+// a prefill block only delays it.  Over a bf16 arena a prefill-role block
+// moves registers from its producer warpgroup to its consumers
+// (setmaxnreg, inside the body); a decode-role block never does and keeps
+// 168 a thread.  Blocks are dispatched roughly in index order, so the
 // prefill blocks (about one wave at serving chunks) start at once and the
 // decode blocks fill the SMs the prefill leaves, then the whole card; a
 // per-SM balancer is later work.
@@ -63,7 +66,8 @@ constexpr int smem_bytes() {
 }
 
 // chip_smoke's ptxas report gives F's bf16 shared memory as the prefill body's
-static_assert(smem_bytes<__nv_bfloat16, __nv_bfloat16>() == prefill::kTcSmemBytes &&
+static_assert(smem_bytes<__nv_bfloat16, __nv_bfloat16>() ==
+                      prefill::kTcSmemBytesFor<__nv_bfloat16> &&
                   smem_bytes<__nv_bfloat16, fp8>() == prefill::kTcSmemBytesFor<fp8>,
               "bf16 blocks carve the prefill body's buffer");
 
@@ -71,7 +75,7 @@ template <typename T>
 constexpr int kBlockThreads = kTensorCores<T> ? prefill::kTcThreads : prefill::kThreads;
 
 template <typename T, typename KV, int G>
-__global__ void __launch_bounds__(kBlockThreads<T>) pod_attention_kernel(
+__global__ void __launch_bounds__(kBlockThreads<T>, 1) pod_attention_kernel(
     const T* __restrict__ qp, const T* __restrict__ qd,
     const KV* __restrict__ cache, T* __restrict__ op, T* __restrict__ od,
     float* __restrict__ part, int* __restrict__ tickets,

@@ -61,5 +61,28 @@ extern "C" int vattn_prefill_smem_bytes(int dtype, int kv_dtype) {
   if (dtype != vattn::kBFloat16) return kSmemBytes;
   return kv_dtype == vattn::kFloat8E4M3 || kv_dtype == vattn::kInt8
              ? kTcSmemBytesFor<int8_t>
-             : kTcSmemBytes;
+             : kTcSmemBytesFor<__nv_bfloat16>;
+}
+
+namespace {
+template <typename KV, typename Rows>
+int role_regs(int consumer) {
+  using namespace vattn::prefill;
+  return consumer ? kTcConsumerRegs<KV, Rows> : kTcProducerRegs<KV, Rows>;
+}
+}  // namespace
+
+// Registers a thread of the bf16 body over `kv_dtype` keeps after
+// setmaxnreg: the producer warpgroup's (`consumer` 0) or the consumer
+// warpgroups' (`consumer` 1), for kernel G's extent table (`segments` 1)
+// or any other row map (0).
+extern "C" int vattn_prefill_role_regs(int kv_dtype, int segments,
+                                       int consumer) {
+  using vattn::prefill::Segments;
+  using vattn::prefill::TileRows;
+  if (kv_dtype == vattn::kFloat8E4M3 || kv_dtype == vattn::kInt8)
+    return segments ? role_regs<int8_t, Segments>(consumer)
+                    : role_regs<int8_t, TileRows>(consumer);
+  return segments ? role_regs<__nv_bfloat16, Segments>(consumer)
+                  : role_regs<__nv_bfloat16, TileRows>(consumer);
 }

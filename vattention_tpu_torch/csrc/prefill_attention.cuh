@@ -36,50 +36,68 @@
 // 2 or 3 tokens, and no row is idle).  Each row's causal and window limits
 // come from its own token.  A block never straddles a pad tile (the
 // launcher asks that pad_tile * G be a multiple of R), so its tokens share
-// one run.  The block walks 64-key tiles only up to
-// its causal diagonal, and under a window only from the first tile that
-// its first row sees (floor(max(0, pos0 - window + 1) / 64)): tiles wholly
-// before the window are neither copied nor multiplied, so at depth a
-// block's work scales with the window, not with kv_len.  It keeps an online
-// softmax per row in float32.
+// one run.  The block walks key tiles (128 keys in bf16, 64 over a
+// 1-byte arena, 32 in f32) only up to its causal diagonal, and under a
+// window only from the first tile that its first row sees (floor(max(0,
+// pos0 - window + 1) / tile)): tiles wholly before the window are neither
+// copied nor multiplied, so at depth a block's work scales with the
+// window, not with kv_len.  It keeps an online softmax per row in
+// float32.
 // Each key position resolves its own row, so a key tile may span several
-// table entries (blocks of 16 tokens under a 64-key tile).
+// table entries (blocks of 16 tokens under a 128-key tile).
 //   bfloat16 (prefill_tile_tc, 384 threads, 128 query rows): two
 //     consumer warpgroups own 64 rows each, wgmma's M, and a producer
-//     warpgroup fills a ring of kTcStages K/V tiles by cp.async
-//     (16-byte copies into the 128B-swizzled layout, zero-filled past the
-//     keys a tile needs; each key's row resolved once per tile, one tile
-//     ahead).  Copies report to a per-stage "full" mbarrier, consumers
-//     give a stage back through its "empty" mbarrier: no block barrier
-//     per tile.  Per key tile each consumer warpgroup computes S = Q K^T
-//     with 8 wgmma m64n64k16 (Q and K through smem descriptors, S in
+//     warpgroup fills a ring of K/V tiles by cp.async (16-byte copies into
+//     the 128B-swizzled layout, zero-filled past the keys a tile needs;
+//     each key's row resolved once per tile, one tile ahead).  Copies
+//     report to a per-stage "full" mbarrier, consumers give a stage back
+//     through its "empty" mbarrier: no block barrier per tile.  Per key
+//     tile each consumer warpgroup computes S = Q K^T with 8 wgmma
+//     m64nNk16, N the tile's keys (Q and K through smem descriptors, S in
 //     registers), updates the softmax in registers (each thread holds two
-//     rows; max across the row's 4 lanes by shuffles), rounds P to bf16
-//     in registers as the JAX kernel feeds p.astype(v.dtype) to its PV
-//     matmul, and adds P V to O with 4 wgmma m64n128k16 whose A is P's
-//     registers and whose B is V, MN-major (D contiguous: the transpose
-//     bit).  Step j issues S_j with P_{j-1} V_{j-1} and runs tile j's
-//     softmax under the latter (FA3's overlap inside a warpgroup).  O
-//     stays in registers and is written once, as O / l; no S, P or PV
-//     goes through shared memory.  Only tiles that cross a warpgroup's
-//     causal diagonal, kv_len or the window's leading edge test each key.
-//     The ring counts tiles from the block's first tile, so the producer
-//     and the consumers agree on stages and mbarrier phases whatever tile
-//     the walk starts at.  One block per SM
-//     (kTcSmemBytesFor<KV> of shared memory, 168 registers x 384 threads).
+//     rows; max across the row's 4 lanes by shuffles), rounds P to bf16 in
+//     registers as the JAX kernel feeds p.astype(v.dtype) to its PV
+//     matmul, and adds P V to O with N / 16 wgmma m64n128k16 whose A is
+//     P's registers and whose B is V, MN-major (D contiguous: the
+//     transpose bit).  Step j issues S_j with P_{j-1} V_{j-1} and runs
+//     tile j's softmax under the latter (FA3's overlap inside a
+//     warpgroup).  O stays in registers and is written once, as O / l; no
+//     S, P or PV goes through shared memory.  Only tiles that cross a
+//     warpgroup's causal diagonal, kv_len or the window's leading edge
+//     test each key.  The ring counts tiles from the block's first tile,
+//     so the producer and the consumers agree on stages and mbarrier
+//     phases whatever tile the walk starts at.  One block per SM
+//     (kTcSmemBytesFor<KV> of shared memory, 168 registers x 384 threads
+//     at launch).
+//     The tile: 128 keys in a 3-stage ring over a bf16 arena.  Per tile
+//     each consumer warpgroup reads its Q rows and the tile's K and V from
+//     shared memory; at 64 keys that was ~125 B a clock at the tensor
+//     cores' rate against the SM's 128, and each tile's fixed costs (the
+//     mbarrier wait, the fences, the two wgmma waits, the row-max
+//     shuffles, the rescale vote) came every 64 keys.  128 keys read Q
+//     once for twice the keys (~109 B a clock) and halve the fixed costs
+//     per key.  A consumer thread then holds S's 64 floats beside O's 64
+//     and P's 32 registers, more than the launch's 168: at the top of its
+//     role the producer warpgroup gives registers back (setmaxnreg.dec to
+//     kTcProducerRegs, 48; 64 in G) and the consumer warpgroups take them
+//     (setmaxnreg.inc to kTcConsumerRegs, 224; 216 in G), as FA3 does.
+//     The producer resolves rows as 32-bit numbers, so that these counts
+//     hold its copies with nothing spilled.  Over a 1-byte arena the tile stays
+//     64 keys in 4 stages (below), with 168 registers in every role.
 //   float32: the same algorithm on the CUDA cores (32-key tiles, 4
 //     threads per row), exact float32 products for the f32 test path.
 // K/V storage (the arena's type `KV`): the compute type, or 1 byte (e4m3 or
 // int8), widened exactly to the compute type before the products, as the
 // JAX kernel's upcast_kv does (ops/utils.py).  bfloat16: cp.async cannot
 // convert, so for 1-byte arenas the producer warpgroup copies each tile
-// by cp.async into a second ring of 1-byte tiles, kTcStages - 1 tiles
-// ahead, then widens each thread's own 16-byte chunks (16 values) to two
-// 16-byte bf16 chunks, stores them at the same swizzled offsets a bf16
-// arena's copies fill and arrives on the stage's full mbarrier itself: the
+// by cp.async into a second ring of 1-byte tiles, 3 tiles ahead, then
+// widens each thread's own 16-byte chunks (16 values) to two 16-byte bf16
+// chunks, stores them at the same swizzled offsets a bf16 arena's copies
+// fill and arrives on the stage's full mbarrier itself: the
 // consumers' wgmma loop, its descriptors and the bf16 ring do not change.
 // (Loads into registers, even one tile ahead, keep too few bytes in flight
-// to feed the consumers.)
+// to feed the consumers; and at 128 keys both rings fit only 2 stages
+// each, which measured slower than 64 keys in 4 + 4.)
 // float32: each element widens as it is staged (to_float).
 #pragma once
 
@@ -152,11 +170,10 @@ struct Segments {
     int cum[kMaxSegments + 1];
     int row[kMaxSegments];
     __device__ __forceinline__ long long operator()(int p) const {
-      long long r = 0;
+      int r = 0;  // an arena row: below 2^31
 #pragma unroll
       for (int j = 0; j < kMaxSegments; ++j)
-        if (p >= cum[j] && p < cum[j + 1])
-          r = static_cast<long long>(row[j]) + (p - cum[j]);
+        if (p >= cum[j] && p < cum[j + 1]) r = row[j] + (p - cum[j]);
       return r;
     }
   };
@@ -351,25 +368,43 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
 
 // ---- bfloat16 on the tensor cores (wgmma) ---------------------------- //
 constexpr int kTcRows = 128;              // query rows per block: 2 warpgroups x 64
-constexpr int kTcKeys = 64;               // keys per tile
 constexpr int kTcConsumers = 256;         // 2 warpgroups
 constexpr int kTcProducers = 128;         // 1 warpgroup of copies
 constexpr int kTcThreads = kTcConsumers + kTcProducers;
-constexpr int kTcStages = 4;              // K/V ring depth
 constexpr int kTcHalf = 128;              // bytes of one 64-element half row
 constexpr int kTcQBytes = kTcRows * kD * 2;          // Q: [2 halves][128 rows][128 B]
-constexpr int kTcKBytes = kTcKeys * kD * 2;          // K or V: [2 halves][64 keys][128 B]
-constexpr int kTcStageBytes = 2 * kTcKBytes;         // K then V
-constexpr int kTcSmemBytes =  // + slack to align to 1024, + the mbarriers
-    1024 + kTcQBytes + kTcStages * kTcStageBytes + 2 * 8 * kTcStages;
-// 1-byte K/V: a second ring of kTcStages 1-byte tiles (K then V, 128-byte
-// rows) after the mbarriers, which cp.async fills kTcStages - 1 tiles
-// ahead of the widening
-constexpr int kTcStage1Bytes = 2 * kTcKeys * kD;
+// Key tiles of the arena's type KV: over a bf16 arena 128 keys in a ring
+// of 3 stages; over a 1-byte arena 64 keys in 4 stages, beside a second
+// ring of 4 stages of 1-byte tiles (K then V, 128-byte rows), which
+// cp.async fills 3 tiles ahead of the widening.  (At 128 keys only 2 + 2
+// stages fit there, and they measured slower.)
 template <typename KV>
-constexpr int kTcSmemBytesFor =
-    kTcSmemBytes + (sizeof(KV) == 1 ? kTcStages * kTcStage1Bytes : 0);
-static_assert(kTcSmemBytesFor<int8_t> <= 232448, "fits an H100 block");
+constexpr int kTcKeysFor = sizeof(KV) == 1 ? 64 : 128;
+template <typename KV>
+constexpr int kTcStagesFor = sizeof(KV) == 1 ? 4 : 3;
+template <typename KV>
+constexpr int kTcSmemBytesFor =  // + slack to align to 1024, + the mbarriers
+    1024 + kTcQBytes + kTcStagesFor<KV> * (4 * kTcKeysFor<KV> * kD + 2 * 8) +
+    (sizeof(KV) == 1 ? kTcStagesFor<KV> * 2 * kTcKeysFor<KV> * kD : 0);
+static_assert(kTcSmemBytesFor<__nv_bfloat16> <= 232448 &&
+                  kTcSmemBytesFor<int8_t> <= 232448,
+              "fits an H100 block");
+// Registers a thread: the launch gives all 384 threads 168 each
+// (__launch_bounds__(kTcThreads, 1)).  At 128 keys setmaxnreg then takes
+// the producer warpgroup down to the fewest registers at which ptxas
+// spills nothing for its row map (48; 64 for G's extent table, whose 17
+// entries the producer holds) and gives the rest to the two consumer
+// warpgroups (224; 216 beside G's); the 64-key body keeps 168 in every
+// role.
+constexpr int kTcLaunchRegs = 168;
+template <typename KV, typename Rows>
+constexpr int kTcProducerRegs =
+    kTcKeysFor<KV> != 128 ? kTcLaunchRegs
+                          : std::is_same<Rows, Segments>::value ? 64 : 48;
+template <typename KV, typename Rows>
+constexpr int kTcConsumerRegs =
+    (kTcLaunchRegs * kTcThreads - kTcProducers * kTcProducerRegs<KV, Rows>) /
+    kTcConsumers / 8 * 8;
 
 // 2^x on the special-function unit, subnormal results flushed to zero (a
 // weight below 2^-126 of the row's largest)
@@ -386,8 +421,8 @@ __device__ __forceinline__ float ex2(float x) {
 // fold P's row sums into this thread's partial l.  Returns in alpha_a,
 // alpha_b the factors that carry O from the old maxima to the new ones.
 // `key0` is the first key this thread's S columns hold.
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float& m_a,
+template <bool kMask, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float& m_a,
                                              float& m_b, float& l_a,
                                              float& l_b, float& alpha_a,
                                              float& alpha_b, float scale,
@@ -400,7 +435,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float& m_a,
   };
   float mx_a = -INFINITY, mx_b = -INFINITY;  // raw scores
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const float v = masked(i) ? -INFINITY : s[i];
     if (i & 2)
       mx_b = fmaxf(mx_b, v);
@@ -422,7 +457,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float& m_a,
   m_b = mn_b;
   float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const float p =
         masked(i) ? 0.f : ex2(fmaf(s[i], scale, -((i & 2) ? mn_b : mn_a)));
     s[i] = p;
@@ -452,11 +487,17 @@ __device__ __forceinline__ void prefill_tile_tc(
     long long rows_total, int layer, float sm_scale, int window, int tile,
     int h, unsigned char* smem) {
   using namespace sm90;
+  constexpr int kKeys = kTcKeysFor<KV>;
+  constexpr int kStages = kTcStagesFor<KV>;
+  constexpr int kKBytes = kKeys * kD * 2;       // K or V: [2 halves][kKeys][128 B]
+  constexpr int kStageBytes = 2 * kKBytes;      // K then V
+  constexpr int kStage1Bytes = 2 * kKeys * kD;  // a 1-byte stage: K then V
+  constexpr int kProducerKeys = kKeys / 4;      // keys of a tile a producer warp copies
   const int tid = threadIdx.x;
   const uint32_t qs = (smem_addr(smem) + 1023u) & ~1023u;  // swizzle atoms
   const uint32_t ring = qs + kTcQBytes;
-  const uint32_t full = ring + kTcStages * kTcStageBytes;  // [kTcStages] mbarriers
-  const uint32_t empty = full + 8 * kTcStages;             // [kTcStages] mbarriers
+  const uint32_t full = ring + kStages * kStageBytes;  // [kStages] mbarriers
+  const uint32_t empty = full + 8 * kStages;           // [kStages] mbarriers
 
   const int group = hq / hkv;
   const int row0 = tile * kTcRows;        // the block's first flattened row
@@ -482,8 +523,8 @@ __device__ __forceinline__ void prefill_tile_tc(
   const int n_keys = min(kv_len, pos0 + ntok);  // causal diagonal of the tile
   // the walk: key tiles j0 .. j0 + n_tiles - 1, j0 the first tile that the
   // block's first row sees under a window; local tile j is key tile j0 + j
-  const int j0 = window > 0 ? max(0, pos0 - window + 1) / kTcKeys : 0;
-  const int n_tiles = (n_keys + kTcKeys - 1) / kTcKeys - j0;
+  const int j0 = window > 0 ? max(0, pos0 - window + 1) / kKeys : 0;
+  const int n_tiles = (n_keys + kKeys - 1) / kKeys - j0;
   if (n_tiles <= 0) {  // the empty run, or rows at least `window` past kv_len
     for (int i = tid; i < kTcRows * (kD / 8); i += kTcThreads)
       reinterpret_cast<uint4*>(out + row_offset(i >> 4))[i & 15] =
@@ -492,7 +533,7 @@ __device__ __forceinline__ void prefill_tile_tc(
   }
 
   if (tid == 0) {
-    for (int s = 0; s < kTcStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, kTcProducers);        // every producer thread
       mbar_init(empty + 8 * s, kTcConsumers);       // every consumer thread
     }
@@ -501,8 +542,10 @@ __device__ __forceinline__ void prefill_tile_tc(
   __syncthreads();
 
   if (tid >= kTcConsumers) {
-    // ---- producer: Q once, then K/V local tile j into stage j % kTcStages
-    // once the consumers have released local tile j - kTcStages there
+    // ---- producer: Q once, then K/V local tile j into stage j % kStages
+    // once the consumers have released local tile j - kStages there
+    if constexpr (kTcProducerRegs<KV, Rows> != kTcLaunchRegs)
+      setmaxnreg_dec<kTcProducerRegs<KV, Rows>>();
     const int ptid = tid - kTcConsumers;
     for (int i = ptid; i < kTcRows * (kD / 8); i += kTcProducers) {
       const int rr = i >> 4;
@@ -514,36 +557,36 @@ __device__ __forceinline__ void prefill_tile_tc(
     const KV* kbase = cache + (static_cast<long long>(layer * 2) * hkv + h) * head_stride;
     const KV* vbase = cache + (static_cast<long long>(layer * 2 + 1) * hkv + h) * head_stride;
     const auto row_of = rows.run(run, kv_len);
-    // warp w of the producer copies keys 16w .. 16w + 15 of each tile;
-    // its lanes l and l + 16 resolve key 16w + l % 16, once per tile and
-    // one tile ahead (a table read is never waited for where copies are
-    // issued); -1 past the keys the tile needs
+    // warp w of the producer copies keys kw .. kw + k - 1 of each tile (k
+    // = kProducerKeys); its lane l resolves key kw + l % k, once per tile
+    // and one tile ahead (a table read is never waited for where copies
+    // are issued), as a 32-bit row; -1 past the keys the tile needs
     const int lane = tid & 31;
-    const int key0 = 16 * (ptid >> 5);
-    auto key_row = [&](int j) -> long long {
-      const int p = (j0 + j) * kTcKeys + key0 + (lane & 15);
-      return p < n_keys ? row_of(p) : -1;
+    const int key0 = kProducerKeys * (ptid >> 5);
+    auto key_row = [&](int j) -> int {
+      const int p = (j0 + j) * kKeys + key0 + lane % kProducerKeys;
+      return p < n_keys ? static_cast<int>(row_of(p)) : -1;
     };
     if constexpr (sizeof(KV) == 2) {
-      long long next = key_row(0);
+      int next = key_row(0);
       for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kTcStages;
-        if (j >= kTcStages) mbar_wait(empty + 8 * s, ((j / kTcStages) - 1) & 1);
-        const long long mine = next;
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) - 1) & 1);
+        const int mine = next;
         next = key_row(j + 1);
-        const uint32_t ks = ring + s * kTcStageBytes;
+        const uint32_t ks = ring + s * kStageBytes;
         // copy i moves 16-byte chunk lane % 16 of keys key0 + 2i and
         // key0 + 2i + 1: each half-warp one contiguous 256-byte row
         const int c = lane & 15;
-        const uint32_t half = (c >> 3) * (kTcKeys * kTcHalf);
+        const uint32_t half = (c >> 3) * (kKeys * kTcHalf);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < kProducerKeys / 2; ++i) {
           const int k = 2 * i + (lane >> 4);
-          const long long row = __shfl_sync(0xffffffffu, mine, k);
-          const long long src = (row < 0 ? 0 : row) * kD + c * 8;
+          const int row = __shfl_sync(0xffffffffu, mine, k);
+          const long long src = static_cast<long long>(row < 0 ? 0 : row) * kD + c * 8;
           const uint32_t off = half + swizzle128(key0 + k, c & 7);
           cp_async16(ks + off, kbase + src, row >= 0);
-          cp_async16(ks + kTcKBytes + off, vbase + src, row >= 0);
+          cp_async16(ks + kKBytes + off, vbase + src, row >= 0);
         }
         cp_async_arrive(full + 8 * s);  // stage 0's first phase covers Q too
       }
@@ -553,21 +596,22 @@ __device__ __forceinline__ void prefill_tile_tc(
       // the keys the tile needs, into the 1-byte ring; a thread widens only
       // the chunks it copied, so its own cp.async groups order the ring
       // (the first group also holds Q's copies)
+      constexpr int kCopies = kProducerKeys / 4;  // of K, then of V
       const int c = lane & 7;
-      const uint32_t ring1 = empty + 8 * kTcStages;
-      constexpr int kLead = kTcStages - 1;
+      const uint32_t ring1 = empty + 8 * kStages;
+      constexpr int kLead = kStages - 1;
       auto issue = [&](int j) {
         if (j < n_tiles) {
-          const long long rows_of_tile = key_row(j);
-          const uint32_t st = ring1 + (j % kTcStages) * kTcStage1Bytes;
+          const int rows_of_tile = key_row(j);
+          const uint32_t st = ring1 + (j % kStages) * kStage1Bytes;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < kCopies; ++i) {
             const int k = 4 * i + (lane >> 3);
-            const long long row = __shfl_sync(0xffffffffu, rows_of_tile, k);
-            const long long src = (row < 0 ? 0 : row) * kD + c * 16;
+            const int row = __shfl_sync(0xffffffffu, rows_of_tile, k);
+            const long long src = static_cast<long long>(row < 0 ? 0 : row) * kD + c * 16;
             const uint32_t off = (key0 + k) * kD + c * 16;
             cp_async16(st + off, kbase + src, row >= 0);
-            cp_async16(st + kTcKeys * kD + off, vbase + src, row >= 0);
+            cp_async16(st + kKeys * kD + off, vbase + src, row >= 0);
           }
         }
         cp_async_commit();
@@ -579,27 +623,28 @@ __device__ __forceinline__ void prefill_tile_tc(
       const int first = 2 * c + odd;
       const int second = 4 * c + 1 - first;
       auto put = [&](int j) {
-        const int s = j % kTcStages;
-        if (j >= kTcStages) mbar_wait(empty + 8 * s, ((j / kTcStages) - 1) & 1);
-        const uint32_t ks = ring + s * kTcStageBytes;
-        const uint32_t st = ring1 + s * kTcStage1Bytes;
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) - 1) & 1);
+        const uint32_t ks = ring + s * kStageBytes;
+        const uint32_t st = ring1 + s * kStage1Bytes;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int k = key0 + 4 * (i & 3) + (lane >> 3);
+        for (int i = 0; i < 2 * kCopies; ++i) {
+          const int kv = i / kCopies;  // 0: K, 1: V
+          const int k = key0 + 4 * (i % kCopies) + (lane >> 3);
           uint4 x, lo, hi;
           asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
                        : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w)
-                       : "r"(st + (i >> 2) * (kTcKeys * kD) + k * kD + c * 16)
+                       : "r"(st + kv * (kKeys * kD) + k * kD + c * 16)
                        : "memory");
           widen16_bf16<KV>(x, lo, hi);
-          const uint32_t base = ks + (i >> 2) * kTcKBytes;
+          const uint32_t base = ks + kv * kKBytes;
           const uint4 a = odd ? hi : lo, b = odd ? lo : hi;
           asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                           base + (first >> 3) * (kTcKeys * kTcHalf) + swizzle128(k, first & 7)),
+                           base + (first >> 3) * (kKeys * kTcHalf) + swizzle128(k, first & 7)),
                        "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w)
                        : "memory");
           asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                           base + (second >> 3) * (kTcKeys * kTcHalf) + swizzle128(k, second & 7)),
+                           base + (second >> 3) * (kKeys * kTcHalf) + swizzle128(k, second & 7)),
                        "r"(b.x), "r"(b.y), "r"(b.z), "r"(b.w)
                        : "memory");
         }
@@ -620,6 +665,8 @@ __device__ __forceinline__ void prefill_tile_tc(
 
   // ---- consumers: thread's rows in wgmma's accumulator layout: warpgroup
   // wg owns block rows 64*wg .. 64*wg + 63, warp w of it rows 16w .. 16w+15
+  if constexpr (kTcConsumerRegs<KV, Rows> != kTcLaunchRegs)
+    setmaxnreg_inc<kTcConsumerRegs<KV, Rows>>();
   const int wg = tid >> 7;
   const int lane = tid & 31;
   const int r_a = 64 * wg + 16 * ((tid & 127) >> 5) + (lane >> 2);
@@ -637,39 +684,41 @@ __device__ __forceinline__ void prefill_tile_tc(
   float o[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) o[i] = 0.f;
-  float s[32];
-  uint32_t pa[4][4];  // P of the previous tile as wgmma's register A
+  float s[kKeys / 2];
+  uint32_t pa[kKeys / 16][4];  // P of the previous tile as wgmma's register A
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 
   auto wait_tile = [&](int j) {  // tile j (and, for j = 0, Q) landed
-    mbar_wait(full + 8 * (j % kTcStages), (j / kTcStages) & 1);
+    mbar_wait(full + 8 * (j % kStages), (j / kStages) & 1);
     fence_async_shared();
   };
   // S = Q K_j^T: 8 steps of 16 along D, the second 4 in the second half
   auto issue_s = [&](int j) {
-    const uint32_t ks = ring + (j % kTcStages) * kTcStageBytes;
+    const uint32_t ks = ring + (j % kStages) * kStageBytes;
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
       const uint32_t off = (kk & 3) * 32;  // 16 bf16 within the 128-byte row
-      wgmma_m64n64k16_ss(
-          s, desc128(qwg + (kk >> 2) * (kTcRows * kTcHalf) + off, 16, 1024),
-          desc128(ks + (kk >> 2) * (kTcKeys * kTcHalf) + off, 16, 1024),
-          kk > 0);
+      const uint64_t a = desc128(qwg + (kk >> 2) * (kTcRows * kTcHalf) + off, 16, 1024);
+      const uint64_t b = desc128(ks + (kk >> 2) * (kKeys * kTcHalf) + off, 16, 1024);
+      if constexpr (kKeys == 128)
+        wgmma_m64n128k16_ss(s, a, b, kk > 0);
+      else
+        wgmma_m64n64k16_ss(s, a, b, kk > 0);
     }
     wgmma_commit();
   };
-  // O += P V_j: 4 steps of 16 keys; V's halves (D 0-63, 64-127) are the
+  // O += P V_j: steps of 16 keys; V's halves (D 0-63, 64-127) are the
   // two 64-column atoms, 8 keys apart by 1024 bytes
   auto issue_pv = [&](int j) {
-    const uint32_t vs = ring + (j % kTcStages) * kTcStageBytes + kTcKBytes;
+    const uint32_t vs = ring + (j % kStages) * kStageBytes + kKBytes;
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < kKeys / 16; ++kk)
       wgmma_m64n128k16_rs(o, pa[kk],
-                          desc128(vs + kk * 16 * kTcHalf, kTcKeys * kTcHalf, 1024));
+                          desc128(vs + kk * 16 * kTcHalf, kKeys * kTcHalf, 1024));
     wgmma_commit();
   };
   // local tile j's softmax on S (landed); only tiles crossing the
@@ -678,9 +727,9 @@ __device__ __forceinline__ void prefill_tile_tc(
   // = 1: it adds nothing
   auto softmax = [&](int j, float& alpha_a, float& alpha_b) {
     fence_regs(s);
-    const int k0 = (j0 + j) * kTcKeys;
+    const int k0 = (j0 + j) * kKeys;
     const int key0 = k0 + 2 * (lane & 3);
-    if (k0 + kTcKeys > kv_len || k0 + kTcKeys - 1 > wg_first || k0 < wg_low)
+    if (k0 + kKeys > kv_len || k0 + kKeys - 1 > wg_first || k0 < wg_low)
       softmax_tile<true>(s, m_a, m_b, l_a, l_b, alpha_a, alpha_b, scale, key0,
                          lim_a, lim_b, low_a, low_b);
     else
@@ -696,7 +745,7 @@ __device__ __forceinline__ void prefill_tile_tc(
       for (int i = 0; i < 64; ++i) o[i] *= (i & 2) ? alpha_b : alpha_a;
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
       pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
       pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
       pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -721,7 +770,7 @@ __device__ __forceinline__ void prefill_tile_tc(
     softmax(j, alpha_a, alpha_b);
     wgmma_wait<0>();  // P_{j-1} V_{j-1} landed: pa, o and tile j-1 are free
     fence_regs(o);
-    mbar_arrive(empty + 8 * ((j - 1) % kTcStages));
+    mbar_arrive(empty + 8 * ((j - 1) % kStages));
     rescale_and_pack(alpha_a, alpha_b);
   }
   issue_pv(n_tiles - 1);

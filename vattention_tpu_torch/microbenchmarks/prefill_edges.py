@@ -2,21 +2,25 @@
 card, held against the plain versions and against each other.
 
 One multi-run launch holds runs whose (q_start, kv_len) reach the body's
-tile logic: kv_len 1, 63, 64, 65 and 200; a depth past 4096 that is no
-multiple of 64; q_start 40, 56 and 60 mod 64, where a 64-key tile lies
-wholly above one warpgroup's rows (it skips the tile) or above some rows
-of a warpgroup that still runs it (all their keys there are masked); and
-the empty run (kv_len 0) that fixed-width padding maps a tail tile to.
-With a sliding ``window`` every kernel takes it, and one more run, q_start
-``window + 40`` at kv_len ``window + 300``, puts the window's edge inside
-a chunk; every row of the other runs past ``window`` then has its first
-key at ``q - window + 1``, which falls on, before and after 64-key tile
-edges across the runs' q_starts.
+tile logic: kv_len 1, 63, 64, 65, 127, 128, 129, 200 and 257 (about the
+bf16 body's 128-key tile edges over a bf16 arena and its 64-key ones over
+a 1-byte arena); a
+depth past 4096 that is no multiple of 64; q_start 40, 56 and 60 mod 64,
+and 104, 120 and 124 mod 128, where a key tile lies wholly above one
+warpgroup's rows (it skips the tile) or above some rows of a warpgroup
+that still runs it (all their keys there are masked); and the empty run
+(kv_len 0) that fixed-width padding maps a tail tile to.  With a sliding
+``window`` every kernel takes it, and two more runs, q_start
+``window + 40`` at kv_len ``window + 300`` and ``window + 100`` at
+``window + 420``, put the window's edge inside a chunk, the second past
+the middle of a 128-key tile; every row of the other runs past
+``window`` then has its first key at ``q - window + 1``, which falls on,
+before and after key tile edges across the runs' q_starts.
 
 - B runs twice: over E's rows (block tables of 16-token blocks drawn as a
   seeded permutation of the pool, every entry past a run's last valid
   block set to 2**30) and over G's rows (per run up to 4 extents cut at
-  unaligned positions, so extents split 64-key tiles); each is held
+  unaligned positions, so extents split key tiles); each is held
   against its plain version with ``check_attention``.
 - E must equal B on E's rows, F's prefill output B on E's rows, and F's
   decode output C on the same slots, bit for bit.
@@ -43,7 +47,8 @@ from vattention_tpu_torch.ops.utils import cdiv, tile_rows_from_segments
 # (q_start, kv_len) of each run (its chunk: kv_len - q_start tokens), then
 # the empty run
 EDGE_RUNS = [(0, 1), (0, 63), (0, 64), (1, 65), (0, 200), (3900, 4133),
-             (40, 170), (56, 300), (60, 190), (0, 0)]
+             (40, 170), (56, 300), (60, 190), (0, 127), (0, 128), (1, 129),
+             (0, 257), (104, 330), (248, 400), (124, 260), (0, 0)]
 BLOCK = 16          # E's and H's block size, C's sub for F's decode slots
 POISON = 2 ** 30
 PAD = 128           # pad_tile: the scheduler's q charge unit
@@ -78,7 +83,8 @@ def _tables(rng_perm, depths, width: int) -> np.ndarray:
 
 def edge_runs(window=None):
     """(q_start, kv_len) of each run, the empty run last."""
-    extra = [(window + 40, window + 300)] if window else []
+    extra = ([(window + 40, window + 300), (window + 100, window + 420)]
+             if window else [])
     return EDGE_RUNS[:-1] + extra + EDGE_RUNS[-1:]
 
 
@@ -86,7 +92,7 @@ def check_prefill_edges(cache: torch.Tensor, hq: int, layer: int,
                         seed: int = 0, sm_scale: float | None = None,
                         out_scale: float = 1.0, window=None):
     """The cases above over ``cache`` ([L, 2, Hkv, R, D] on the card, R >=
-    8192, or 8192 + ``window`` + 300 under a window; a 1-byte arena is read
+    8192, or 8192 + 2 * ``window`` + 720 under a window; a 1-byte arena is read
     by bf16 queries; an int8 arena's step goes in ``sm_scale`` and
     ``out_scale``) with ``hq`` query heads drawn from ``seed``, every
     kernel under ``window`` (None: none).  Raises on the first failure;

@@ -27,8 +27,8 @@ G = 128, 128/G for G = 1, 2, 4, 8, 128 for G = 71 in bf16);
 (config.PREFILL_TOKEN_PAD = 128), which every group fits.  Dropped TPU devices: ``kv_fetch``,
 ``seq_tile``, static kv grids and their buckets -- the kernel walks each
 q tile's keys to its causal diagonal, and under a window from the first
-64-key tile its first row sees, so tiles wholly before the window are
-neither read nor multiplied.
+key tile (128 keys in bf16, 32 in f32) its first row sees, so tiles
+wholly before the window are neither read nor multiplied.
 
 Bound on the H100: operations at serving depth (4*Hq*D FLOPs per attended
 (query, key) pair).  Design: csrc/prefill_attention.cuh -- a block per
